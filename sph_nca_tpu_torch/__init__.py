@@ -1,0 +1,42 @@
+"""sph_nca_tpu_torch — the SPH Neural Cellular Automata port to PyTorch + CUDA.
+
+The counterpart of ``sph_nca_tpu`` (JAX/Pallas), written for an NVIDIA
+Hopper GPU. The layout mirrors the JAX package so each counterpart is easy
+to find:
+
+  ops/       SPH kernel functions, the cell engine, the pair-pass kernels
+  csrc/      the hand-written sm_90a CUDA kernels (built with plain nvcc)
+  models/    the NCA model and the cell-engine step / rollouts
+  io/        JSON weight loading, and carrying JAX weights across
+  utils/     grids and seeds
+  cli/       the inference command line
+
+Every kernel has a plain PyTorch version beside it. A wrapper uses the plain
+version only for tensors on the CPU; for a CUDA tensor it launches the kernel
+or raises. Entry points default to ``device="cuda"`` and raise when no card is
+present; the tests pass ``device="cpu"``.
+
+This module imports no submodule: importing the package needs no card, no
+compiler and no JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The torch device an entry point runs on.
+
+    Raises if a CUDA device is asked for and none is present: the port never
+    falls back to the CPU on its own; pass ``device="cpu"`` for that.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path"
+        )
+    return dev

@@ -1,0 +1,107 @@
+"""Build the CUDA kernels with plain nvcc and load them with ctypes.
+
+One ``nvcc`` call compiles ``sph_nca_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
+a shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds). The library lands in ``sph_nca_tpu_torch/_build/`` under a name
+carrying the hash of the sources and flags: it is built at first use and again
+only when a source changes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives."""
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libsph_nca_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless the library for these sources exists.
+    Returns the library path; raises with nvcc's output on failure."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        if verbose:
+            print(proc.stdout + proc.stderr, flush=True)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the launchers' C signatures."""
+    lib = ctypes.CDLL(str(build()))
+    lib.sph_fwd_launch.argtypes = [
+        _P, _P, _P, _P, _P, _P,  # xs_b, S, ab, xw_b, vw_b, win
+        _I, _I, _I, _I, _I, _I, _I,  # nb, D, F, P, M, W, Wu
+        _F, _F, _F, _F, _I,  # h, sig_w, sig_g, thr, use_alpha
+        _P, _P, _P,  # ga, sm, stream
+    ]
+    lib.sph_fwd_launch.restype = _I
+    lib.sph_mask_launch.argtypes = [
+        _P, _P, _P, _P, _P,  # xs_b, S, xw_b, vw_b, win
+        _I, _I, _I, _I, _I, _I, _I,  # nb, D, F, P, M, W, Wu
+        _F, _F, _F, _I,  # h, sig_w, thr, use_alpha
+        _P, _P,  # sm, stream
+    ]
+    lib.sph_mask_launch.restype = _I
+    return lib

@@ -1,0 +1,431 @@
+"""Cell-dense SPH engine: the layout the pair-pass kernels run over.
+
+Counterpart of ``sph_nca_tpu/ops/cells.py`` for ``pair_tables=None`` and
+``n_shards=1``. Particles live in a cell-dense layout S [C, M, F]: one row
+block per occupied SUBCELL (fat cells split into M=8-slot subcells),
+Morton-ordered then regrouped by window size. Padded slots sit at PAD_POS, so
+every kernel weight against them is exactly 0.
+
+The pair kernels process one BLOCK of BG=8 consecutive subcells per program
+against the union of their stencil windows ([BG*M, Wu*M] pair tiles). Blocks
+come in two buckets sorted by union-window size (``blk_*``: the first ~75% at a
+tight width, ``blk2_*``: the tail at the max width).
+
+The build runs in numpy on the host, exactly as the JAX build does, and the
+results move to the device at the end. Integer layouts equal the JAX build's.
+
+Not ported yet (they serve the XLA einsum path and the backward, which come
+with the training slice): the pair-weight tables ``Tw`` / ``Tg``, the adjoint
+self term ``gsum``, the einsum operators and the optional pair tables.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import numpy as np
+import torch
+
+from .. import resolve_device
+from . import kernels as K
+from .hashgrid import _stencil_offsets
+
+# Padded slot position: far enough that h^2 - d^2 is hugely negative and
+# every smoothing kernel evaluates to exactly 0 in f32.
+PAD_POS = 1.0e6
+
+# Subcells per pair-kernel block: P = BG * M = 64 block rows.
+BG = 8
+
+
+@dataclasses.dataclass
+class CellEngine:
+    """Static per-geometry structure, as torch tensors on one device.
+
+    C = number of (padded) subcells, M = slot capacity per subcell,
+    W = window cell capacity, N = particles, P = BG*M block rows.
+    Positions of the block structures are stored COORDINATE-MAJOR
+    ([D, P] / [D, W]), in the frame of the block's first cell, with periodic
+    shifts baked in.
+    """
+
+    slot_of_particle: torch.Tensor  # [N] int64 -> flat slot id (cell*M+slot)
+    xs: torch.Tensor  # [C, M, D] cell-local slot positions (pad: PAD_POS)
+    vs: torch.Tensor  # [C, M] slot volumes (pad: 0)
+    win_cells: torch.Tensor  # [C, W] int32 cell ids (pad -> cell 0)
+    xw: torch.Tensor  # [C, W*M, D] window positions, cell frame
+    vw: torch.Tensor  # [C, W*M] window volumes
+    blk_xs: torch.Tensor  # [nb1, D, P] block rows, block frame
+    blk_win_cells: torch.Tensor  # [nb1, Wu1] int32
+    blk_xw: torch.Tensor  # [nb1, D, Wu1*M]
+    blk_vw: torch.Tensor  # [nb1, Wu1*M]
+    blk2_xs: torch.Tensor  # [nb2, D, P]
+    blk2_win_cells: torch.Tensor  # [nb2, Wu]
+    blk2_xw: torch.Tensor  # [nb2, D, Wu*M]
+    blk2_vw: torch.Tensor  # [nb2, Wu*M]
+    # constants, float32-exact Python floats
+    h: float
+    sig_w: float  # smoothing normalization sigma_W
+    sig_g: float  # gradient normalization sigma_g
+
+    @property
+    def device(self) -> torch.device:
+        return self.xs.device
+
+    @property
+    def num_cells(self) -> int:
+        return self.win_cells.shape[0]
+
+    @property
+    def slots_per_cell(self) -> int:
+        return self.xs.shape[1]
+
+    @property
+    def num_particles(self) -> int:
+        return self.slot_of_particle.shape[0]
+
+    # -- layout conversion -------------------------------------------------
+
+    def scatter(self, A: torch.Tensor) -> torch.Tensor:
+        """[N, F] particle-order values -> [C, M, F] cell layout
+        (padded slots are zero)."""
+        c, m = self.num_cells, self.slots_per_cell
+        flat = A.new_zeros((c * m, A.shape[-1]))
+        flat[self.slot_of_particle] = A
+        return flat.reshape(c, m, A.shape[-1])
+
+    def gather_back(self, S: torch.Tensor) -> torch.Tensor:
+        """[C, M, F] cell layout -> [N, F] particle order."""
+        c, m = self.num_cells, self.slots_per_cell
+        return S.reshape(c * m, S.shape[-1])[self.slot_of_particle]
+
+    # -- window gathers ----------------------------------------------------
+
+    def window(self, S: torch.Tensor) -> torch.Tensor:
+        """Per-cell window states: [C, M, F] -> [C, W*M, F] (one
+        cell-granularity gather; padded entries read cell 0, whose values
+        never contribute because their positions sit at PAD_POS)."""
+        c, m = self.num_cells, self.slots_per_cell
+        f = S.shape[-1]
+        return S.reshape(c, m * f)[self.win_cells.long()].reshape(
+            c, self.win_cells.shape[1] * m, f
+        )
+
+    def block_window(self, S: torch.Tensor, bucket: int = 1) -> torch.Tensor:
+        """[C, M, F] -> [nb_i, Wu_i*M, F] union-window states of one
+        bucket (one gather)."""
+        c, m = self.num_cells, self.slots_per_cell
+        f = S.shape[-1]
+        wc = self.blk_win_cells if bucket == 1 else self.blk2_win_cells
+        nb, wu = wc.shape
+        return S.reshape(c, m * f)[wc.long()].reshape(nb, wu * m, f)
+
+
+def _morton_code(c: np.ndarray) -> np.ndarray:
+    """Interleave coordinate bits -> Z-order code. c: [C, D] non-negative."""
+    c = np.asarray(c, np.int64)
+    nbits = max(1, int(np.max(c)).bit_length())
+    d = c.shape[1]
+    code = np.zeros(len(c), np.int64)
+    for bit in range(nbits):
+        for ax in range(d):
+            code |= ((c[:, ax] >> bit) & 1) << (d * bit + ax)
+    return code
+
+
+def _hilbert_code(c: np.ndarray) -> np.ndarray:
+    """Hilbert-curve index of integer cells c [C, D] (vectorized Skilling
+    AxesToTranspose, AIP CP 707:381, 2004)."""
+    X = np.array(c, np.int64, copy=True)
+    n, d = X.shape
+    if d == 1:
+        return X[:, 0].copy()
+    nbits = max(1, int(np.max(X)).bit_length())
+    M = np.int64(1) << (nbits - 1)
+
+    # inverse undo excess work
+    Q = M
+    while Q > 1:
+        P = Q - 1
+        for i in range(d):
+            hi = (X[:, i] & Q) != 0
+            t = np.where(hi, 0, (X[:, 0] ^ X[:, i]) & P)
+            X[:, 0] = np.where(hi, X[:, 0] ^ P, X[:, 0]) ^ t
+            X[:, i] ^= t
+        Q >>= 1
+
+    # Gray encode
+    for i in range(1, d):
+        X[:, i] ^= X[:, i - 1]
+    t = np.zeros(n, np.int64)
+    Q = M
+    while Q > 1:
+        t = np.where((X[:, d - 1] & Q) != 0, t ^ (Q - 1), t)
+        Q >>= 1
+    for i in range(d):
+        X[:, i] ^= t
+
+    # transpose form -> scalar index: bit b of axis i lands at b*D + (D-1-i)
+    code = np.zeros(n, np.int64)
+    for bit in range(nbits):
+        for i in range(d):
+            code |= ((X[:, i] >> bit) & 1) << (bit * d + (d - 1 - i))
+    return code
+
+
+def build_cell_engine(
+    x,
+    h: float,
+    *,
+    period=None,
+    device="cuda",
+) -> CellEngine:
+    """Build the engine for concrete positions ``x`` [N, D] (host-side,
+    one-time), then move it to ``device``.
+
+    Same layout as ``sph_nca_tpu.ops.cells.build_cell_engine(x, h,
+    period=..., n_shards=1, pair_tables=None)`` with its default capacities
+    (M = 8 slots per subcell, the cell count padded to a multiple of 16).
+    Cells are keyed by their true floor coordinates; for periodic domains
+    cells tile the period exactly (cell_size_d = period_d / floor(period_d /
+    h)) and window copies of wrapped cells carry a whole-period shift.
+    """
+    dev = resolve_device(device)
+    x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float32)
+    n, d = x.shape
+
+    per = None if period is None else np.broadcast_to(
+        np.asarray(period, np.float64), (d,)
+    ).astype(np.float64)
+    if per is not None:
+        ncell = np.maximum(np.floor(per / h).astype(np.int64), 3)
+        cell_size = per / ncell
+    else:
+        ncell = None
+        cell_size = np.full(d, float(h), np.float64)
+
+    fl = np.floor(x.astype(np.float64) / cell_size).astype(np.int64)  # [N, D]
+    fl_canon = np.mod(fl, ncell) if per is not None else fl
+
+    # occupied cells, renumbered in Morton order
+    occ, inv, counts = np.unique(
+        fl_canon, axis=0, return_inverse=True, return_counts=True
+    )
+    inv = inv.ravel()
+    n_geo = len(occ)
+    perm = np.argsort(_morton_code(occ - occ.min(axis=0)), kind="stable")
+    occ = occ[perm]
+    counts = counts[perm]
+    newid = np.empty(n_geo, np.int64)
+    newid[perm] = np.arange(n_geo)
+    inv = newid[inv]
+
+    # subcell split: at most M slots per subcell
+    M = 8
+    n_sub = np.maximum(1, -(-counts // M))
+    sub_start = np.concatenate([[0], np.cumsum(n_sub)])
+    C = int(sub_start[-1])
+    geo_of_sub = np.repeat(np.arange(n_geo), n_sub)
+    occ_geo = occ
+    occ = occ[geo_of_sub]
+
+    order = np.argsort(inv, kind="stable")
+    cell_starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot_in_cell = np.zeros(n, np.int64)
+    slot_in_cell[order] = np.arange(n) - np.repeat(cell_starts, counts)
+    sub_of_particle = sub_start[inv] + slot_in_cell // M
+    slot_of_particle = sub_of_particle * M + slot_in_cell % M
+    inv = sub_of_particle
+
+    # cell-local positions
+    origins = occ.astype(np.float64) * cell_size  # [C, D]
+    xs = np.full((C + 1, M, d), PAD_POS, np.float32)
+    if per is not None:
+        x_canon = x.astype(np.float64) - (fl - fl_canon) * cell_size
+    else:
+        x_canon = x.astype(np.float64)
+    xs.reshape(-1, d)[slot_of_particle] = (x_canon - origins[inv]).astype(
+        np.float32
+    )
+
+    # ---- windows: stencil hits resolved with one searchsorted ------------
+    offsets = _stencil_offsets(d)
+    n_off = len(offsets)
+    fmin = occ_geo.min(axis=0)
+    span = occ_geo.max(axis=0) - fmin + 1
+    strides = np.cumprod(np.concatenate([[1], span[::-1][:-1]]))[::-1]
+    key_order = np.argsort(occ_geo @ strides, kind="stable")
+    keys_sorted = (occ_geo @ strides)[key_order] - fmin @ strides
+
+    T = occ[:, None, :] + offsets[None, :, :]  # [C, n_off, D] true floors
+    if per is not None:
+        t_canon = np.mod(T, ncell)
+        wrap_f = ((T - t_canon) // ncell).astype(np.float64) * per
+    else:
+        t_canon = T
+        wrap_f = np.zeros(T.shape, np.float64)
+    in_range = np.all((t_canon >= fmin) & (t_canon < fmin + span), axis=-1)
+    q_key = (t_canon - fmin) @ strides
+    pos = np.minimum(np.searchsorted(keys_sorted, q_key), len(keys_sorted) - 1)
+    found = in_range & (keys_sorted[pos] == q_key)
+    g = np.where(found, key_order[pos], 0)
+    cnt = np.where(found, n_sub[g], 0).ravel()
+
+    E = int(cnt.sum())
+    ent_rows = np.repeat(np.arange(C * n_off), cnt)
+    ent_c = ent_rows // n_off
+    grp_start = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    ent_j = sub_start[g.ravel()[ent_rows]] + (
+        np.arange(E) - np.repeat(grp_start, cnt)
+    )
+    wcnt = np.bincount(ent_c, minlength=C)
+
+    # pad the cell count to a multiple of 16 (padding cells have empty
+    # windows and PAD_POS slots)
+    C_pad = int(math.ceil(C / 16)) * 16
+    if C_pad != C:
+        xs = np.concatenate(
+            [xs[:C], np.full((C_pad - C, M, d), PAD_POS, np.float32), xs[C:]]
+        )
+
+    Wc = int(wcnt.max())
+    win_cells = np.zeros((C_pad, Wc), np.int32)
+    win_shift = np.full((C_pad, Wc, d), PAD_POS, np.float32)
+    ent_shift = (
+        origins[ent_j] + wrap_f.reshape(-1, d)[ent_rows] - origins[ent_c]
+    ).astype(np.float32)
+    wstart = np.concatenate([[0], np.cumsum(wcnt)[:-1]])
+    wpos = np.arange(E) - np.repeat(wstart, wcnt)
+    win_cells[ent_c, wpos] = ent_j
+    win_shift[ent_c, wpos] = ent_shift
+    C = C_pad
+
+    xw = (xs[win_cells] + win_shift[:, :, None, :]).reshape(C, Wc * M, d)
+
+    # ---- block structure: BG consecutive cells share a union window -----
+    nb = C // BG
+    origins_pad = np.zeros((C, d))
+    origins_pad[: len(origins)] = origins
+    ent_b = ent_c // BG
+    # one f64 -> f32 rounding of the block-frame total shift, so the self
+    # copy of a row's own subcell is bitwise equal to the row position
+    ent_total = (
+        origins[ent_j] + wrap_f.reshape(-1, d)[ent_rows]
+        - origins_pad[ent_b * BG]
+    ).astype(np.float32)
+    qshift = np.round(ent_total / max(float(h), 1e-9)).astype(np.int64)
+    uniq, first = np.unique(
+        np.concatenate([ent_b[:, None], ent_j[:, None], qshift], axis=1),
+        axis=0, return_index=True,
+    )
+    u_b = uniq[:, 0]
+    u_j = uniq[:, 1]
+    u_total = ent_total[first]
+    sizes = np.bincount(u_b, minlength=nb)
+
+    # ---- window-size bucketing: blocks sorted by union size --------------
+    border = np.argsort(sizes, kind="stable")
+    old_cells = (border[:, None] * BG + np.arange(BG)).reshape(-1)
+    newid = np.empty(C, np.int64)
+    newid[old_cells] = np.arange(C)
+    xs = np.concatenate([xs[:C][old_cells], xs[C:]])
+    origins_pad = origins_pad[old_cells]
+    win_cells = newid[win_cells[old_cells]].astype(np.int32)
+    xw = xw[old_cells]
+    slot_of_particle = newid[slot_of_particle // M] * M + slot_of_particle % M
+    inv_border = np.empty(nb, np.int64)
+    inv_border[border] = np.arange(nb)
+    u_b = inv_border[u_b]
+    u_j = newid[u_j]
+    sizes = sizes[border]
+
+    # bucket split at ~p75
+    nb1 = int(np.clip(round(0.75 * nb), 1, nb))
+    if sizes[nb1 - 1] == sizes[-1]:
+        nb1 = nb  # no tail to separate
+    Wu1 = max(1, int(sizes[:nb1].max()))
+    Wu = max(1, int(sizes.max()))
+    if nb1 == nb:
+        Wu1 = Wu
+
+    blk_win_cells = np.zeros((nb, Wu), np.int32)
+    blk_shift = np.full((nb, Wu, d), PAD_POS, np.float32)
+    ord_u = np.argsort(u_b, kind="stable")
+    ub_s = u_b[ord_u]
+    bcnt = np.bincount(ub_s, minlength=nb)
+    bstart = np.concatenate([[0], np.cumsum(bcnt)[:-1]])
+    bpos = np.arange(len(ub_s)) - np.repeat(bstart, bcnt)
+    blk_win_cells[ub_s, bpos] = u_j[ord_u]
+    blk_shift[ub_s, bpos] = u_total[ord_u]
+
+    blk_xw_full = xs[blk_win_cells] + blk_shift[:, :, None, :]  # [nb,Wu,M,D]
+    row_shift = origins_pad - origins_pad[(np.arange(C) // BG) * BG]
+    blk_xs_full = (xs[:C] + row_shift[:, None, :].astype(np.float32)).reshape(
+        nb, BG * M, d
+    ).transpose(0, 2, 1)  # [nb, D, P]
+
+    def bucket_arrays(lo, hi, wu):
+        wc = np.ascontiguousarray(blk_win_cells[lo:hi, :wu])
+        bxw = blk_xw_full[lo:hi, :wu].reshape(hi - lo, wu * M, d)
+        return (wc, np.ascontiguousarray(bxw.transpose(0, 2, 1)),
+                np.ascontiguousarray(blk_xs_full[lo:hi]))
+
+    win1, xw1, xs1 = bucket_arrays(0, nb1, Wu1)
+    win2, xw2, xs2 = bucket_arrays(nb1, nb, Wu)
+
+    h32 = np.float32(h)
+    sig_w = np.float32(K.poly6_norm(h, d))
+    sig_g = np.float32(K.spiky_norm(h, d))
+
+    # volumes v = 1 / (sigma_W sum_w W(d2)) from the block structures; the
+    # union window is a superset of each row's cell window and the extra
+    # entries lie beyond h, where W == 0
+    inv_vol = np.concatenate([
+        _blk_vol_rows(xs1, xw1, h32, sig_w),
+        _blk_vol_rows(xs2, xw2, h32, sig_w),
+    ])  # [nb, P] in block order == cell order
+    pad_slot = (xs[:C] >= PAD_POS / 2).any(-1)  # [C, M]
+    v = np.where(inv_vol > 0.0, 1.0 / np.maximum(inv_vol, 1e-30), 0.0)
+    vs = np.where(pad_slot, 0.0, v.reshape(C, M)).astype(np.float32)
+    vw = vs[win_cells].reshape(C, Wc * M)
+    blk_vw = vs[win1].reshape(win1.shape[0], win1.shape[1] * M)
+    blk2_vw = vs[win2].reshape(win2.shape[0], win2.shape[1] * M)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dtype=dtype,
+                                                           device=dev)
+
+    return CellEngine(
+        slot_of_particle=t(slot_of_particle, torch.int64),
+        xs=t(xs[:C]),
+        vs=t(vs),
+        win_cells=t(win_cells, torch.int32),
+        xw=t(xw),
+        vw=t(vw),
+        blk_xs=t(xs1),
+        blk_win_cells=t(win1, torch.int32),
+        blk_xw=t(xw1),
+        blk_vw=t(blk_vw),
+        blk2_xs=t(xs2),
+        blk2_win_cells=t(win2, torch.int32),
+        blk2_xw=t(xw2),
+        blk2_vw=t(blk2_vw),
+        h=float(h32),
+        sig_w=float(sig_w),
+        sig_g=float(sig_g),
+    )
+
+
+def _blk_vol_rows(xs_b: np.ndarray, xw_b: np.ndarray, h, sig_w,
+                  chunk: int = 64) -> np.ndarray:
+    """Inverse volumes per block row, sig_W sum_w W(d2) -> [nb, P], in f32
+    with d2 from direct per-axis differences (chunked over blocks)."""
+    out = np.zeros((xs_b.shape[0], xs_b.shape[2]), np.float32)
+    for c0 in range(0, xs_b.shape[0], chunk):
+        diff = xw_b[c0 : c0 + chunk, :, None, :] - xs_b[c0 : c0 + chunk, :, :, None]
+        d2 = diff[:, 0] * diff[:, 0]
+        for ax in range(1, diff.shape[1]):
+            d2 = d2 + diff[:, ax] * diff[:, ax]
+        c = np.maximum(h * h - d2, np.float32(0.0))
+        out[c0 : c0 + chunk] = sig_w * np.sum(c * c * c, axis=-1)
+    return out

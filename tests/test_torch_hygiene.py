@@ -1,0 +1,103 @@
+"""Rules of the port that no parity test sees:
+
+* nothing in sph_nca_tpu_torch/ or chip_smoke.py imports JAX or the JAX
+  package (the GPU machine has no JAX);
+* the kernels are built with plain nvcc, never through
+  torch.utils.cpp_extension or against torch/extension.h;
+* entry points run on the card unless asked for the CPU, and raise when no
+  card is present instead of falling back.
+"""
+
+import ast
+import os
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "sph_nca_tpu_torch"
+GECKO = ROOT / "sph_nca_tpu" / "demo" / "web" / "weights" / "gecko.json"
+
+
+def _port_files():
+    # the card-side tests run where there is no JAX, too
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "test_torch_cuda.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "optax", "sph_nca_tpu"), (
+            f"{path.relative_to(ROOT)} imports {mod}")
+
+
+def test_kernels_built_without_torch_headers():
+    sources = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
+        ROOT / "chip_smoke.py"]
+    for path in sources:
+        text = path.read_text()
+        assert "cpp_extension" not in text, path
+        assert "torch/extension.h" not in text, path
+
+
+def test_port_package_imports_without_card():
+    import sph_nca_tpu_torch.cli.test  # noqa: F401
+    import sph_nca_tpu_torch.models.cell_step  # noqa: F401
+    import sph_nca_tpu_torch.ops._build  # noqa: F401
+    import sph_nca_tpu_torch.ops.pair_kernel  # noqa: F401
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_card(no_card, tmp_path):
+    from sph_nca_tpu_torch import resolve_device
+    from sph_nca_tpu_torch.cli import test as cli_test
+    from sph_nca_tpu_torch.io.convert import params_from_jax_numpy
+    from sph_nca_tpu_torch.io.weights_json import load_weights_json
+    from sph_nca_tpu_torch.ops.cells import build_cell_engine
+
+    x = torch.rand(64, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_cell_engine(x, 0.25)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_weights_json(str(GECKO))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax_numpy(*(torch.zeros(s).numpy() for s in
+                                ((48, 8), (8,), (8, 33), (33,))))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_test.main(["--weights_json", str(GECKO),
+                       "--output_dir", str(tmp_path)])
+    assert os.listdir(tmp_path) == []
+    # asked for the CPU, they run
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert build_cell_engine(x, 0.25, device="cpu").device.type == "cpu"
+
+
+def test_build_is_keyed_by_source_hash():
+    from sph_nca_tpu_torch.ops import _build
+
+    path = _build.library_path()
+    assert path.parent == PORT / "_build"
+    assert path.name.startswith("libsph_nca_kernels_") and path.suffix == ".so"
+    assert path == _build.library_path()
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
