@@ -1,35 +1,58 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
-toolkit. The main path is the cell-engine gecko rollout (16 channels, 256
-hidden units, h = 0.1) on a 128x128 grid for 128 steps, as
-``python -m sph_nca_tpu_torch.cli.test`` runs it. Phases, each printing one
-line with its wall time:
+toolkit. Two main paths, each driven through its CLI with every launch
+counter set to 0 just before it and read just after:
 
-  1 device   the card's name and power limit; TF32 off
-  2 build    the nvcc build of sph_nca_tpu_torch/csrc/*.cu for sm_90a
-  3 kernels  each CUDA kernel against its plain PyTorch version on the card,
-             at the gecko 128x128 bucket shapes, both buckets, use_alpha on
-             and off
-  4 rollout  the CLI's 128-step rollout through the kernels, with every
-             launch counter read around it; then 16 steps at fire_rate 1.0
-             with the kernels and with the plain versions
-  5 times    each kernel with CUDA events beside its plain version and its
-             bound; ms per rollout step
+  inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
+             h = 0.1) on a 128x128 grid for 128 steps, as
+             ``python -m sph_nca_tpu_torch.cli.test`` runs it;
+  training   plane-mode MSE training at the JAX train CLI's defaults (128x128
+             padded to 3D, h = 0.08, 16 channels, 256 hidden, gated rule,
+             batch 8, pool 1024, Adam 3e-3), as
+             ``python -m sph_nca_tpu_torch.cli.train`` runs it, for 60
+             iterations of the progressive schedule.
+
+Phases, each printing one line with its wall time:
+
+  1 device       the card's name and power limit; TF32 off
+  2 build        the nvcc build of sph_nca_tpu_torch/csrc/*.cu for sm_90a
+  3 kernels      the forward and mask kernels against their plain PyTorch
+                 versions at the gecko 128x128 bucket shapes, both buckets,
+                 use_alpha on and off
+  4 rollout      the inference CLI's 128-step rollout; then 16 steps at
+                 fire_rate 1.0 with the kernels and with the plain versions
+  5 adjoint      at the training shapes (B = 8): the adjoint kernel against
+                 its plain version, and the batched forward and mask kernels
+                 against their plain versions and against B = 1 launches
+  6 grad         the perception's autograd gradient through the kernels
+                 against autograd through the plain forward
+  7 train        the train CLI for 60 iterations: finite, falling losses,
+                 launch counts equal to what the drawn schedule implies, and
+                 its weights JSON running 8 steps in the inference CLI
+  8 train-depth  2 iterations of full 32-48-step BPTT, with each step
+                 recomputed in the backward and without: ms per iteration
+                 and peak device memory
+  9 times        each kernel's device time (profiler kernel records) beside
+                 its plain version's and its bound, at the training shapes
+                 and, for the forward and mask kernels, at the gecko
+                 inference shapes; ms per inference rollout step
 Then one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Without a card it exits non-zero and prints no result.
 
-``python3 chip_smoke.py --profile`` adds one phase before those lines: a
-torch.profiler trace of 16 rollout steps, with device time by kernel.
+``python3 chip_smoke.py --profile`` adds two phases before those lines:
+torch.profiler traces of 16 inference rollout steps and of one full-depth
+training iteration, with device time by kernel and the device's busy share.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import json
 import os
 import subprocess
@@ -41,7 +64,9 @@ import numpy as np
 import torch
 
 from sph_nca_tpu_torch.cli import test as cli_test
+from sph_nca_tpu_torch.cli import train as cli_train
 from sph_nca_tpu_torch.io.weights_json import load_weights_json
+from sph_nca_tpu_torch.models import cell_step
 from sph_nca_tpu_torch.models.cell_step import rollout_cells
 from sph_nca_tpu_torch.ops import _build
 from sph_nca_tpu_torch.ops import pair_kernel as PK
@@ -55,6 +80,11 @@ GECKO = os.path.join(ROOT, "sph_nca_tpu", "demo", "web", "weights",
 IMAGE, STEPS = 128, 128
 CHECK_STEPS = 16
 SEED = 0
+# the training path: the JAX train CLI's defaults
+TRAIN_H, TRAIN_B, TRAIN_ITERS, DEPTH_ITERS = 0.08, 8, 60, 2
+KERNELS = ("sph_fwd_kernel", "sph_mask_kernel", "sph_bwd_kernel")
+WRAPPERS = {"sph_fwd_kernel": PK.fwd_bucket, "sph_mask_kernel": PK.mask_bucket,
+            "sph_bwd_kernel": PK.bwd_bucket}
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth. Both assume the full 700 W power limit.
@@ -64,21 +94,35 @@ HBM_BYTES_PER_S = 3.35e12
 # Kernel vs plain tolerance: both are float32, summing the window in other
 # orders (the kernel in 4 interleaved partial sums, the plain version in
 # matmul order), and rsqrtf may differ from torch.rsqrt by an ulp or two.
-# gA is a difference of two sums of size |A| sum|Tg r|, so its error is held
-# relative to the largest |gA|; the blurs sum positive terms.
+# gA and dA are differences of two sums of size |A| sum|Tg r|, so their error
+# is held relative to the largest |gA| / |dA|; the blurs sum positive terms.
 GA_RTOL = 1e-5  # of max |gA|
 SM_RTOL = 1e-5  # of max |sm|
+DA_RTOL = 1e-5  # of max |dA| (also the perception's gradient)
 # 16 steps at fire_rate 1.0 through kernels vs plain versions: the states
 # (|A| <~ 1) may drift apart by the per-step rounding differences above.
 ROLLOUT_ATOL = 1e-4
 
-# operations per pair (D = 3, F = 16): every pair needs its d2 (3 sub, 3 mul,
-# 2 add) and the support test; a pair inside the support also needs the
-# spiky magnitude (rsqrt + 4), Tg (2), Tw (5), the mask sum (2) and the
-# D * (2 + 2F) gradient products; the mask pass needs Tw (5) and its sum (2).
-OPS_EVERY_PAIR = 9
-OPS_FWD_IN_SUPPORT = 5 + 2 + 5 + 2 + 3 * (2 + 2 * 16)
-OPS_MASK_IN_SUPPORT = 5 + 2
+# Operations the functions need (D = 3, F = 16). The pair geometry is shared
+# by the B samples of a pass, so it counts once per pass: every pair needs its
+# d2 (3 sub, 3 mul, 2 add) and the support test; a pair inside the support
+# needs, in the forward, the spiky magnitude (rsqrt + 4), Tg (2), Tw (5) and
+# Tg r_d with its window sum (2 D); in the mask pass Tw (5); in the adjoint
+# the magnitude (5) and mag r_d (D); and per row the adjoint's sig_g v_b (1).
+# Per sample: for a pair in support the forward's alive-weighted mask sum (2)
+# and its D * 2F gradient products, the mask pass's sum (2), the adjoint's
+# D * 2F products; per row the forward's D * F self products (2 each) and the
+# adjoint's scale and self term (F * (1 + 2D)).
+GEO_EVERY_PAIR = 9
+GEO_FWD_IN_SUPPORT = 5 + 2 + 5 + 2 * 3
+GEO_MASK_IN_SUPPORT = 5
+GEO_BWD_IN_SUPPORT = 5 + 3
+GEO_BWD_ROW = 1
+SAMPLE_FWD_IN_SUPPORT = 2 + 3 * 2 * 16
+SAMPLE_FWD_ROW = 3 * 16 * 2
+SAMPLE_MASK_IN_SUPPORT = 2
+SAMPLE_BWD_IN_SUPPORT = 3 * 2 * 16
+SAMPLE_BWD_ROW = 16 * (1 + 2 * 3)
 
 
 def fail(msg: str) -> None:
@@ -90,7 +134,8 @@ def phase(name: str, t0: float, text: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of fn() over ``iters`` calls, by CUDA events."""
+    """Mean time of fn() over ``iters`` calls between two CUDA events: the
+    device's time plus any gap the host leaves between launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -104,15 +149,57 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, name=None, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of fn() per call from the profiler's kernel records:
+    the kernels whose name contains ``name``, or every kernel fn() launches
+    when ``name`` is None. Host gaps between launches do not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        if name is not None and name not in ev.key:
+            continue
+        total_us += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0))
+    if total_us <= 0:
+        fail(f"the profiler recorded no device time for {name or 'fn'}")
+    return total_us / iters / 1e3
+
+
 def bucket_args(eng, S, bucket):
     nb1 = eng.blk_xs.shape[0]
     p, f = eng.blk_xs.shape[2], S.shape[-1]
-    rows = S.reshape(-1, p, f)
+    rows = S.reshape(*S.shape[:-3], -1, p, f)
     if bucket == 1:
-        return (eng.blk_xs, rows[:nb1], eng.blk_xw, eng.blk_vw,
+        return (eng.blk_xs, rows[..., :nb1, :, :], eng.blk_xw, eng.blk_vw,
                 eng.blk_win_cells)
-    return (eng.blk2_xs, rows[nb1:], eng.blk2_xw, eng.blk2_vw,
+    return (eng.blk2_xs, rows[..., nb1:, :, :], eng.blk2_xw, eng.blk2_vw,
             eng.blk2_win_cells)
+
+
+def bwd_args(eng, G, bucket):
+    """bwd_bucket's arguments (after scal) for one bucket of the cotangent
+    G [B, C, M, D*F]."""
+    nb1 = eng.blk_xs.shape[0]
+    p, d = eng.blk_xs.shape[2], eng.blk_xs.shape[1]
+    lo = 0 if bucket == 1 else nb1
+    hi = nb1 if bucket == 1 else nb1 + eng.blk2_xs.shape[0]
+    rows = G.reshape(*G.shape[:-3], -1, p, G.shape[-1])[..., lo:hi, :, :]
+    xs_b, xw_b, wc = ((eng.blk_xs, eng.blk_xw, eng.blk_win_cells)
+                      if bucket == 1 else
+                      (eng.blk2_xs, eng.blk2_xw, eng.blk2_win_cells))
+    return (xs_b, eng.vs.reshape(-1, p)[lo:hi],
+            eng.gsum.reshape(-1, p, d)[lo:hi], rows, xw_b, G, wc)
 
 
 def real_rows(eng, bucket):
@@ -122,17 +209,23 @@ def real_rows(eng, bucket):
 
 
 def rel_err(got, want, real):
-    """(max abs error, max abs error / max |want|) over real rows."""
-    err = float((got - want).abs()[real].max())
-    scale = float(want.abs()[real].max())
-    return err, err / max(scale, 1e-30)
+    """(max abs error, max abs error / max |want|) over real rows: real
+    [nb, P]; got and want [..., nb, P] or [..., nb, P, K]."""
+    diff, mag = (got - want).abs(), want.abs()
+    if tuple(got.shape[-2:]) != tuple(real.shape):  # a trailing feature axis
+        diff, mag = diff.amax(-1), mag.amax(-1)
+    err = float(diff[..., real].max())
+    return err, err / max(float(mag[..., real].max()), 1e-30)
 
 
-def work(eng, S):
-    """Bytes and operations one step's launches of each kernel need (both
-    buckets), counted from this run's engine: each input read once, each
-    output written once, operations per pair as above."""
-    c, m, f = S.shape
+def work(eng, bsz: int, f: int = 16):
+    """Bytes and operations the launches of each kernel need for one pass
+    over both buckets with a batch of ``bsz``, counted from this run's
+    engine: each input read once, each output written once; the geometry's
+    operations once per pass and the state's once per sample, counting the
+    in-support operations only for pairs within h (what the data needs)."""
+    c, m = eng.xs.shape[:2]
+    d = eng.xs.shape[-1]
     n_all = n_in = 0
     geo = 0
     for xs_b, xw_b, vw_b, wc in ((eng.blk_xs, eng.blk_xw, eng.blk_vw,
@@ -143,15 +236,25 @@ def work(eng, S):
         n_all += d2.numel()
         n_in += int(((d2 < eng.h * eng.h) & (vw_b[:, None, :] > 0)).sum())
         geo += 4 * (xs_b.numel() + xw_b.numel() + vw_b.numel() + wc.numel())
-    n_rows = c * m
-    d = eng.xs.shape[-1]
-    fwd_bytes = geo + 4 * (S.numel() + n_rows * d * f + n_rows)
-    mask_bytes = geo + 4 * (n_rows + n_rows)  # alpha channel in, sm out
-    fwd_ops = n_all * OPS_EVERY_PAIR + n_in * OPS_FWD_IN_SUPPORT
-    mask_ops = n_all * OPS_EVERY_PAIR + n_in * OPS_MASK_IN_SUPPORT
+    rows = c * m
+    fwd_bytes = geo + 4 * bsz * (rows * f + rows * d * f + rows)
+    mask_bytes = geo + 4 * bsz * (rows + rows)  # alpha channel in, sm out
+    bwd_bytes = geo + 4 * (rows + rows * d) + 4 * bsz * (rows * d * f
+                                                         + rows * f)
+    every = n_all * GEO_EVERY_PAIR
     return {"pairs": n_all, "pairs_in_support": n_in,
-            "sph_fwd_kernel": (fwd_bytes, fwd_ops),
-            "sph_mask_kernel": (mask_bytes, mask_ops)}
+            "sph_fwd_kernel": (fwd_bytes, every
+                               + n_in * GEO_FWD_IN_SUPPORT
+                               + bsz * (n_in * SAMPLE_FWD_IN_SUPPORT
+                                        + rows * SAMPLE_FWD_ROW)),
+            "sph_mask_kernel": (mask_bytes, every
+                                + n_in * GEO_MASK_IN_SUPPORT
+                                + bsz * n_in * SAMPLE_MASK_IN_SUPPORT),
+            "sph_bwd_kernel": (bwd_bytes, every
+                               + n_in * GEO_BWD_IN_SUPPORT
+                               + rows * GEO_BWD_ROW
+                               + bsz * (n_in * SAMPLE_BWD_IN_SUPPORT
+                                        + rows * SAMPLE_BWD_ROW))}
 
 
 def bound(nbytes, ops):
@@ -160,36 +263,121 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_steps(model, eng, S0, h, steps: int = 16) -> None:
-    """Device time per rollout step by kernel name, and the device's busy
-    share of the traced wall time (the profiler's own overhead included)."""
-    from torch.profiler import ProfilerActivity, profile
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
 
-    gen = torch.Generator(device=eng.device).manual_seed(SEED)
-    rollout_cells(model.params, model.cfg, eng, S0, gen, 4, h)
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def expected_train_launches(steps, n_buckets: int) -> dict:
+    """Launches a training run makes for the drawn rollout lengths: each of
+    a rollout's n steps runs the forward and the mask pass once, and once
+    more when it is recomputed in the backward (``cell_step.REMAT``); the
+    backward runs the adjoint for every step but the first (whose input
+    state needs no gradient). Each pass launches once per bucket for the
+    whole batch."""
+    runs = 2 if cell_step.REMAT else 1
+    return {"sph_fwd_kernel": n_buckets * sum(runs * n for n in steps),
+            "sph_mask_kernel": n_buckets * sum(runs * n for n in steps),
+            "sph_bwd_kernel": n_buckets * sum(n - 1 for n in steps)}
+
+
+def run_train_cli(out_dir: str, extra) -> list:
+    """The train CLI at its defaults on the card; returns its per-iteration
+    metrics rows."""
+    rc = cli_train.main(["--device", "cuda", "--seed", str(SEED),
+                         "--log_every", "10", "--output_dir", out_dir]
+                        + list(extra))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.time()
-        rollout_cells(model.params, model.cfg, eng, S0, gen, steps, h)
-        torch.cuda.synchronize()
-        wall_us = (time.time() - t1) * 1e6
+    if rc != 0:
+        fail(f"train CLI returned {rc}")
+    (metrics,) = glob.glob(os.path.join(out_dir, "metrics-*.jsonl"))
+    with open(metrics) as f:
+        return [json.loads(line) for line in f]
+
+
+def device_breakdown(prof, wall_us: float, per: float, unit: str) -> None:
+    """Print device time by kernel from a profiler run, per ``unit``, and
+    the device's busy share of the traced wall time (the profiler's own
+    overhead included)."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0 and ev.device_type != torch.autograd.DeviceType.CPU:
             rows.append((dev_us, ev.count, ev.key))
-    total = sum(r[0] for r in rows)
     if not rows:
         print("  profile: no device time recorded", flush=True)
         return
+    total = sum(r[0] for r in rows)
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
-        print(f"  {dev_us / steps:9.2f} us/step {100 * dev_us / total:5.1f}% "
-              f"{count / steps:5.1f} launches/step  {key[:70]}", flush=True)
-    print(f"  device busy {total / steps:.2f} us/step of {wall_us / steps:.2f}"
-          f" us/step traced wall ({100 * total / wall_us:.1f}% busy), "
-          f"{sum(r[1] for r in rows) / steps:.1f} kernels/step", flush=True)
+        print(f"  {dev_us / per:9.2f} us/{unit} {100 * dev_us / total:5.1f}% "
+              f"{count / per:6.1f} launches/{unit}  {key[:70]}", flush=True)
+    print(f"  device busy {total / per:.2f} us/{unit} of {wall_us / per:.2f}"
+          f" us/{unit} traced wall ({100 * total / wall_us:.1f}% busy), "
+          f"{sum(r[1] for r in rows) / per:.1f} kernels/{unit}", flush=True)
+
+
+def profile_steps(model, eng, S0, h, steps: int = 16) -> None:
+    """Device time per inference rollout step by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=eng.device).manual_seed(SEED)
+    with torch.no_grad():
+        rollout_cells(model.params, model.cfg, eng, S0, gen, 4, h)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            rollout_cells(model.params, model.cfg, eng, S0, gen, steps, h)
+            torch.cuda.synchronize()
+            wall_us = (time.time() - t1) * 1e6
+    device_breakdown(prof, wall_us, steps, "step")
+
+
+def profile_train(teng, x2) -> None:
+    """Device time by kernel for one full-depth training iteration at the
+    train CLI's defaults (a pool of 16 states, which changes no step), per
+    BPTT step, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig
+    from sph_nca_tpu_torch.training.losses import MSELossConfig
+    from sph_nca_tpu_torch.training.pool import Pool
+    from sph_nca_tpu_torch.training.trainer import (
+        TrainConfig,
+        Trainer,
+        make_mse_bundle,
+    )
+    from sph_nca_tpu_torch.utils.image import flat_color_target
+
+    h = TRAIN_H
+    cfg = SPHNCAConfig(channels=16, hidden=256, fire_rate=0.5,
+                       normalize_perception=1.0 / h)
+    img = torch.from_numpy(flat_color_target(64)).to(teng.device)
+    loss = make_mse_bundle(img, MSELossConfig(
+        gmin=(-1.0, -1.0), gsize=(2.0, 2.0), image_scale=64 / IMAGE))
+    trainer = Trainer(cfg, TrainConfig(pool_size=16, steps_increment=0,
+                                       seed=SEED), teng, x2, loss, h)
+    seed_A = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                        radius=h)
+    pool = Pool(x2.numpy(), seed_A.numpy(), 16,
+                rng=np.random.default_rng(SEED))
+    trainer.run_iteration(0, pool)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        trainer.run_iteration(1, pool)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t1) * 1e6
+    print(f"  one iteration of {trainer.last_steps} BPTT steps, "
+          f"B={trainer.cfg.batch_size}",
+          flush=True)
+    device_breakdown(prof, wall_us, trainer.last_steps, "BPTT step")
 
 
 def main() -> int:
@@ -219,13 +407,13 @@ def main() -> int:
     phase("build", t0, f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
           f"{os.path.relpath(lib_path, ROOT)}")
 
-    # ---- 3 kernels vs plain at the main path's shapes ------------------
+    # ---- 3 kernels vs plain at the inference path's shapes --------------
     t0 = time.time()
     model = load_weights_json(GECKO, device=dev)
     h = model.h
     gmin, gsize = (-1.0, -1.0), (2.0, 2.0)
     x2 = grange((IMAGE, IMAGE), gmin, gsize).reshape(-1, 2)
-    x = torch.nn.functional.pad(x2, (0, 1))  # 3D, as the CLI runs it
+    x = torch.nn.functional.pad(x2, (0, 1))  # 3D, as the CLIs run it
     eng = build_cell_engine(x, h, device=dev)
     nb1, w1 = eng.blk_xs.shape[0], eng.blk_xw.shape[2]
     nb2, w2 = eng.blk2_xs.shape[0], eng.blk2_xw.shape[2]
@@ -238,7 +426,7 @@ def main() -> int:
     S = torch.from_numpy(rng.normal(
         size=(eng.num_cells, eng.slots_per_cell, model.cfg.channels)
     ).astype(np.float32)).to(dev)
-    errs = {"sph_fwd_kernel": 0.0, "sph_mask_kernel": 0.0}
+    errs = {name: 0.0 for name in KERNELS}  # inference shapes
     for bucket in (1, 2):
         xs_b, ab, xw_b, vw_b, wc = bucket_args(eng, S, bucket)
         real = real_rows(eng, bucket)
@@ -270,28 +458,27 @@ def main() -> int:
     phase("kernels", t0, f"kernel == plain within gA {GA_RTOL} and sm "
           f"{SM_RTOL} of max, at {shapes}")
 
-    # ---- 4 rollout through the CLI --------------------------------------
+    # ---- 4 the inference path, through its CLI --------------------------
     t0 = time.time()
     with tempfile.TemporaryDirectory() as out_dir:
-        PK.fwd_bucket.launches = 0
-        PK.mask_bucket.launches = 0
+        reset_launches()
         rc = cli_test.main([
             "--weights_json", GECKO, "--image_size", str(IMAGE),
             "--steps", str(STEPS), "--firerate", "0.5", "--seed", str(SEED),
             "--output_dir", out_dir, "--device", "cuda",
         ])
         torch.cuda.synchronize()
-        launches = {"sph_fwd_kernel": PK.fwd_bucket.launches,
-                    "sph_mask_kernel": PK.mask_bucket.launches}
+        infer_launches = read_launches()
         if rc != 0:
             fail(f"CLI returned {rc}")
         (run,) = os.listdir(out_dir)
         with np.load(os.path.join(out_dir, run, "states.npz")) as z:
             states = z["states"]
     want = 2 * STEPS  # two buckets a step
-    if launches != {"sph_fwd_kernel": want, "sph_mask_kernel": want}:
-        fail(f"launch counts {launches}, expected {want} each "
-             "(2 buckets x 128 steps)")
+    if infer_launches != {"sph_fwd_kernel": want, "sph_mask_kernel": want,
+                          "sph_bwd_kernel": 0}:
+        fail(f"launch counts {infer_launches}, expected {want} for the "
+             "forward and mask kernels (2 buckets x 128 steps), 0 adjoint")
     if states.shape != (STEPS + 1, IMAGE * IMAGE, model.cfg.channels):
         fail(f"trajectory shape {states.shape}")
     finite = bool(np.isfinite(states).all())
@@ -302,8 +489,8 @@ def main() -> int:
     if not alive0 < alive < 0.5:
         fail(f"the gecko did not grow: alive fraction {alive0} -> {alive}")
     phase("rollout", t0, f"CLI {STEPS} steps at fire_rate 0.5, "
-          f"{IMAGE * IMAGE} particles: launches {launches}, finite={finite}, "
-          f"alive fraction {alive0:.4f} -> {alive:.4f}")
+          f"{IMAGE * IMAGE} particles: launches {infer_launches}, "
+          f"finite={finite}, alive fraction {alive0:.4f} -> {alive:.4f}")
 
     t0 = time.time()
     cfg1 = dataclasses.replace(model.cfg, fire_rate=1.0)
@@ -311,78 +498,286 @@ def main() -> int:
                     radius=h).to(dev)
     S0 = eng.scatter(A0)
     finals = {}
-    for use_kernels in (True, False):
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        finals[use_kernels] = eng.gather_back(rollout_cells(
-            model.params, cfg1, eng, S0, gen, CHECK_STEPS, h, fire_rate=1.0,
-            use_kernels=use_kernels))
+    with torch.no_grad():
+        for use_kernels in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            finals[use_kernels] = eng.gather_back(rollout_cells(
+                model.params, cfg1, eng, S0, gen, CHECK_STEPS, h,
+                fire_rate=1.0, use_kernels=use_kernels))
     diff = float((finals[True] - finals[False]).abs().max())
     phase("rollout-check", t0, f"{CHECK_STEPS} steps at fire_rate 1.0, "
           f"kernels vs plain versions: max state difference {diff:.3e} "
           f"(limit {ROLLOUT_ATOL})")
     if not diff <= ROLLOUT_ATOL:
         fail(f"kernel rollout departs from the plain rollout by {diff}")
-
-    # ---- 5 times --------------------------------------------------------
-    t0 = time.time()
-    need = work(eng, S)
-    args = [bucket_args(eng, S, b) for b in (1, 2)]
-
-    def fwd(fn):
-        for xs_b, ab, xw_b, vw_b, wc in args:
-            fn(scal, xs_b, ab, xw_b, vw_b, S, wc, use_alpha=True)
-
-    def mask(fn):
-        for xs_b, _, xw_b, vw_b, wc in args:
-            fn(scal, xs_b, xw_b, vw_b, S, wc, use_alpha=True)
-
-    times = {
-        "sph_fwd_kernel": (cuda_ms(lambda: fwd(PK.fwd_bucket)),
-                           cuda_ms(lambda: fwd(PK.fwd_bucket_plain))),
-        "sph_mask_kernel": (cuda_ms(lambda: mask(PK.mask_bucket)),
-                            cuda_ms(lambda: mask(PK.mask_bucket_plain))),
-    }
     gen = torch.Generator(device=dev).manual_seed(SEED)
     step_ms = {}
+    with torch.no_grad():
+        for use_kernels in (True, False):
+            rollout_cells(model.params, model.cfg, eng, S0, gen, 4, h,
+                          use_kernels=use_kernels)  # warm-up
+            torch.cuda.synchronize()
+            t1 = time.time()
+            rollout_cells(model.params, model.cfg, eng, S0, gen, STEPS, h,
+                          use_kernels=use_kernels)
+            torch.cuda.synchronize()
+            step_ms[use_kernels] = (time.time() - t1) * 1e3 / STEPS
+
+    # ---- 5 adjoint and batch axis at the training shapes ----------------
+    t0 = time.time()
+    teng = build_cell_engine(x, TRAIN_H, device=dev)
+    tnb1, tnb2 = teng.blk_xs.shape[0], teng.blk2_xs.shape[0]
+    if tnb1 == 0 or tnb2 == 0:
+        fail(f"expected two non-empty buckets, got nb1={tnb1} nb2={tnb2}")
+    tshapes = (f"B={TRAIN_B} C={teng.num_cells} bucket1 nb={tnb1} "
+               f"W={teng.blk_xw.shape[2]}, bucket2 nb={tnb2} "
+               f"W={teng.blk2_xw.shape[2]}")
+    tscal = PK.scal_vec(teng)
+    c_t, m_t = teng.xs.shape[:2]
+    terrs = {name: 0.0 for name in KERNELS}  # training shapes
+    SB = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 16)).astype(
+        np.float32)).to(dev)
+    GB = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 48)).astype(
+        np.float32)).to(dev)
+    for bucket in (1, 2):
+        real = real_rows(teng, bucket)
+        args = bwd_args(teng, GB, bucket)
+        dk = PK.bwd_bucket(tscal, *args)
+        dp = PK.bwd_bucket_plain(tscal, *args)
+        torch.cuda.synchronize()
+        da_abs, da_rel = rel_err(dk, dp, real)
+        pad_zero = bool((dk[:, ~real] == 0).all())
+        terrs["sph_bwd_kernel"] = max(terrs["sph_bwd_kernel"], da_abs)
+        xs_b, ab, xw_b, vw_b, wc = bucket_args(teng, SB, bucket)
+        ga_k, sm_k = PK.fwd_bucket(tscal, xs_b, ab, xw_b, vw_b, SB, wc,
+                                   use_alpha=True)
+        ga_p, sm_p = PK.fwd_bucket_plain(tscal, xs_b, ab, xw_b, vw_b, SB, wc,
+                                         use_alpha=True)
+        mk = PK.mask_bucket(tscal, xs_b, xw_b, vw_b, SB, wc, use_alpha=True)
+        mp = PK.mask_bucket_plain(tscal, xs_b, xw_b, vw_b, SB, wc,
+                                  use_alpha=True)
+        torch.cuda.synchronize()
+        ga_abs, ga_rel = rel_err(ga_k, ga_p, real)
+        sm_abs, sm_rel = rel_err(sm_k, sm_p, real)
+        mk_abs, mk_rel = rel_err(mk, mp, real)
+        terrs["sph_fwd_kernel"] = max(terrs["sph_fwd_kernel"], ga_abs,
+                                      sm_abs)
+        terrs["sph_mask_kernel"] = max(terrs["sph_mask_kernel"], mk_abs)
+        same = True
+        for b in range(TRAIN_B):
+            ga1, sm1 = PK.fwd_bucket(tscal, xs_b, ab[b], xw_b, vw_b, SB[b],
+                                     wc, use_alpha=True)
+            mk1 = PK.mask_bucket(tscal, xs_b, xw_b, vw_b, SB[b], wc,
+                                 use_alpha=True)
+            same &= bool(torch.equal(ga1, ga_k[b]) and torch.equal(sm1, sm_k[b])
+                         and torch.equal(mk1, mk[b]))
+        print(f"  bucket {bucket}: bwd dA max abs {da_abs:.3e} (rel to max "
+              f"{da_rel:.3e}), pad rows 0: {pad_zero}; B={TRAIN_B} fwd gA "
+              f"rel {ga_rel:.3e}, sm rel {sm_rel:.3e}, mask rel "
+              f"{mk_rel:.3e}; B={TRAIN_B} launch == {TRAIN_B} B=1 launches: "
+              f"{same}", flush=True)
+        if not (da_rel <= DA_RTOL and pad_zero):
+            fail(f"sph_bwd_kernel vs plain: {da_rel:.3e} > {DA_RTOL} of max "
+                 f"|dA| or nonzero pad rows (bucket {bucket})")
+        if not (ga_rel <= GA_RTOL and sm_rel <= SM_RTOL
+                and mk_rel <= SM_RTOL and same):
+            fail(f"batched forward/mask kernels out of tolerance or unequal "
+                 f"to per-sample launches (bucket {bucket})")
+    phase("adjoint", t0, f"sph_bwd_kernel == plain within {DA_RTOL} of max "
+          f"|dA|; batched kernels == plain and == per-sample, at {tshapes}")
+
+    # ---- 6 the perception's gradient through the kernels ----------------
+    t0 = time.time()
+    R = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 48)).astype(
+        np.float32)).to(dev)
+    R[:, teng.vs == 0] = 0.0  # training puts no cotangent on pad rows
+    grads = {}
     for use_kernels in (True, False):
-        rollout_cells(model.params, model.cfg, eng, S0, gen, 4, h,
-                      use_kernels=use_kernels)  # warm-up
-        torch.cuda.synchronize()
-        t1 = time.time()
-        rollout_cells(model.params, model.cfg, eng, S0, gen, STEPS, h,
-                      use_kernels=use_kernels)
-        torch.cuda.synchronize()
-        step_ms[use_kernels] = (time.time() - t1) * 1e3 / STEPS
+        Sg = SB.clone().requires_grad_(True)
+        if use_kernels:
+            ga, _ = PK.perceive_cells_dmajor(teng, Sg)
+        else:
+            ga, _ = PK.fused_perception(teng, Sg, d_major=True,
+                                        use_kernels=False)
+        (ga * R).sum().backward()
+        grads[use_kernels] = Sg.grad
+    torch.cuda.synchronize()
+    real = teng.vs > 0
+    g_abs = float((grads[True] - grads[False]).abs()[:, real].max())
+    g_rel = g_abs / float(grads[False].abs()[:, real].max())
+    phase("grad", t0, f"autograd through the kernels (forward + adjoint) vs "
+          f"autograd through the plain forward: max abs {g_abs:.3e}, rel to "
+          f"max {g_rel:.3e} (limit {DA_RTOL})")
+    if not g_rel <= DA_RTOL:
+        fail(f"kernel gradient departs from plain autograd: {g_rel:.3e}")
+    del SB, GB, R, grads, Sg, ga
+
+    # ---- 7 the training path, through its CLI ---------------------------
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_launches()
+        rows = run_train_cli(out_dir, ["--training_iter", str(TRAIN_ITERS)])
+        train_launches = read_launches()
+        (weights,) = glob.glob(os.path.join(out_dir, "sphnca-*.json"))
+        rc = cli_test.main(["--weights_json", weights, "--image_size",
+                            str(IMAGE), "--steps", "8", "--device", "cuda",
+                            "--output_dir", out_dir])
+        if rc != 0:
+            fail(f"the trained weights did not run in the test CLI ({rc})")
+        (run,) = glob.glob(os.path.join(out_dir, "sphnca-test-*"))
+        with np.load(os.path.join(run, "states.npz")) as z:
+            trained_states = z["states"]
+    losses = [r["loss"] for r in rows]
+    steps = [r["steps"] for r in rows]
+    want = expected_train_launches(steps, 2)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    iter_ms = [1e3 * r["seconds"] for r in rows]
+    print(f"  losses {' '.join(f'{l:.4f}' for l in losses)}", flush=True)
+    print(f"  rollout lengths {steps}", flush=True)
+    print(f"  launches expected {want}, measured {train_launches}",
+          flush=True)
+    phase("train", t0, f"train CLI {TRAIN_ITERS} iterations at {tshapes}: "
+          f"loss {first:.4f} (mean of first 5) -> {last:.4f} (last 5), "
+          f"median {np.median(iter_ms):.1f} ms/iteration over "
+          f"{sum(steps)} steps; trained weights ran 8 steps in the test CLI "
+          f"(finite: {bool(np.isfinite(trained_states).all())})")
+    if len(rows) != TRAIN_ITERS or not all(np.isfinite(losses)):
+        fail(f"training losses not finite or missing: {losses}")
+    if not last < first:
+        fail(f"the training loss did not fall: {first} -> {last}")
+    if train_launches != want:
+        fail(f"training launch counts {train_launches}, expected {want}")
+    if not np.isfinite(trained_states).all():
+        fail("the trained model's rollout is not finite")
+
+    # ---- 8 full-depth BPTT, with and without the recompute -------------
+    t0 = time.time()
+    depth, peak_gb = {}, {}
+    for remat in (cell_step.REMAT, not cell_step.REMAT):
+        cell_step.REMAT = remat
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with tempfile.TemporaryDirectory() as out_dir:
+            drows = run_train_cli(out_dir, ["--training_iter",
+                                            str(DEPTH_ITERS),
+                                            "--steps_increment", "0"])
+        peak_gb[remat] = torch.cuda.max_memory_allocated(dev) / 2**30
+        depth[remat] = [(r["steps"], 1e3 * r["seconds"], r["loss"])
+                        for r in drows]
+        if not all(np.isfinite(r[2]) for r in depth[remat]):
+            fail(f"full-depth losses not finite (remat={remat}): "
+                 f"{depth[remat]}")
+    cell_step.REMAT = not cell_step.REMAT  # back to the module's value
+    if [r[2] for r in depth[True]] != [r[2] for r in depth[False]]:
+        print("  note: the losses with and without the recompute differ: "
+              f"{depth[True]} vs {depth[False]}", flush=True)
+    phase("train-depth", t0, "; ".join(
+        f"remat={remat}: full-depth iterations (steps, ms, loss) "
+        + ", ".join(f"({n}, {ms:.1f}, {l:.4f})" for n, ms, l in depth[remat])
+        + f", {depth[remat][-1][1] / depth[remat][-1][0]:.2f} ms per BPTT "
+        f"step in the last, peak device memory {peak_gb[remat]:.3f} GiB "
+        "(max_memory_allocated)" for remat in (True, False)) + f" | {smi}")
+
+    # ---- 9 times --------------------------------------------------------
+    t0 = time.time()
+    SB = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 16)).astype(
+        np.float32)).to(dev)
+    GB = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 48)).astype(
+        np.float32)).to(dev)
+    targs = [bucket_args(teng, SB, b) for b in (1, 2)]
+    bargs = [bwd_args(teng, GB, b) for b in (1, 2)]
+    iargs = [bucket_args(eng, S, b) for b in (1, 2)]
+
+    def fwd(fn, sc, args, state):
+        return lambda: [fn(sc, xs_b, ab, xw_b, vw_b, state, wc,
+                           use_alpha=True)
+                        for xs_b, ab, xw_b, vw_b, wc in args]
+
+    def mask(fn, sc, args, state):
+        return lambda: [fn(sc, xs_b, xw_b, vw_b, state, wc, use_alpha=True)
+                        for xs_b, _, xw_b, vw_b, wc in args]
+
+    def bwd(fn):
+        return lambda: [fn(tscal, *a) for a in bargs]
+
+    calls = {
+        "sph_fwd_kernel": (fwd(PK.fwd_bucket, tscal, targs, SB),
+                           fwd(PK.fwd_bucket_plain, tscal, targs, SB)),
+        "sph_mask_kernel": (mask(PK.mask_bucket, tscal, targs, SB),
+                            mask(PK.mask_bucket_plain, tscal, targs, SB)),
+        "sph_bwd_kernel": (bwd(PK.bwd_bucket), bwd(PK.bwd_bucket_plain)),
+    }
+    infer_calls = {
+        "sph_fwd_kernel": (fwd(PK.fwd_bucket, scal, iargs, S),
+                           fwd(PK.fwd_bucket_plain, scal, iargs, S)),
+        "sph_mask_kernel": (mask(PK.mask_bucket, scal, iargs, S),
+                            mask(PK.mask_bucket_plain, scal, iargs, S)),
+    }
+    need = work(teng, TRAIN_B)
+    ineed = work(eng, 1)
     rows = []
     for name, replaces in (
         ("sph_fwd_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:79"),
         ("sph_mask_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:625"),
+        ("sph_bwd_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:437"),
     ):
-        ms, plain_ms = times[name]
+        kern, plain = calls[name]
+        ms, plain_ms = device_ms(kern, name), device_ms(plain)
+        event_ms = cuda_ms(kern)
         nbytes, ops = need[name]
         bound_ms, bound_by = bound(nbytes, ops)
-        print(f"  {name}: {ms:.4f} ms a step (both buckets), plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        print(f"  {name} at the training shapes (B={TRAIN_B}, both buckets):"
+              f" {ms:.4f} ms device time ({event_ms:.4f} ms by CUDA events "
+              f"around the wrapper calls), plain {plain_ms:.4f} ms device "
+              f"time, bound {bound_ms:.4f} ms by {bound_by} "
               f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations; "
               f"{need['pairs']} pairs, {need['pairs_in_support']} within h)",
               flush=True)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "sph_nca_tpu_torch/csrc/pair_kernels.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "max_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-        })
-    phase("times", t0, f"rollout step {step_ms[True]:.4f} ms with the "
-          f"kernels, {step_ms[False]:.4f} ms with the plain versions "
-          f"({STEPS} steps, fire_rate 0.5, host clock around synchronize); "
-          f"kernel times by CUDA events over 50 calls, L2-warm")
+        train = {"shapes": f"train {IMAGE}x{IMAGE} h={TRAIN_H} B={TRAIN_B}",
+                 "launches": train_launches[name],
+                 "max_abs_err": terrs[name], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+        row = {"name": name, "route": "cuda",
+               "source": "sph_nca_tpu_torch/csrc/pair_kernels.cu",
+               "replaces": replaces, "library_ms": None}
+        if name in infer_calls:
+            # the inference path's numbers head the row, as in PR 4's line;
+            # the training path's go in "train"
+            ik, ip = infer_calls[name]
+            i_ms, i_plain = device_ms(ik, name), device_ms(ip)
+            inbytes, iops = ineed[name]
+            i_bound, i_by = bound(inbytes, iops)
+            print(f"  {name} at the gecko inference shapes (B=1): {i_ms:.4f}"
+                  f" ms device time ({cuda_ms(ik):.4f} ms by CUDA events), "
+                  f"plain {i_plain:.4f} ms, bound {i_bound:.4f} ms by {i_by} "
+                  f"({inbytes / 1e6:.2f} MB, {iops / 1e9:.3f} G operations; "
+                  f"{ineed['pairs']} pairs, {ineed['pairs_in_support']} "
+                  f"within h)", flush=True)
+            row.update({"shapes": f"gecko inference {IMAGE}x{IMAGE} h={h} "
+                                  f"B=1",
+                        "launches": infer_launches[name],
+                        "max_abs_err": errs[name], "ms": i_ms,
+                        "plain_ms": i_plain, "bound_ms": i_bound,
+                        "bound_by": i_by, "train": train})
+        else:  # the adjoint runs on the training path only
+            row.update(train)
+        rows.append(row)
+    phase("times", t0, f"inference rollout step {step_ms[True]:.4f} ms with "
+          f"the kernels, {step_ms[False]:.4f} ms with the plain versions "
+          f"({STEPS} steps, fire_rate 0.5, host clock around synchronize, "
+          f"timed after the inference phases); kernel times: device time "
+          f"from torch.profiler kernel records over 20 calls, L2-warm | "
+          f"{smi}")
 
     if "--profile" in sys.argv[1:]:
         t0 = time.time()
         profile_steps(model, eng, S0, h)
-        phase("profile", t0, "torch.profiler, 16 steps at fire_rate 0.5")
+        phase("profile", t0, "torch.profiler, 16 inference steps at "
+              "fire_rate 0.5")
+        t0 = time.time()
+        profile_train(teng, x2)
+        phase("profile-train", t0, "torch.profiler, one full-depth "
+              "training iteration")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

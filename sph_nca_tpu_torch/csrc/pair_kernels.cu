@@ -5,7 +5,9 @@
 // (the SPH gradient of the state plus the pre-update life-mask blur), and
 // sph_mask_kernel replaces
 //   sph_nca_tpu/ops/pallas/pair_kernel.py:625 _mask_kernel
-// (the post-update life-mask blur).
+// (the post-update life-mask blur), and sph_bwd_kernel replaces
+//   sph_nca_tpu/ops/pallas/pair_kernel.py:437 _bwd_kernel
+// (the adjoint of the SPH gradient, the backward of the perception).
 //
 // Both run over one window-size bucket of the cell engine
 // (sph_nca_tpu_torch/ops/cells.py): block b holds P = 64 rows (8 subcells x 8
@@ -17,6 +19,12 @@
 //   gA_d[p, :] += Tg r_d S_w[:],  rowsum_d[p] += Tg r_d,  sm[p] += Tw alive_w
 // and finally gA_d[p, :] -= S_b[p, :] rowsum_d[p], stored d-major [P, D*F].
 // alive_w is S_w[3] > thr (use_alpha) or v_w > 0.
+//
+// Batch. Every kernel takes a leading batch axis B on blockIdx.y: the
+// geometry (positions, volumes, window tables) is shared, and each sample's
+// state, own rows, cotangents and outputs sit at that sample's offset. The
+// training step runs all B samples of a batch in one launch per bucket, as
+// the JAX trainer vmaps the pallas_call; inference launches with B = 1.
 //
 // Numerics. d2 comes from per-axis differences, never from
 // |a|^2 + |b|^2 - 2ab: the self pair has d2 == 0 exactly and contributes 0,
@@ -48,6 +56,23 @@
 // [P, W] x [W, F] product could run as TF32/3xTF32 wgmma), the tiles are
 // loaded by the threads themselves (no TMA, no cp.async double buffering),
 // and pairs beyond h are evaluated like any other (~80% of the window).
+//
+// The adjoint (sph_bwd_kernel), for every pair (p, w) of a block:
+//   r_d  = xb_d[p] - xw_d[w]                 (the OPPOSITE sign of the forward)
+//   mag  = 3((h^2 + d2) rsqrt(d2) - 2h)      on 0 < d2 < h^2, else 0
+//   acc[p, :] += sum_d mag r_d G_w[d*F : (d+1)*F]
+// and finally dA[p, :] = sig_g v_b[p] acc[p, :] - sum_d gsum[p, d] gbar_p[d*F:]
+// with G the d-major cotangent of gA [C*M, D*F], read through win_cells like
+// the forward reads S, gbar_p the row's own cotangent and gsum the
+// geometry's self term (ops/cells.py). mag carries no v_w: the row's own
+// volume v_b multiplies the sum instead. Pad rows have v_b = 0 and gsum = 0,
+// so their dA is exactly 0. Bound: the same pairs as the forward with
+// ~5 + D * (1 + 2F) = 104 operations for a pair inside h, so it is bound by
+// operations like the forward. Design: the forward's (4 groups of 64 threads
+// split each 64-slot window tile, the tile's positions and its D*F cotangent
+// columns staged in shared memory, partial sums meeting in shared memory),
+// with acc [F] in registers; a warp whose 32 rows all lie beyond h of a slot
+// skips the slot's products (mag == 0 adds nothing).
 
 #include <cuda_runtime.h>
 
@@ -62,15 +87,17 @@ constexpr float FAR = 1.0e6f;      // position of the tile's tail slots
 template <int D, int F>
 __global__ void __launch_bounds__(THREADS) sph_fwd_kernel(
     const float* __restrict__ xs_b,    // [nb, D, P]
-    const float* __restrict__ S,       // [C*M, F] cell-layout state
-    const float* __restrict__ ab,      // [nb, P, F] the blocks' own rows
+    const float* __restrict__ S,       // [B][C*M, F] cell-layout state
+    long long s_bs,                    // S's sample stride (elements)
+    const float* __restrict__ ab,      // [B][nb, P, F] the blocks' own rows
+    long long ab_bs,                   // ab's sample stride (elements)
     const float* __restrict__ xw_b,    // [nb, D, W]
     const float* __restrict__ vw_b,    // [nb, W]
     const int* __restrict__ win,       // [nb, Wu] window cells
     int M, int W, int Wu, float h, float sig_w, float sig_g, float thr,
     int use_alpha,
-    float* __restrict__ ga,            // [nb, P, D*F]
-    float* __restrict__ sm)            // [nb, P]
+    float* __restrict__ ga,            // [B, nb, P, D*F]
+    float* __restrict__ sm)            // [B, nb, P]
 {
     constexpr int DF = D * F;
     constexpr int K = DF + D + 1;      // partials: gA, rowsum_d, sm
@@ -80,6 +107,8 @@ __global__ void __launch_bounds__(THREADS) sph_fwd_kernel(
     __shared__ float s_red[G - 1][K][P + 1];
 
     const int b = blockIdx.x;
+    const int nb = gridDim.x;
+    const int y = blockIdx.y;          // sample
     const int tid = threadIdx.x;
     const int p = tid % P;
     const int g = tid / P;
@@ -89,6 +118,7 @@ __global__ void __launch_bounds__(THREADS) sph_fwd_kernel(
     const float* xw = xw_b + (size_t)b * D * W;
     const float* vw = vw_b + (size_t)b * W;
     const int* wc = win + (size_t)b * Wu;
+    const float* Sy = S + (size_t)y * s_bs;
 
     float xr[D];
 #pragma unroll
@@ -118,7 +148,7 @@ __global__ void __launch_bounds__(THREADS) sph_fwd_kernel(
             float val = 0.0f;
             if (w < W) {
                 const int cell = wc[w / M];
-                val = S[((size_t)cell * M + (w % M)) * F + f];
+                val = Sy[((size_t)cell * M + (w % M)) * F + f];
             }
             s_S[j][f] = val;
         }
@@ -162,6 +192,7 @@ __global__ void __launch_bounds__(THREADS) sph_fwd_kernel(
         s_red[g - 1][K - 1][p] = msum;
     }
     __syncthreads();
+    const size_t blk = (size_t)y * nb + b;  // output block of this sample
     if (g == 0) {
 #pragma unroll
         for (int q = 0; q < G - 1; ++q) {
@@ -171,36 +202,39 @@ __global__ void __launch_bounds__(THREADS) sph_fwd_kernel(
             for (int d = 0; d < D; ++d) rsum[d] += s_red[q][DF + d][p];
             msum += s_red[q][K - 1][p];
         }
-        const float* abr = ab + ((size_t)b * P + p) * F;
+        const float* abr = ab + (size_t)y * ab_bs + ((size_t)b * P + p) * F;
 #pragma unroll
         for (int d = 0; d < D; ++d) {
 #pragma unroll
             for (int f = 0; f < F; ++f)
                 s_red[0][d * F + f][p] = acc[d * F + f] - abr[f] * rsum[d];
         }
-        sm[(size_t)b * P + p] = msum;
+        sm[blk * P + p] = msum;
     }
     __syncthreads();
-    float* out = ga + (size_t)b * P * DF;
+    float* out = ga + blk * P * DF;
     for (int i = tid; i < P * DF; i += THREADS) out[i] = s_red[0][i % DF][i / DF];
 }
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) sph_mask_kernel(
     const float* __restrict__ xs_b,    // [nb, D, P]
-    const float* __restrict__ S,       // [C*M, F] cell-layout state
+    const float* __restrict__ S,       // [B][C*M, F] cell-layout state
+    long long s_bs,                    // S's sample stride (elements)
     const float* __restrict__ xw_b,    // [nb, D, W]
     const float* __restrict__ vw_b,    // [nb, W]
     const int* __restrict__ win,       // [nb, Wu]
     int F, int M, int W, int Wu, float h, float sig_w, float thr,
     int use_alpha,
-    float* __restrict__ sm)            // [nb, P]
+    float* __restrict__ sm)            // [B, nb, P]
 {
     __shared__ float s_x[D][TW];
     __shared__ float s_va[TW];         // v_w * alive_w
     __shared__ float s_red[G - 1][P];
 
     const int b = blockIdx.x;
+    const int nb = gridDim.x;
+    const int y = blockIdx.y;
     const int tid = threadIdx.x;
     const int p = tid % P;
     const int g = tid / P;
@@ -209,6 +243,7 @@ __global__ void __launch_bounds__(THREADS) sph_mask_kernel(
     const float* xw = xw_b + (size_t)b * D * W;
     const float* vw = vw_b + (size_t)b * W;
     const int* wc = win + (size_t)b * Wu;
+    const float* Sy = S + (size_t)y * s_bs;
 
     float xr[D];
 #pragma unroll
@@ -227,7 +262,7 @@ __global__ void __launch_bounds__(THREADS) sph_mask_kernel(
                 bool alive = v > 0.0f;
                 if (use_alpha) {
                     const int cell = wc[w / M];
-                    alive = S[((size_t)cell * M + (w % M)) * F + 3] > thr;
+                    alive = Sy[((size_t)cell * M + (w % M)) * F + 3] > thr;
                 }
                 va = alive ? v : 0.0f;
             }
@@ -253,31 +288,147 @@ __global__ void __launch_bounds__(THREADS) sph_mask_kernel(
     if (g == 0) {
 #pragma unroll
         for (int q = 0; q < G - 1; ++q) msum += s_red[q][p];
-        sm[(size_t)b * P + p] = msum;
+        sm[((size_t)y * nb + b) * P + p] = msum;
     }
+}
+
+template <int D, int F>
+__global__ void __launch_bounds__(THREADS) sph_bwd_kernel(
+    const float* __restrict__ xs_b,    // [nb, D, P]
+    const float* __restrict__ vs_b,    // [nb, P] the rows' own volumes
+    const float* __restrict__ gsum_b,  // [nb, P, D] adjoint self term
+    const float* __restrict__ gb,      // [B][nb, P, D*F] the rows' cotangents
+    long long gb_bs,                   // gb's sample stride (elements)
+    const float* __restrict__ xw_b,    // [nb, D, W]
+    const float* __restrict__ Gc,      // [B][C*M, D*F] cotangent of gA
+    long long g_bs,                    // Gc's sample stride (elements)
+    const int* __restrict__ win,       // [nb, Wu] window cells
+    int M, int W, int Wu, float h, float sig_g,
+    float* __restrict__ da)            // [B, nb, P, F]
+{
+    constexpr int DF = D * F;
+    __shared__ float s_x[D][TW];
+    __shared__ float s_G[TW][DF];
+    __shared__ float s_red[G - 1][F][P + 1];
+
+    const int b = blockIdx.x;
+    const int nb = gridDim.x;
+    const int y = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int p = tid % P;
+    const int g = tid / P;
+    const float hh = h * h;
+    const float two_h = 2.0f * h;
+
+    const float* xw = xw_b + (size_t)b * D * W;
+    const int* wc = win + (size_t)b * Wu;
+    const float* Gy = Gc + (size_t)y * g_bs;
+
+    float xr[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) xr[d] = xs_b[((size_t)b * D + d) * P + p];
+
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+
+    for (int t0 = 0; t0 < W; t0 += TW) {
+        __syncthreads();  // the previous tile is consumed
+        for (int i = tid; i < TW; i += THREADS) {
+            const int w = t0 + i;
+#pragma unroll
+            for (int d = 0; d < D; ++d) s_x[d][i] = w < W ? xw[(size_t)d * W + w] : FAR;
+        }
+        for (int i = tid; i < TW * DF; i += THREADS) {
+            const int j = i / DF;
+            const int k = i % DF;
+            const int w = t0 + j;
+            float val = 0.0f;
+            if (w < W) {
+                const int cell = wc[w / M];
+                val = Gy[((size_t)cell * M + (w % M)) * DF + k];
+            }
+            s_G[j][k] = val;
+        }
+        __syncthreads();
+
+        const int n = min(TW, W - t0);
+        for (int j = g; j < n; j += G) {
+            float r[D];
+#pragma unroll
+            for (int d = 0; d < D; ++d) r[d] = xr[d] - s_x[d][j];
+            float d2 = r[0] * r[0];
+#pragma unroll
+            for (int d = 1; d < D; ++d) d2 = d2 + r[d] * r[d];
+            const float rs = rsqrtf(d2 > 0.0f ? d2 : 1.0f);
+            const float mag =
+                (d2 > 0.0f && d2 < hh) ? 3.0f * ((hh + d2) * rs - two_h) : 0.0f;
+            if (mag == 0.0f) continue;  // adds nothing (pairs beyond h)
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float md = mag * r[d];
+#pragma unroll
+                for (int f = 0; f < F; ++f) acc[f] += md * s_G[j][d * F + f];
+            }
+        }
+    }
+
+    if (g > 0) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) s_red[g - 1][f][p] = acc[f];
+    }
+    __syncthreads();
+    const size_t blk = (size_t)y * nb + b;
+    if (g == 0) {
+#pragma unroll
+        for (int q = 0; q < G - 1; ++q) {
+#pragma unroll
+            for (int f = 0; f < F; ++f) acc[f] += s_red[q][f][p];
+        }
+        const size_t row = (size_t)b * P + p;
+        const float sv = sig_g * vs_b[row];
+        const float* gbr = gb + (size_t)y * gb_bs + row * DF;
+        float gs[D];
+#pragma unroll
+        for (int d = 0; d < D; ++d) gs[d] = gsum_b[row * D + d];
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+            float t2 = gs[0] * gbr[f];
+#pragma unroll
+            for (int d = 1; d < D; ++d) t2 = t2 + gs[d] * gbr[d * F + f];
+            s_red[0][f][p] = sv * acc[f] - t2;
+        }
+    }
+    __syncthreads();
+    float* out = da + blk * P * F;
+    for (int i = tid; i < P * F; i += THREADS) out[i] = s_red[0][i % F][i / F];
 }
 
 }  // namespace
 
-// Plain C launchers for ctypes: raw device pointers, sizes and the caller's
-// stream; each returns the cudaGetLastError() code of its launch (0 = ok).
+// Plain C launchers for ctypes: raw device pointers, sizes, sample strides
+// and the caller's stream; the grid is (nb blocks, B samples). Each returns
+// the cudaGetLastError() code of its launch (0 = ok).
 
 extern "C" int sph_fwd_launch(
-    const float* xs_b, const float* S, const float* ab, const float* xw_b,
-    const float* vw_b, const int* win, int nb, int D, int F, int P_, int M,
-    int W, int Wu, float h, float sig_w, float sig_g, float thr,
-    int use_alpha, float* ga, float* sm, void* stream)
+    const float* xs_b, const float* S, long long s_bs, const float* ab,
+    long long ab_bs, const float* xw_b, const float* vw_b, const int* win,
+    int B, int nb, int D, int F, int P_, int M, int W, int Wu, float h,
+    float sig_w, float sig_g, float thr, int use_alpha, float* ga, float* sm,
+    void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (P_ != P || F != 16 || nb <= 0) return (int)cudaErrorInvalidValue;
+    if (P_ != P || F != 16 || nb <= 0 || B <= 0 || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(nb, B);
     if (D == 2) {
-        sph_fwd_kernel<2, 16><<<nb, THREADS, 0, st>>>(
-            xs_b, S, ab, xw_b, vw_b, win, M, W, Wu, h, sig_w, sig_g, thr,
-            use_alpha, ga, sm);
+        sph_fwd_kernel<2, 16><<<grid, THREADS, 0, st>>>(
+            xs_b, S, s_bs, ab, ab_bs, xw_b, vw_b, win, M, W, Wu, h, sig_w,
+            sig_g, thr, use_alpha, ga, sm);
     } else if (D == 3) {
-        sph_fwd_kernel<3, 16><<<nb, THREADS, 0, st>>>(
-            xs_b, S, ab, xw_b, vw_b, win, M, W, Wu, h, sig_w, sig_g, thr,
-            use_alpha, ga, sm);
+        sph_fwd_kernel<3, 16><<<grid, THREADS, 0, st>>>(
+            xs_b, S, s_bs, ab, ab_bs, xw_b, vw_b, win, M, W, Wu, h, sig_w,
+            sig_g, thr, use_alpha, ga, sm);
     } else {
         return (int)cudaErrorInvalidValue;
     }
@@ -285,18 +436,47 @@ extern "C" int sph_fwd_launch(
 }
 
 extern "C" int sph_mask_launch(
-    const float* xs_b, const float* S, const float* xw_b, const float* vw_b,
-    const int* win, int nb, int D, int F, int P_, int M, int W, int Wu,
-    float h, float sig_w, float thr, int use_alpha, float* sm, void* stream)
+    const float* xs_b, const float* S, long long s_bs, const float* xw_b,
+    const float* vw_b, const int* win, int B, int nb, int D, int F, int P_,
+    int M, int W, int Wu, float h, float sig_w, float thr, int use_alpha,
+    float* sm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (P_ != P || F < 4 || nb <= 0) return (int)cudaErrorInvalidValue;
+    if (P_ != P || F < 4 || nb <= 0 || B <= 0 || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(nb, B);
     if (D == 2) {
-        sph_mask_kernel<2><<<nb, THREADS, 0, st>>>(
-            xs_b, S, xw_b, vw_b, win, F, M, W, Wu, h, sig_w, thr, use_alpha, sm);
+        sph_mask_kernel<2><<<grid, THREADS, 0, st>>>(
+            xs_b, S, s_bs, xw_b, vw_b, win, F, M, W, Wu, h, sig_w, thr,
+            use_alpha, sm);
     } else if (D == 3) {
-        sph_mask_kernel<3><<<nb, THREADS, 0, st>>>(
-            xs_b, S, xw_b, vw_b, win, F, M, W, Wu, h, sig_w, thr, use_alpha, sm);
+        sph_mask_kernel<3><<<grid, THREADS, 0, st>>>(
+            xs_b, S, s_bs, xw_b, vw_b, win, F, M, W, Wu, h, sig_w, thr,
+            use_alpha, sm);
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int sph_bwd_launch(
+    const float* xs_b, const float* vs_b, const float* gsum_b,
+    const float* gb, long long gb_bs, const float* xw_b, const float* Gc,
+    long long g_bs, const int* win, int B, int nb, int D, int F, int P_,
+    int M, int W, int Wu, float h, float sig_g, float* da, void* stream)
+{
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (P_ != P || F != 16 || nb <= 0 || B <= 0 || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid(nb, B);
+    if (D == 2) {
+        sph_bwd_kernel<2, 16><<<grid, THREADS, 0, st>>>(
+            xs_b, vs_b, gsum_b, gb, gb_bs, xw_b, Gc, g_bs, win, M, W, Wu, h,
+            sig_g, da);
+    } else if (D == 3) {
+        sph_bwd_kernel<3, 16><<<grid, THREADS, 0, st>>>(
+            xs_b, vs_b, gsum_b, gb, gb_bs, xw_b, Gc, g_bs, win, M, W, Wu, h,
+            sig_g, da);
     } else {
         return (int)cudaErrorInvalidValue;
     }

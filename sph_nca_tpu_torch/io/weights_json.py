@@ -1,6 +1,7 @@
-"""Read the web-demo JSON weight format into the port's model types.
+"""Read and write the web-demo JSON weight format.
 
-Counterpart of ``load_weights_json`` in ``sph_nca_tpu/io/weights_json.py``.
+Counterpart of ``load_weights_json`` and ``save_weights_json`` in
+``sph_nca_tpu/io/weights_json.py``.
 
 Format:
   {"layers": [{"index": 0, "weight": [[out x in]], "bias": [out]},
@@ -68,3 +69,33 @@ def load_weights_json(path: str, device="cuda") -> ImportedModel:
     params = params_from_jax_numpy(w1, b1, w2, b2, device=dev)
     return ImportedModel(params=params, cfg=cfg, h=h,
                          mode=cfg_json.get("mode", "image"))
+
+
+def save_weights_json(path: str, params: MLPParams, cfg: SPHNCAConfig,
+                      h: float, mode: str = "image") -> None:
+    """Write trained weights in the format ``load_weights_json`` reads."""
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    data = {
+        "layers": [
+            {"index": 0, "weight": host(params.w1).T.tolist(),
+             "bias": host(params.b1).tolist()},
+            {"index": 2,  # torch Sequential index (Linear, ReLU, Linear)
+             "weight": host(params.w2).T.tolist(),
+             "bias": host(params.b2).tolist()},
+        ],
+        "config": {
+            "input_features": cfg.in_features,
+            "hidden_features": cfg.hidden,
+            "output_features": cfg.out_features,
+            "fire_rate": cfg.fire_rate,
+            "update_rule": cfg.update_rule,
+            "smoothing": cfg.smoothing,
+            "h": h,
+            "mode": mode,
+        },
+    }
+    with open(path, "w") as f:
+        json.dump(data, f, indent=2)

@@ -18,9 +18,12 @@ The cell-engine form of the step is ``models/cell_step.py``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
+
+from .. import resolve_device
 
 DEFAULT_CHANNELS = 16
 DEFAULT_HIDDEN = 256
@@ -61,6 +64,36 @@ class MLPParams(NamedTuple):
     b1: torch.Tensor  # [H]
     w2: torch.Tensor  # [H, out]
     b2: torch.Tensor  # [out]
+
+
+def init_params(cfg: SPHNCAConfig, generator: torch.Generator,
+                device="cuda") -> MLPParams:
+    """Initialize like torch.nn.Linear: every weight and bias
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)); the 'orig' rule zero-inits the last
+    layer. Drawn from ``generator`` (on its own device), then moved to
+    ``device``."""
+    device = resolve_device(device)
+    fi, hid, out = cfg.in_features, cfg.hidden, cfg.out_features
+
+    def uniform(shape, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        u = torch.rand(shape, generator=generator,
+                       device=generator.device)
+        return (u * (2.0 * bound) - bound).to(device)
+
+    p = MLPParams(
+        w1=uniform((fi, hid), fi),
+        b1=uniform((hid,), fi),
+        w2=uniform((hid, out), hid),
+        b2=uniform((out,), hid),
+    )
+    if cfg.update_rule == "orig":
+        p = p._replace(w2=torch.zeros_like(p.w2), b2=torch.zeros_like(p.b2))
+    return p
+
+
+def num_params(p: MLPParams) -> int:
+    return sum(t.numel() for t in p)
 
 
 def apply_mlp(p: MLPParams, y: torch.Tensor) -> torch.Tensor:

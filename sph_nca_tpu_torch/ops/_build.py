@@ -83,6 +83,7 @@ def build(verbose: bool = False) -> Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
@@ -91,17 +92,27 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the launchers' C signatures."""
     lib = ctypes.CDLL(str(build()))
     lib.sph_fwd_launch.argtypes = [
-        _P, _P, _P, _P, _P, _P,  # xs_b, S, ab, xw_b, vw_b, win
-        _I, _I, _I, _I, _I, _I, _I,  # nb, D, F, P, M, W, Wu
+        _P, _P, _L, _P, _L,  # xs_b, S, S's sample stride, ab, ab's stride
+        _P, _P, _P,  # xw_b, vw_b, win
+        _I, _I, _I, _I, _I, _I, _I, _I,  # B, nb, D, F, P, M, W, Wu
         _F, _F, _F, _F, _I,  # h, sig_w, sig_g, thr, use_alpha
         _P, _P, _P,  # ga, sm, stream
     ]
     lib.sph_fwd_launch.restype = _I
     lib.sph_mask_launch.argtypes = [
-        _P, _P, _P, _P, _P,  # xs_b, S, xw_b, vw_b, win
-        _I, _I, _I, _I, _I, _I, _I,  # nb, D, F, P, M, W, Wu
+        _P, _P, _L, _P, _P, _P,  # xs_b, S, S's sample stride, xw_b, vw_b, win
+        _I, _I, _I, _I, _I, _I, _I, _I,  # B, nb, D, F, P, M, W, Wu
         _F, _F, _F, _I,  # h, sig_w, thr, use_alpha
         _P, _P,  # sm, stream
     ]
     lib.sph_mask_launch.restype = _I
+    lib.sph_bwd_launch.argtypes = [
+        _P, _P, _P,  # xs_b, vs_b, gsum_b
+        _P, _L, _P, _P, _L,  # gb, gb's stride, xw_b, gflat, gflat's stride
+        _P,  # win
+        _I, _I, _I, _I, _I, _I, _I, _I,  # B, nb, D, F, P, M, W, Wu
+        _F, _F,  # h, sig_g
+        _P, _P,  # da, stream
+    ]
+    lib.sph_bwd_launch.restype = _I
     return lib

@@ -14,9 +14,9 @@ tight width, ``blk2_*``: the tail at the max width).
 The build runs in numpy on the host, exactly as the JAX build does, and the
 results move to the device at the end. Integer layouts equal the JAX build's.
 
-Not ported yet (they serve the XLA einsum path and the backward, which come
-with the training slice): the pair-weight tables ``Tw`` / ``Tg``, the adjoint
-self term ``gsum``, the einsum operators and the optional pair tables.
+Not ported yet (they serve the XLA einsum path and the table kernels): the
+pair-weight tables ``Tw`` / ``Tg``, the einsum operators and the optional
+pair tables.
 """
 
 from __future__ import annotations
@@ -55,6 +55,9 @@ class CellEngine:
     win_cells: torch.Tensor  # [C, W] int32 cell ids (pad -> cell 0)
     xw: torch.Tensor  # [C, W*M, D] window positions, cell frame
     vw: torch.Tensor  # [C, W*M] window volumes
+    # gsum_i = sigma_g sum_k mag_ik r_ik v_k, the self term of the SPH
+    # gradient's adjoint (the perception's backward); 0 on pad slots
+    gsum: torch.Tensor  # [C, M, D]
     blk_xs: torch.Tensor  # [nb1, D, P] block rows, block frame
     blk_win_cells: torch.Tensor  # [nb1, Wu1] int32
     blk_xw: torch.Tensor  # [nb1, D, Wu1*M]
@@ -87,17 +90,19 @@ class CellEngine:
     # -- layout conversion -------------------------------------------------
 
     def scatter(self, A: torch.Tensor) -> torch.Tensor:
-        """[N, F] particle-order values -> [C, M, F] cell layout
-        (padded slots are zero)."""
+        """[..., N, F] particle-order values -> [..., C, M, F] cell layout
+        (padded slots are zero); leading axes are batch axes."""
         c, m = self.num_cells, self.slots_per_cell
-        flat = A.new_zeros((c * m, A.shape[-1]))
-        flat[self.slot_of_particle] = A
-        return flat.reshape(c, m, A.shape[-1])
+        lead, f = tuple(A.shape[:-2]), A.shape[-1]
+        flat = A.new_zeros(lead + (c * m, f))
+        flat[..., self.slot_of_particle, :] = A
+        return flat.reshape(lead + (c, m, f))
 
     def gather_back(self, S: torch.Tensor) -> torch.Tensor:
-        """[C, M, F] cell layout -> [N, F] particle order."""
+        """[..., C, M, F] cell layout -> [..., N, F] particle order."""
         c, m = self.num_cells, self.slots_per_cell
-        return S.reshape(c * m, S.shape[-1])[self.slot_of_particle]
+        flat = S.reshape(tuple(S.shape[:-3]) + (c * m, S.shape[-1]))
+        return flat[..., self.slot_of_particle, :]
 
     # -- window gathers ----------------------------------------------------
 
@@ -390,6 +395,11 @@ def build_cell_engine(
     vw = vs[win_cells].reshape(C, Wc * M)
     blk_vw = vs[win1].reshape(win1.shape[0], win1.shape[1] * M)
     blk2_vw = vs[win2].reshape(win2.shape[0], win2.shape[1] * M)
+    gsum = np.concatenate([
+        _blk_gsum_rows(xs1, xw1, blk_vw, h32, sig_g),
+        _blk_gsum_rows(xs2, xw2, blk2_vw, h32, sig_g),
+    ]).reshape(C, M, d)
+    gsum = np.where(pad_slot[..., None], np.float32(0.0), gsum)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a)).to(dtype=dtype,
@@ -402,6 +412,7 @@ def build_cell_engine(
         win_cells=t(win_cells, torch.int32),
         xw=t(xw),
         vw=t(vw),
+        gsum=t(gsum),
         blk_xs=t(xs1),
         blk_win_cells=t(win1, torch.int32),
         blk_xw=t(xw1),
@@ -428,4 +439,27 @@ def _blk_vol_rows(xs_b: np.ndarray, xw_b: np.ndarray, h, sig_w,
             d2 = d2 + diff[:, ax] * diff[:, ax]
         c = np.maximum(h * h - d2, np.float32(0.0))
         out[c0 : c0 + chunk] = sig_w * np.sum(c * c * c, axis=-1)
+    return out
+
+
+def _blk_gsum_rows(xs_b: np.ndarray, xw_b: np.ndarray, vw_b: np.ndarray, h,
+                   sig_g, chunk: int = 64) -> np.ndarray:
+    """The adjoint's self term per block row, sig_g sum_w mag v_w (xw - xb)
+    -> [nb, P, D], in f32 (chunked over blocks).
+
+    mag = 3(h-d)^2/d in the sqrt/divide form the JAX build uses, not the
+    kernels' rsqrt form. The self copy of a row has d2 == 0 exactly (the
+    build rounds each block-frame shift once) and adds nothing."""
+    nb, d, p = xs_b.shape
+    out = np.zeros((nb, p, d), np.float32)
+    for c0 in range(0, nb, chunk):
+        diff = xw_b[c0 : c0 + chunk, :, None, :] - xs_b[c0 : c0 + chunk, :, :, None]
+        d2 = diff[:, 0] * diff[:, 0]
+        for ax in range(1, d):
+            d2 = d2 + diff[:, ax] * diff[:, ax]
+        dist = np.sqrt(np.where(d2 > 0.0, d2, np.float32(1.0)))
+        inside = (d2 > 0.0) & (dist < h)
+        mag = np.where(inside, 3.0 * (h - dist) ** 2 / dist, np.float32(0.0))
+        t = sig_g * mag * vw_b[c0 : c0 + chunk, None, :]
+        out[c0 : c0 + chunk] = np.einsum("npw,ndpw->npd", t, diff)
     return out

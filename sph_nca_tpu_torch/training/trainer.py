@@ -1,0 +1,187 @@
+"""Plane-mode trainer on the cell engine (counterpart of the cell-engine path
+of ``sph_nca_tpu/training/trainer.py``, an engine built without pair tables).
+
+One iteration: sample B states from the pool, rank them by per-sample loss
+and put a fresh seed in the worst one's place, roll the batch out for a
+progressive-growing number of steps through the kernels (each step
+recomputed in the backward), take the MSE loss on the final state plus
+``aux_states`` random intermediate states, and update the MLP with
+per-parameter gradient normalization g / (|g| + 1e-8) before Adam, whose
+learning rate falls linearly from lr to lr * lr_end_factor over
+lr_decay_steps iterations.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.cell_step import rollout_cells
+from ..models.nca import MLPParams, SPHNCAConfig, init_params
+from ..ops.cells import CellEngine
+from .losses import mse_loss, overflow_penalty, rgba_with_margin, target_at
+from .pool import Pool
+
+
+class LossBundle(NamedTuple):
+    """Loss functions for one training mode.
+
+    per_sample(x, A [B, N, C]) -> [B]   (pool ranking and reporting)
+    batch_total(x, A [B, N, C]) -> scalar  (the trained objective)
+    """
+
+    per_sample: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    batch_total: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def make_mse_bundle(img: torch.Tensor, mse_cfg) -> LossBundle:
+    """Image-mode losses. The trained objective follows the reference's
+    packed batch: mean over samples of the MSE plus w * the overflow SUMMED
+    over samples."""
+
+    def per_sample(x, A):
+        return mse_loss(x, A, img, mse_cfg)
+
+    def batch_total(x, A_batch):
+        img_x = target_at(x, img, mse_cfg)
+        rgba = rgba_with_margin(A_batch, mse_cfg.use_alpha, margin=None)
+        mse_b = torch.mean((rgba - img_x) ** 2, dim=(-2, -1))
+        of_b = overflow_penalty(A_batch)
+        return torch.mean(mse_b) + mse_cfg.overflow_weight * torch.sum(of_b)
+
+    return LossBundle(per_sample=per_sample, batch_total=batch_total)
+
+
+def normalize_grads_(params) -> None:
+    """Per-parameter g <- g / (|g| + 1e-8), in place."""
+    with torch.no_grad():
+        for p in params:
+            p.grad.div_(torch.linalg.vector_norm(p.grad) + 1e-8)
+
+
+def make_optimizer(params, lr: float = 3e-3, *, end_factor: float = 0.1,
+                   decay_steps: int = 2000):
+    """Adam and its LinearLR(1 -> end_factor over decay_steps) schedule."""
+    opt = torch.optim.Adam(params, lr=lr)
+    sched = torch.optim.lr_scheduler.LinearLR(
+        opt, start_factor=1.0, end_factor=end_factor, total_iters=decay_steps)
+    return opt, sched
+
+
+def progressive_steps(i: int, steps_range: Tuple[int, int],
+                      steps_increment: int, rng: np.random.Generator) -> int:
+    """Rollout length for training iteration i: 1, 1, ..., growing by one
+    every ``steps_increment`` iterations up to the range's mean, then drawn
+    from [lo, hi)."""
+    lo, hi = steps_range
+    mean = (lo + hi) // 2
+    if steps_increment > 0 and i < mean * steps_increment:
+        return i // steps_increment + 1
+    return int(rng.integers(lo, hi))
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training hyper-parameters (defaults = the reference's train.py)."""
+
+    batch_size: int = 8
+    pool_size: int = 1024
+    training_iter: int = 8000
+    steps_range: Tuple[int, int] = (32, 48)
+    steps_increment: int = 5
+    lr: float = 3e-3
+    lr_end_factor: float = 0.1
+    lr_decay_steps: int = 2000
+    normalize_grads: bool = True
+    aux_states: int = 4  # random intermediate states in the loss
+    aux_weight: float = 0.1
+    degrade_prob: float = 0.0
+    erase_radius: float = 0.0
+    seed: int = 0
+
+
+class Trainer:
+    """Trainer for plane mode on one cell engine: the pool, the rollouts and
+    the loss share one geometry.
+
+    ``x`` holds the loss-space positions [N, 2] (the plane, without the z
+    the engine's 3D positions carry). Host draws (steps, aux states) come
+    from ``numpy.random.default_rng(seed)`` as in the JAX trainer; the
+    initial parameters and the fire masks from torch generators seeded with
+    ``seed``.
+    """
+
+    def __init__(
+        self,
+        model_cfg: SPHNCAConfig,
+        train_cfg: TrainConfig,
+        eng: CellEngine,
+        x: torch.Tensor,
+        loss: LossBundle,
+        h: float,
+        *,
+        params: Optional[MLPParams] = None,
+    ):
+        self.model_cfg = model_cfg
+        self.cfg = train_cfg
+        self.eng = eng
+        self.device = eng.device
+        self.x = x.to(self.device)
+        self.loss = loss
+        self.h = h
+
+        self.np_rng = np.random.default_rng(train_cfg.seed)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(train_cfg.seed)
+        if params is None:
+            params = init_params(
+                model_cfg, torch.Generator().manual_seed(train_cfg.seed),
+                device=self.device)
+        self.params = MLPParams(*(p.detach().to(self.device).clone()
+                                  .requires_grad_(True) for p in params))
+        self.optimizer, self.scheduler = make_optimizer(
+            list(self.params), train_cfg.lr,
+            end_factor=train_cfg.lr_end_factor,
+            decay_steps=train_cfg.lr_decay_steps)
+        self.last_steps = 0  # rollout length of the last iteration
+
+    def run_iteration(self, i: int, pool: Pool) -> float:
+        """One training iteration; returns the loss."""
+        cfg = self.cfg
+        idx, A0 = pool.sample(cfg.batch_size, degrade_prob=cfg.degrade_prob,
+                              erase_radius=cfg.erase_radius)
+        seed_A = pool.initial_feature()
+        n = progressive_steps(i, cfg.steps_range, cfg.steps_increment,
+                              self.np_rng)
+        collect = self.np_rng.integers(0, n + 1, size=cfg.aux_states)
+        self.last_steps = n
+
+        A0 = torch.from_numpy(A0).to(self.device)
+        with torch.no_grad():
+            # replace-worst: rank by per-sample loss, descending and stable,
+            # and swap the worst for a fresh seed
+            order = torch.argsort(-self.loss.per_sample(self.x, A0),
+                                  stable=True)
+        A0 = A0[order]
+        A0[0] = torch.tensor(seed_A, device=self.device)
+
+        final, collected = rollout_cells(
+            self.params, self.model_cfg, self.eng, self.eng.scatter(A0),
+            self.generator, n, self.h, collect_steps=collect)
+        final = self.eng.gather_back(final)
+        total = self.loss.batch_total(self.x, final)
+        for s in range(cfg.aux_states):
+            total = total + cfg.aux_weight * self.loss.batch_total(
+                self.x, self.eng.gather_back(collected[s]))
+
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        if cfg.normalize_grads:
+            normalize_grads_(self.params)
+        self.optimizer.step()
+        self.scheduler.step()
+        pool.update(idx[order.cpu().numpy()], final.detach().cpu().numpy())
+        return total.item()

@@ -1,1 +1,1 @@
-"""sph_nca_tpu_torch.utils — grids and seeds."""
+"""sph_nca_tpu_torch.utils — grids, seeds, image sampling and targets."""

@@ -1,8 +1,9 @@
-"""Regular particle grids (counterpart of ``grange`` in
-``sph_nca_tpu/utils/geometry.py``)."""
+"""Regular particle grids and differentiable image sampling (counterpart of
+``grange`` and ``bilinear_sample`` in ``sph_nca_tpu/utils/geometry.py``)."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Sequence
 
 import torch
@@ -19,3 +20,36 @@ def grange(gshape: Sequence[int], gmin, gsize, grid_offset: float = 0.5,
     idx = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
     shape = torch.as_tensor(gshape, dtype=torch.float32, device=device)
     return gmin + gsize * (idx + grid_offset) / shape
+
+
+def _linear_sample(p: torch.Tensor, grid: torch.Tensor, gmin, gsize, d: int,
+                   grid_center_offset: float) -> torch.Tensor:
+    """n-linear interpolation for d in {2, 3}: p [P, d] sample positions,
+    grid [g0..g_{d-1}, *value] -> [P, *value]. Out-of-range corners are
+    clamped to the edge. Differentiable in p and grid."""
+    gmin = torch.as_tensor(gmin, dtype=p.dtype, device=p.device)
+    gsize = torch.as_tensor(gsize, dtype=p.dtype, device=p.device)
+    gshape = torch.tensor(grid.shape[:d], dtype=p.dtype, device=p.device)
+    hi = torch.tensor(grid.shape[:d], device=p.device) - 1
+    cell = gsize / gshape
+
+    gp = (p - gmin) / cell  # grid-space position in [0, g)
+    gi = torch.floor(gp - grid_center_offset).to(torch.int64)
+
+    value_dims = grid.dim() - d
+    out = 0.0
+    for offset in itertools.product((0, 1), repeat=d):
+        ogi = gi + torch.tensor(offset, device=p.device)
+        # weight = prod_d (1 - |gp - (ogi + center_offset)|)
+        w = torch.prod(1.0 - torch.abs(gp - (ogi + grid_center_offset)),
+                       dim=-1)
+        cgi = torch.minimum(torch.clamp(ogi, min=0), hi)
+        gv = grid[tuple(cgi[..., i] for i in range(d))]  # [P, *value]
+        out = out + w[(...,) + (None,) * value_dims] * gv
+    return out
+
+
+def bilinear_sample(p: torch.Tensor, grid: torch.Tensor, gmin, gsize,
+                    grid_center_offset: float = 0.5) -> torch.Tensor:
+    """Sample a 2D grid of values at positions p [P, 2] -> [P, *value]."""
+    return _linear_sample(p, grid, gmin, gsize, 2, grid_center_offset)

@@ -152,3 +152,141 @@ def test_empty_second_bucket_launches_nothing(cuda):
     _close(ga_k, ga_p, real, GA_RTOL)
     _close(sm_k, sm_p, real, SM_RTOL)
     _close(mk, PK.mask_blur(eng, S, use_kernels=False), real, SM_RTOL)
+
+
+DA_RTOL = 1e-5  # of max|dA|
+
+
+def _bucket_rows(eng, X, bucket):
+    """(first block, blocks) of one bucket and X's rows [..., nb, P, K]."""
+    nb1 = eng.blk_xs.shape[0]
+    lo, hi = (0, nb1) if bucket == 1 else (nb1, nb1 + eng.blk2_xs.shape[0])
+    rows = X.reshape(*X.shape[:-3], -1, 64, X.shape[-1])
+    return lo, hi, rows[..., lo:hi, :, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_bwd_kernel_matches_plain(cuda, dim):
+    eng, _ = _cloud(cuda, dim)
+    G = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(eng.xs.shape[:2]) + (dim * 16,)).astype(np.float32)
+    ).to(cuda)
+    scal = PK.scal_vec(eng)
+    real = (eng.vs > 0).reshape(-1, 64)
+    vs = eng.vs.reshape(-1, 64)
+    gs = eng.gsum.reshape(-1, 64, dim)
+    n_bwd = PK.bwd_bucket.launches
+    for bucket, xs_b, xw_b, win in ((1, eng.blk_xs, eng.blk_xw,
+                                     eng.blk_win_cells),
+                                    (2, eng.blk2_xs, eng.blk2_xw,
+                                     eng.blk2_win_cells)):
+        lo, hi, gb = _bucket_rows(eng, G, bucket)
+        args = (scal, xs_b, vs[lo:hi], gs[lo:hi], gb, xw_b, G, win)
+        dk = PK.bwd_bucket(*args)
+        dp = PK.bwd_bucket_plain(*args)
+        torch.cuda.synchronize()
+        _close(dk, dp, real[lo:hi], DA_RTOL)
+        assert torch.all(dk[~real[lo:hi]] == 0)  # pad rows: exactly 0
+    assert PK.bwd_bucket.launches == n_bwd + 2
+    _close(PK.gradient_adjoint_dmajor(eng, G),
+           PK.gradient_adjoint_dmajor(eng, G, use_kernels=False),
+           eng.vs > 0, DA_RTOL)
+
+
+@pytest.mark.cuda
+def test_batched_launches_equal_per_sample(cuda):
+    """One launch for a batch of 8 gives each sample what a launch of its
+    own gives, for all three kernels."""
+    eng, _ = _cloud(cuda)
+    rng = np.random.default_rng(6)
+    c, m = eng.xs.shape[:2]
+    S = torch.from_numpy(rng.normal(size=(8, c, m, 16)).astype(
+        np.float32)).to(cuda)
+    G = torch.from_numpy(rng.normal(size=(8, c, m, 48)).astype(
+        np.float32)).to(cuda)
+    counts = (PK.fwd_bucket.launches, PK.mask_bucket.launches,
+              PK.bwd_bucket.launches)
+    ga, sm = PK.fused_perception(eng, S, d_major=True)
+    mk = PK.mask_blur(eng, S)
+    da = PK.gradient_adjoint_dmajor(eng, G)
+    assert (PK.fwd_bucket.launches, PK.mask_bucket.launches,
+            PK.bwd_bucket.launches) == tuple(n + 2 for n in counts)
+    for b in range(8):
+        ga1, sm1 = PK.fused_perception(eng, S[b], d_major=True)
+        assert torch.equal(ga[b], ga1) and torch.equal(sm[b], sm1)
+        assert torch.equal(mk[b], PK.mask_blur(eng, S[b]))
+        assert torch.equal(da[b], PK.gradient_adjoint_dmajor(eng, G[b]))
+
+
+@pytest.mark.cuda
+def test_function_kernel_grad_matches_plain_autograd(cuda):
+    eng, S = _cloud(cuda)
+    rng = np.random.default_rng(7)
+    S = S[None].repeat(2, 1, 1, 1) + 0.1 * torch.from_numpy(
+        rng.normal(size=(2,) + tuple(S.shape)).astype(np.float32)).to(cuda)
+    R = torch.from_numpy(rng.normal(size=tuple(S.shape[:-1]) + (48,)).astype(
+        np.float32)).to(cuda)
+    R[:, eng.vs == 0] = 0.0  # training puts no cotangent on pad rows
+    Sk = S.clone().requires_grad_(True)
+    n_bwd = PK.bwd_bucket.launches
+    (PK.perceive_cells_dmajor(eng, Sk)[0] * R).sum().backward()
+    assert PK.bwd_bucket.launches == n_bwd + 2
+    Sp = S.clone().requires_grad_(True)
+    (PK.fused_perception(eng, Sp, d_major=True, use_kernels=False)[0]
+     * R).sum().backward()
+    _close(Sk.grad, Sp.grad, (eng.vs > 0).expand(2, -1, -1), DA_RTOL)
+
+
+@pytest.mark.cuda
+def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    eng, _ = _cloud(cuda)
+    c, m = eng.xs.shape[:2]
+    G = torch.zeros((2, c, m, 48), device=cuda)
+    lo, hi, gb = _bucket_rows(eng, G, 1)
+    vs = eng.vs.reshape(-1, 64)[lo:hi]
+    gs = eng.gsum.reshape(-1, 64, 3)[lo:hi]
+    scal = PK.scal_vec(eng)
+    ok = [scal, eng.blk_xs, vs, gs, gb, eng.blk_xw, G, eng.blk_win_cells]
+    PK.bwd_bucket(*ok)
+    bad = {
+        4: gb[..., :32].contiguous(),  # F = 8 cotangent rows
+        6: G.double(),  # float64 cotangent
+        2: vs.double(),  # float64 volumes
+        7: eng.blk_win_cells.long(),  # int64 window table
+        3: gs[..., :2].contiguous(),  # gsum of the wrong D
+        5: eng.blk_xw.cpu(),  # geometry off the card
+    }
+    for i, arg in bad.items():
+        args = list(ok)
+        args[i] = arg
+        with pytest.raises(ValueError):
+            PK.bwd_bucket(*args)
+    G2 = torch.zeros((2, c, m, 32), device=cuda)  # F = 8 everywhere
+    _, _, gb2 = _bucket_rows(eng, G2, 1)
+    with pytest.raises(ValueError):
+        PK.bwd_bucket(scal, eng.blk_xs, vs, gs, gb2, eng.blk_xw, G2,
+                      eng.blk_win_cells)
+
+
+@pytest.mark.cuda
+def test_rollout_grads_kernels_match_plain(cuda):
+    """Parameter gradients of a 3-step batched BPTT rollout through the
+    kernels (forward recomputed in the backward) equal the plain versions'."""
+    eng, _ = _cloud(cuda)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    cfg = SPHNCAConfig(fire_rate=1.0, normalize_perception=4.0)
+    base = MLPParams(
+        torch.randn(48, 64, generator=g) * 0.1, torch.zeros(64),
+        torch.randn(64, 33, generator=g) * 0.1, torch.zeros(33))
+    A = torch.rand(2, eng.num_particles, 16, generator=g).to(cuda)
+    grads = {}
+    for use_kernels in (True, False):
+        params = MLPParams(*(p.to(cuda).requires_grad_(True) for p in base))
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        final = rollout_cells(params, cfg, eng, eng.scatter(A), gen, 3, 0.25,
+                              fire_rate=1.0, use_kernels=use_kernels)
+        eng.gather_back(final).square().sum().backward()
+        grads[use_kernels] = [p.grad for p in params]
+    for gk, gp in zip(grads[True], grads[False]):
+        assert float((gk - gp).abs().max()) <= 1e-4 * float(gp.abs().max())

@@ -46,6 +46,19 @@ def test_port_imports_no_jax(path):
             f"{path.relative_to(ROOT)} imports {mod}")
 
 
+def test_port_imports_pil_only_inside_functions():
+    """The card's machine has no PIL: only reading an image file needs it."""
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in tree.body:
+            names = []
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            assert not any(n.split(".")[0] == "PIL" for n in names), path
+
+
 def test_kernels_built_without_torch_headers():
     sources = list(PORT.rglob("*.py")) + list(PORT.rglob("*.cu")) + [
         ROOT / "chip_smoke.py"]
@@ -91,6 +104,17 @@ def test_entry_points_raise_without_card(no_card, tmp_path):
     # asked for the CPU, they run
     assert resolve_device("cpu") == torch.device("cpu")
     assert build_cell_engine(x, 0.25, device="cpu").device.type == "cpu"
+
+
+def test_train_entry_point_raises_without_card(no_card, tmp_path):
+    from sph_nca_tpu_torch.cli import train as cli_train
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig, init_params
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--output_dir", str(tmp_path)])
+    assert os.listdir(tmp_path) == []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(SPHNCAConfig(), torch.Generator())
 
 
 def test_build_is_keyed_by_source_hash():
