@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
-toolkit. Two main paths, each driven through its CLI with every launch
-counter set to 0 just before it and read just after:
+toolkit. Three main paths, each driven through its entry point with every
+launch counter set to 0 just before it and read just after:
 
   inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
              h = 0.1) on a 128x128 grid for 128 steps, as
@@ -14,7 +14,12 @@ counter set to 0 just before it and read just after:
              padded to 3D, h = 0.08, 16 channels, 256 hidden, gated rule,
              batch 8, pool 1024, Adam 3e-3), as
              ``python -m sph_nca_tpu_torch.cli.train`` runs it, for 60
-             iterations of the progressive schedule.
+             iterations of the progressive schedule;
+  surface    the cell-engine surface rollout of the in-repo stripes texture
+             model (16 channels, 256 hidden, h = 0.1, texture mode) on a
+             25,600-point sphere of radius 1 with bfloat16 pair tables, 10
+             farthest-point radial seeds, 128 steps at fire_rate 0.5, through
+             ``sph_nca_tpu_torch.models.surface.rollout_mesh_cells``.
 
 Phases, each printing one line with its wall time:
 
@@ -36,17 +41,32 @@ Phases, each printing one line with its wall time:
   8 train-depth  2 iterations of full 32-48-step BPTT, with each step
                  recomputed in the backward and without: ms per iteration
                  and peak device memory
-  9 times        each kernel's device time (profiler kernel records) beside
+  9 tables       the stripes sphere's engine with bfloat16 and float32 pair
+                 tables (sizes, pairs, table bytes, build seconds); each
+                 table kernel against its plain version in both dtypes at
+                 B = 1 and (but the blur) B = 8, one B = 8 launch against 8
+                 B = 1 launches, pad rows exactly 0
+ 10 surface      the surface path: launch counts, finite states, unit
+                 tangents, the textured share of points at steps 0, 64 and
+                 128; then 16 steps at fire_rate 1.0, kernels vs plain
+                 versions, in both dtypes
+ 11 surface-grad the gradient of a scalar loss on a 4-step surface rollout
+                 through the table kernels (forward and adjoint) against the
+                 same through the plain versions
+ 12 times        each kernel's device time (profiler kernel records) beside
                  its plain version's and its bound, at the training shapes
                  and, for the forward and mask kernels, at the gecko
-                 inference shapes; ms per inference rollout step
+                 inference shapes; the table kernels at the surface path's
+                 shapes beside one torch.bmm call (library_ms); ms per
+                 inference and per surface rollout step
 Then one JSON line describing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Without a card it exits non-zero and prints no result.
 
-``python3 chip_smoke.py --profile`` adds two phases before those lines:
-torch.profiler traces of 16 inference rollout steps and of one full-depth
-training iteration, with device time by kernel and the device's busy share.
+``python3 chip_smoke.py --profile`` adds three phases: torch.profiler traces
+of 16 surface rollout steps, of 16 inference rollout steps and of one
+full-depth training iteration, with device time by kernel and the device's
+busy share.
 """
 
 from __future__ import annotations
@@ -68,11 +88,13 @@ from sph_nca_tpu_torch.cli import train as cli_train
 from sph_nca_tpu_torch.io.weights_json import load_weights_json
 from sph_nca_tpu_torch.models import cell_step
 from sph_nca_tpu_torch.models.cell_step import rollout_cells
+from sph_nca_tpu_torch.models.surface import rollout_mesh_cells
 from sph_nca_tpu_torch.ops import _build
 from sph_nca_tpu_torch.ops import pair_kernel as PK
 from sph_nca_tpu_torch.ops.cells import build_cell_engine
 from sph_nca_tpu_torch.utils.geometry import grange
-from sph_nca_tpu_torch.utils.seeds import plane_seed
+from sph_nca_tpu_torch.utils.meshes import fibonacci_sphere, sphere_normals
+from sph_nca_tpu_torch.utils.seeds import plane_seed, surface_radial_seed
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GECKO = os.path.join(ROOT, "sph_nca_tpu", "demo", "web", "weights",
@@ -83,8 +105,23 @@ SEED = 0
 # the training path: the JAX train CLI's defaults
 TRAIN_H, TRAIN_B, TRAIN_ITERS, DEPTH_ITERS = 0.08, 8, 60, 2
 KERNELS = ("sph_fwd_kernel", "sph_mask_kernel", "sph_bwd_kernel")
+TAB_KERNELS = ("sph_fwd_tab_kernel", "sph_bwd_tab_kernel",
+               "sph_mask_tab_kernel", "sph_blur_tab_kernel")
 WRAPPERS = {"sph_fwd_kernel": PK.fwd_bucket, "sph_mask_kernel": PK.mask_bucket,
-            "sph_bwd_kernel": PK.bwd_bucket}
+            "sph_bwd_kernel": PK.bwd_bucket,
+            "sph_fwd_tab_kernel": PK.fwd_tab_bucket,
+            "sph_bwd_tab_kernel": PK.bwd_tab_bucket,
+            "sph_mask_tab_kernel": PK.mask_tab_bucket,
+            "sph_blur_tab_kernel": PK.blur_bucket}
+NO_LAUNCHES = dict.fromkeys(WRAPPERS, 0)
+# the surface path: the stripes texture model on the JAX test CLI's default
+# surface size (--surface_numpoints 25600, --surface_numseed 10, a mesh
+# normalized to radius 1 at --surface_scale 1.0), seed radius h
+STRIPES = os.path.join(ROOT, "sph_nca_tpu", "demo", "web", "weights",
+                       "stripes.json")
+SURF_N, SURF_RADIUS, SURF_SEEDS, SURF_STEPS = 25600, 1.0, 10, 128
+SURF_GRAD_STEPS, SURF_B = 4, 8
+TAB_RTOL = 1e-5  # table kernel vs plain: the same f32 products, other order
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, and HBM3 bandwidth. Both assume the full 700 W power limit.
@@ -280,7 +317,8 @@ def expected_train_launches(steps, n_buckets: int) -> dict:
     state needs no gradient). Each pass launches once per bucket for the
     whole batch."""
     runs = 2 if cell_step.REMAT else 1
-    return {"sph_fwd_kernel": n_buckets * sum(runs * n for n in steps),
+    return {**NO_LAUNCHES,
+            "sph_fwd_kernel": n_buckets * sum(runs * n for n in steps),
             "sph_mask_kernel": n_buckets * sum(runs * n for n in steps),
             "sph_bwd_kernel": n_buckets * sum(n - 1 for n in steps)}
 
@@ -380,6 +418,413 @@ def profile_train(teng, x2) -> None:
     device_breakdown(prof, wall_us, trainer.last_steps, "BPTT step")
 
 
+def tab_buckets(eng):
+    """Per window-size bucket of a table engine: (first block, end block,
+    win_cells, vw, md, w6)."""
+    nb1 = eng.blk_xs.shape[0]
+    nb = nb1 + eng.blk2_xs.shape[0]
+    return ((0, nb1, eng.blk_win_cells, eng.blk_vw, eng.blk_md, eng.blk_w6),
+            (nb1, nb, eng.blk2_win_cells, eng.blk2_vw, eng.blk2_md,
+             eng.blk2_w6))
+
+
+def tab_stats(eng) -> dict:
+    """Sizes of a table engine: pairs (every table entry of a real or pad
+    row), pairs within h (real rows, v_w > 0, d2 < h^2, i.e. w6 > 0),
+    table bytes."""
+    stats = {"pairs": 0, "within_h": 0, "bytes": 0, "buckets": []}
+    for lo, hi, _, vw, md, w6 in tab_buckets(eng):
+        stats["pairs"] += w6.numel()
+        stats["within_h"] += int(((w6 > 0) & (vw[:, None, :] > 0)).sum())
+        stats["bytes"] += md.numel() * md.element_size()
+        stats["bytes"] += w6.numel() * w6.element_size()
+        stats["buckets"].append((hi - lo, w6.shape[2]))
+    return stats
+
+
+# Operations of the table kernels (D = 3, F = 16, the blur's F = 4), for what
+# the data needs: per pair within h, per window slot and per row, each per
+# sample (the tables hold every pair weight, so nothing is shared but reads).
+TAB_OPS = {
+    # mom (D * 2F) and sm (2) a pair; v S (F) and the column (2) a slot;
+    # sig_g mom - S_b gsum (3 a value) a row
+    "sph_fwd_tab_kernel": (3 * 2 * 16 + 2, 16 + 2, 3 * 16 * 3),
+    # the D products (D * 2F) a pair; -sig_g v acc - gsum . gbar a row
+    "sph_bwd_tab_kernel": (3 * 2 * 16, 0, 16 * (2 + 2 * 3) + 1),
+    # w6 . column (2) a pair; the column (1, use_alpha off) a slot
+    "sph_mask_tab_kernel": (2, 1, 0),
+    # w6 @ (v X) (2F) a pair; v X (F) a slot; sig_W (F) a row
+    "sph_blur_tab_kernel": (2 * 4, 4, 4),
+}
+
+
+def work_tab(eng, bsz: int, f: int = 16, fx: int = 4) -> dict:
+    """Bytes and operations of one pass of each table kernel over both
+    buckets at the surface path's settings (use_alpha off, the blur over
+    F = 4), batch ``bsz``: each input read once (the tables once, in their
+    stored type, shared by the samples), each output written once."""
+    c, m, d = eng.xs.shape
+    rows = c * m
+    st = tab_stats(eng)
+    md_b = sum(md.numel() * md.element_size()
+               for *_, md, _ in tab_buckets(eng))
+    w6_b = st["bytes"] - md_b
+    slots = sum(vw.numel() for _, _, _, vw, _, _ in tab_buckets(eng))
+    win_b = sum(4 * wc.numel() for _, _, wc, *_ in tab_buckets(eng))
+    vw_b = 4 * slots
+    nbytes = {
+        "sph_fwd_tab_kernel": md_b + w6_b + vw_b + win_b + 4 * rows * d
+        + 4 * bsz * (rows * f + rows * d * f + rows),
+        "sph_bwd_tab_kernel": md_b + win_b + 4 * rows * (1 + d)
+        + 4 * bsz * (rows * d * f + rows * f),
+        "sph_mask_tab_kernel": w6_b + vw_b + 4 * bsz * rows,
+        "sph_blur_tab_kernel": w6_b + vw_b + win_b
+        + 4 * bsz * (rows * fx + rows * fx),
+    }
+    out = {}
+    for name, (per_pair, per_slot, per_row) in TAB_OPS.items():
+        ops = bsz * (st["within_h"] * per_pair + slots * per_slot
+                     + rows * per_row)
+        out[name] = (nbytes[name], ops)
+    return out
+
+
+def normal_cuda(rng, shape, dev):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+
+def check_tab_kernels(eng, rng, dev) -> dict:
+    """Each table kernel against its plain version on ``eng``: fwd, bwd and
+    mask at B = 1 and B = SURF_B, the blur (F = 4) at B = 1, use_alpha on and
+    off; each output within TAB_RTOL of the plain version's largest |value|
+    over all rows; one B = SURF_B launch equal to SURF_B B = 1 launches; pad
+    rows exactly 0. Returns the largest absolute error per kernel."""
+    c, m, d = eng.xs.shape
+    scal = PK.scal_vec(eng)
+    real = (eng.vs > 0).reshape(-1, 64)
+    vs, gs = eng.vs.reshape(-1, 64), eng.gsum.reshape(-1, 64, d)
+    SB = normal_cuda(rng, (SURF_B, c, m, 16), dev)
+    GB = normal_cuda(rng, (SURF_B, c, m, d * 16), dev)
+    X = normal_cuda(rng, (c, m, 4), dev)
+    errs = dict.fromkeys(TAB_KERNELS, 0.0)
+    worst = dict.fromkeys(TAB_KERNELS, 0.0)  # relative to max |plain|
+
+    def hold(name, got, want, rr):
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        errs[name] = max(errs[name], err)
+        worst[name] = max(worst[name], rel)
+        if not rel <= TAB_RTOL:
+            fail(f"{name} vs plain: {rel:.3e} > {TAB_RTOL} of max")
+        pad = (got[..., ~rr] if tuple(got.shape[-2:]) == tuple(rr.shape)
+               else got[..., ~rr, :])
+        if not bool((pad == 0).all()):
+            fail(f"{name}: nonzero output on pad rows")
+
+    same = True
+    for lo, hi, wc, vw, md, w6 in tab_buckets(eng):
+        rr = real[lo:hi]
+        for bsz in (1, SURF_B):
+            S, G = SB[:bsz], GB[:bsz]
+            ab = S.reshape(bsz, -1, 64, 16)[:, lo:hi]
+            gb = G.reshape(bsz, -1, 64, d * 16)[:, lo:hi]
+            for use_alpha in (False, True):
+                args = (scal, ab, gs[lo:hi], vw, S, wc, md, w6)
+                ga_k, sm_k = PK.fwd_tab_bucket(*args, use_alpha=use_alpha)
+                ga_p, sm_p = PK.fwd_tab_bucket_plain(*args,
+                                                     use_alpha=use_alpha)
+                margs = (scal, vw, S, wc, w6)
+                mk = PK.mask_tab_bucket(*margs, use_alpha=use_alpha)
+                mp = PK.mask_tab_bucket_plain(*margs, use_alpha=use_alpha)
+                torch.cuda.synchronize()
+                hold("sph_fwd_tab_kernel", ga_k, ga_p, rr)
+                hold("sph_fwd_tab_kernel", sm_k, sm_p, rr)
+                hold("sph_mask_tab_kernel", mk, mp, rr)
+            bargs = (scal, vs[lo:hi], gs[lo:hi], gb, G, wc, md)
+            dk = PK.bwd_tab_bucket(*bargs)
+            hold("sph_bwd_tab_kernel", dk, PK.bwd_tab_bucket_plain(*bargs),
+                 rr)
+            if bsz == 1:
+                xk = PK.blur_bucket(scal, vw, X, wc, w6)
+                hold("sph_blur_tab_kernel", xk,
+                     PK.blur_bucket_plain(scal, vw, X, wc, w6), rr)
+                continue
+            ga_k, sm_k = PK.fwd_tab_bucket(scal, ab, gs[lo:hi], vw, S, wc,
+                                           md, w6, use_alpha=False)
+            mk = PK.mask_tab_bucket(scal, vw, S, wc, w6, use_alpha=False)
+            for b in range(bsz):
+                ga1, sm1 = PK.fwd_tab_bucket(scal, ab[b], gs[lo:hi], vw,
+                                             S[b], wc, md, w6,
+                                             use_alpha=False)
+                mk1 = PK.mask_tab_bucket(scal, vw, S[b], wc, w6,
+                                         use_alpha=False)
+                dk1 = PK.bwd_tab_bucket(scal, vs[lo:hi], gs[lo:hi], gb[b],
+                                        G[b], wc, md)
+                same &= bool(torch.equal(ga1, ga_k[b])
+                             and torch.equal(sm1, sm_k[b])
+                             and torch.equal(mk1, mk[b])
+                             and torch.equal(dk1, dk[b]))
+    if not same:
+        fail(f"a B = {SURF_B} table launch differs from B = 1 launches")
+    print("  " + ", ".join(f"{n} max abs {errs[n]:.3e} (rel to max "
+                           f"{worst[n]:.3e})" for n in TAB_KERNELS)
+          + f"; B = {SURF_B} launch == {SURF_B} B = 1 launches: {same}; "
+          "pad rows exactly 0", flush=True)
+    return errs
+
+
+def surface_rollout(params, cfg, eng, A0, nrm, t0, steps, h, *,
+                    use_kernels=True, collect_all=False):
+    gen = torch.Generator(device=eng.device).manual_seed(SEED)
+    return rollout_mesh_cells(params, cfg, eng, A0, nrm, t0, gen, steps, h,
+                              fire_rate=cfg.fire_rate, use_kernels=use_kernels,
+                              collect_all=collect_all)
+
+
+def surface_phases(dev, rng, smi: str) -> list:
+    """Phases 9-12: the stripes surface engine with pair tables, each table
+    kernel against its plain version, the surface path (launch counts reset
+    just before it and read just after), its gradient, and the table
+    kernels' times. Returns the table kernels' rows of the kernels line."""
+    # ---- 9 tables: the surface engine, each table kernel vs plain -------
+    t0 = time.time()
+    stripes = load_weights_json(STRIPES, device=dev)
+    sh = stripes.h
+    # texture mode, as the JAX test CLI derives it: no alpha, fire_rate 0.5
+    scfg = dataclasses.replace(stripes.cfg, use_alpha=False, fire_rate=0.5)
+    xs_np = fibonacci_sphere(SURF_N, SURF_RADIUS)
+    xsph = torch.from_numpy(xs_np).to(dev)
+    nsph = torch.from_numpy(sphere_normals(xs_np)).to(dev)
+    seng, tab_errs = {}, dict.fromkeys(TAB_KERNELS, 0.0)
+    for dt in ("bfloat16", "float32"):
+        t1 = time.time()
+        seng[dt] = build_cell_engine(xs_np, sh, pair_tables=dt, device=dev)
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        st = tab_stats(seng[dt])
+        if len(st["buckets"]) != 2 or min(nb for nb, _ in st["buckets"]) == 0:
+            fail(f"expected two non-empty buckets, got {st['buckets']}")
+        print(f"  {dt} tables: C={seng[dt].num_cells} M="
+              f"{seng[dt].slots_per_cell}, blocks x W "
+              + " + ".join(f"{nb} x {w}" for nb, w in st["buckets"])
+              + f", {st['pairs']} pairs, {st['within_h']} within h, tables "
+              f"{st['bytes'] / 1e6:.1f} MB, built in {secs:.2f} s (host "
+              "numpy + device cast)", flush=True)
+        for name, err in check_tab_kernels(seng[dt], rng, dev).items():
+            tab_errs[name] = max(tab_errs[name], err)
+    eng_s = seng["bfloat16"]  # the surface path's engine
+    phase("tables", t0, f"stripes sphere N={SURF_N} h={sh}: each table kernel "
+          f"== plain within {TAB_RTOL} of max in bfloat16 and float32, B = 1 "
+          f"and B = {SURF_B}; pad rows 0")
+
+    # ---- 10 the surface path ---------------------------------------------
+    t0 = time.time()
+    A0s, t0s = surface_radial_seed(xsph, nsph, scfg.channels, SURF_SEEDS, sh,
+                                   torch.Generator().manual_seed(SEED))
+    reset_launches()
+    t1 = time.time()
+    with torch.no_grad():
+        fA, ft, sstates = surface_rollout(stripes.params, scfg, eng_s, A0s,
+                                          nsph, t0s, SURF_STEPS, sh,
+                                          collect_all=True)
+    torch.cuda.synchronize()
+    surf_secs = time.time() - t1
+    surf_launches = read_launches()
+    want = 2 * SURF_STEPS
+    if surf_launches != {**NO_LAUNCHES, "sph_fwd_tab_kernel": want,
+                         "sph_mask_tab_kernel": want,
+                         "sph_blur_tab_kernel": want}:
+        fail(f"surface launch counts {surf_launches}, expected {want} for "
+             "the table forward, mask and blur kernels, 0 for the others")
+    if sstates.shape != (SURF_STEPS + 1, SURF_N, scfg.channels):
+        fail(f"surface trajectory shape {tuple(sstates.shape)}")
+    if not (bool(torch.isfinite(sstates).all())
+            and bool(torch.isfinite(ft).all())):
+        fail("non-finite states or tangents in the surface rollout")
+    tnorm = float(ft.norm(dim=-1).max())
+    if not tnorm <= 1.0 + 1e-5:
+        fail(f"tangent norm {tnorm} > 1 + 1e-5")
+    share = {k: float((sstates[k].abs().amax(-1) > 0).float().mean())
+             for k in (0, SURF_STEPS // 2, SURF_STEPS)}
+    k0, k1, k2 = share
+    if not share[k0] < share[k1] <= share[k2]:
+        fail(f"the texture did not spread: {share}")
+    print(f"  launches {surf_launches}", flush=True)
+    phase("surface", t0, f"stripes, {SURF_N} points, {SURF_SEEDS} seeds, "
+          f"{SURF_STEPS} steps at fire_rate {scfg.fire_rate} in "
+          f"{surf_secs:.2f} s (collecting every state): finite, max tangent "
+          f"norm {tnorm:.7f}; share of points whose state left 0 at steps "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in share.items()))
+
+    t0 = time.time()
+    cfg1s = dataclasses.replace(scfg, fire_rate=1.0)
+    sdiff = {}
+    with torch.no_grad():
+        for dt, e in seng.items():
+            outs = [surface_rollout(stripes.params, cfg1s, e, A0s, nsph, t0s,
+                                    CHECK_STEPS, sh, use_kernels=uk)
+                    for uk in (True, False)]
+            sdiff[dt] = max(float((a - b).abs().max())
+                            for a, b in zip(outs[0][:2], outs[1][:2]))
+    phase("surface-check", t0, f"{CHECK_STEPS} steps at fire_rate 1.0, "
+          "kernels vs plain versions, max difference of states and tangents: "
+          + ", ".join(f"{dt} {v:.3e}" for dt, v in sdiff.items())
+          + f" (limit {ROLLOUT_ATOL})")
+    if not all(v <= ROLLOUT_ATOL for v in sdiff.values()):
+        fail(f"surface rollout kernels vs plain: {sdiff}")
+
+    # ---- 11 the gradient of a surface rollout through the table kernels ---
+    t0 = time.time()
+    R = normal_cuda(rng, (SURF_N, scfg.channels), dev)
+    sgrads = {}
+    for uk in (True, False):
+        reset_launches()
+        params = type(stripes.params)(*(q.detach().clone().requires_grad_(True)
+                                        for q in stripes.params))
+        A = A0s.clone().requires_grad_(True)
+        fA_g, _, _ = surface_rollout(params, scfg, eng_s, A, nsph, t0s,
+                                     SURF_GRAD_STEPS, sh, use_kernels=uk)
+        (fA_g * R).sum().backward()
+        torch.cuda.synchronize()
+        if uk:
+            grad_launches = read_launches()
+        sgrads[uk] = [A.grad] + [q.grad for q in params]
+    g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(sgrads[True], sgrads[False]))
+    g_abs = max(float((a - b).abs().max())
+                for a, b in zip(sgrads[True], sgrads[False]))
+    want_g = 2 * SURF_GRAD_STEPS
+    phase("surface-grad", t0, f"d(loss)/d(A0, MLP parameters) of a "
+          f"{SURF_GRAD_STEPS}-step surface rollout, table kernels vs plain "
+          f"versions: max abs {g_abs:.3e}, rel to max {g_rel:.3e} (limit "
+          f"{DA_RTOL}); launches {grad_launches}")
+    if not g_rel <= DA_RTOL:
+        fail(f"surface gradient through the kernels departs: {g_rel:.3e}")
+    if grad_launches["sph_bwd_tab_kernel"] != want_g:
+        fail(f"table adjoint launches {grad_launches}, expected {want_g}")
+    del sgrads, sstates, R
+
+    # ---- 12 the table kernels' times --------------------------------------
+    t0 = time.time()
+    # the table kernels at the surface path's shapes (bfloat16, B = 1,
+    # use_alpha off, the diffusion blur's F = 4)
+    scal_s = PK.scal_vec(eng_s)
+    c_s, m_s, d_s = eng_s.xs.shape
+    S1 = normal_cuda(rng, (c_s, m_s, 16), dev)
+    G1 = normal_cuda(rng, (c_s, m_s, d_s * 16), dev)
+    X1 = normal_cuda(rng, (c_s, m_s, 4), dev)
+    vs_s = eng_s.vs.reshape(-1, 64)
+    gs_s = eng_s.gsum.reshape(-1, 64, d_s)
+    bks = tab_buckets(eng_s)
+
+    def tab_calls(plain):
+        fwd = PK.fwd_tab_bucket_plain if plain else PK.fwd_tab_bucket
+        bwd = PK.bwd_tab_bucket_plain if plain else PK.bwd_tab_bucket
+        msk = PK.mask_tab_bucket_plain if plain else PK.mask_tab_bucket
+        blr = PK.blur_bucket_plain if plain else PK.blur_bucket
+        srows = S1.reshape(-1, 64, 16)
+        grows = G1.reshape(-1, 64, d_s * 16)
+        return {
+            "sph_fwd_tab_kernel": lambda: [
+                fwd(scal_s, srows[lo:hi], gs_s[lo:hi], vw, S1, wc, md, w6,
+                    use_alpha=False) for lo, hi, wc, vw, md, w6 in bks],
+            "sph_bwd_tab_kernel": lambda: [
+                bwd(scal_s, vs_s[lo:hi], gs_s[lo:hi], grows[lo:hi], G1, wc, md)
+                for lo, hi, wc, vw, md, w6 in bks],
+            "sph_mask_tab_kernel": lambda: [
+                msk(scal_s, vw, S1, wc, w6, use_alpha=False)
+                for lo, hi, wc, vw, md, w6 in bks],
+            "sph_blur_tab_kernel": lambda: [
+                blr(scal_s, vw, X1, wc, w6) for lo, hi, wc, vw, md, w6 in bks],
+        }
+
+    # the yardstick: one torch.bmm of the f32 tables against a right-hand
+    # side of the kernel's width, per bucket (timed here, used nowhere)
+    lib_args = {name: [] for name in TAB_KERNELS}
+    for lo, hi, _, _, md, w6 in tab_buckets(seng["float32"]):
+        nb, w = w6.shape[0], w6.shape[2]
+        lib_args["sph_fwd_tab_kernel"].append(
+            (md, normal_cuda(rng, (nb, w, 16), dev)))
+        lib_args["sph_bwd_tab_kernel"].append(
+            (md, normal_cuda(rng, (nb, w, 16), dev)))
+        lib_args["sph_mask_tab_kernel"].append(
+            (w6, normal_cuda(rng, (nb, w, 1), dev)))
+        lib_args["sph_blur_tab_kernel"].append(
+            (w6, normal_cuda(rng, (nb, w, 4), dev)))
+    kcalls, pcalls = tab_calls(False), tab_calls(True)
+    sneed = work_tab(eng_s, 1)
+    rows = []
+    for name, replaces in (
+        ("sph_fwd_tab_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:134"),
+        ("sph_bwd_tab_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:208"),
+        ("sph_mask_tab_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:270"),
+        ("sph_blur_tab_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:249"),
+    ):
+        ms, plain_ms = device_ms(kcalls[name], name), device_ms(pcalls[name])
+        lib_ms = device_ms(lambda args=lib_args[name]: [
+            torch.bmm(a, b) for a, b in args])
+        nbytes, ops = sneed[name]
+        bound_ms, bound_by = bound(nbytes, ops)
+        # the adjoint runs on no inference path: its launches are those of
+        # the surface-grad phase's backward
+        launches = (grad_launches[name] if name == "sph_bwd_tab_kernel"
+                    else surf_launches[name])
+        print(f"  {name} at the surface path's shapes (bfloat16 tables, "
+              f"B=1, both buckets): {ms:.4f} ms device time "
+              f"({cuda_ms(kcalls[name]):.4f} ms by CUDA events), plain "
+              f"{plain_ms:.4f} ms, torch.bmm on f32 tables {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB,"
+              f" {ops / 1e9:.3f} G operations)", flush=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "sph_nca_tpu_torch/csrc/table_kernels.cu",
+            "replaces": replaces,
+            "shapes": f"surface stripes sphere N={SURF_N} h={sh} bfloat16 "
+                      "tables B=1",
+            "launches": launches,
+            "launches_path": ("surface-grad" if name == "sph_bwd_tab_kernel"
+                              else "surface"),
+            "max_abs_err": tab_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+    surf_ms = {}
+    with torch.no_grad():
+        for uk in (True, False):
+            surface_rollout(stripes.params, scfg, eng_s, A0s, nsph, t0s, 4, sh,
+                            use_kernels=uk)  # warm-up
+            torch.cuda.synchronize()
+            t1 = time.time()
+            surface_rollout(stripes.params, scfg, eng_s, A0s, nsph, t0s,
+                            SURF_STEPS, sh, use_kernels=uk)
+            torch.cuda.synchronize()
+            surf_ms[uk] = (time.time() - t1) * 1e3 / SURF_STEPS
+
+    if "--profile" in sys.argv[1:]:
+        tp = time.time()
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.no_grad():
+            surface_rollout(stripes.params, scfg, eng_s, A0s, nsph, t0s, 4, sh)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.time()
+                surface_rollout(stripes.params, scfg, eng_s, A0s, nsph, t0s,
+                                16, sh)
+                torch.cuda.synchronize()
+                wall_us = (time.time() - t1) * 1e6
+        device_breakdown(prof, wall_us, 16, "step")
+        phase("profile-surface", tp, "torch.profiler, 16 surface steps at "
+              "fire_rate 0.5")
+
+    phase("surface-times", t0, f"surface rollout step {surf_ms[True]:.4f} ms "
+          f"with the kernels, {surf_ms[False]:.4f} ms with the plain versions "
+          f"({SURF_STEPS} steps, no states collected, host clock around "
+          f"synchronize); kernel times: device time from torch.profiler "
+          f"kernel records over 20 calls, L2-warm | {smi}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -475,8 +920,8 @@ def main() -> int:
         with np.load(os.path.join(out_dir, run, "states.npz")) as z:
             states = z["states"]
     want = 2 * STEPS  # two buckets a step
-    if infer_launches != {"sph_fwd_kernel": want, "sph_mask_kernel": want,
-                          "sph_bwd_kernel": 0}:
+    if infer_launches != {**NO_LAUNCHES, "sph_fwd_kernel": want,
+                          "sph_mask_kernel": want}:
         fail(f"launch counts {infer_launches}, expected {want} for the "
              "forward and mask kernels (2 buckets x 128 steps), 0 adjoint")
     if states.shape != (STEPS + 1, IMAGE * IMAGE, model.cfg.channels):
@@ -678,7 +1123,10 @@ def main() -> int:
         f"step in the last, peak device memory {peak_gb[remat]:.3f} GiB "
         "(max_memory_allocated)" for remat in (True, False)) + f" | {smi}")
 
-    # ---- 9 times --------------------------------------------------------
+    # ---- 9-12 the surface path and its table kernels ---------------------
+    rows_tab = surface_phases(dev, rng, smi)
+
+    # ---- 13 times -------------------------------------------------------
     t0 = time.time()
     SB = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 16)).astype(
         np.float32)).to(dev)
@@ -779,7 +1227,7 @@ def main() -> int:
         phase("profile-train", t0, "torch.profiler, one full-depth "
               "training iteration")
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows + rows_tab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,8 +12,14 @@ writes ``<output_dir>/sphnca-test-<time>/states.npz`` (grid positions ``x``
 an output directory outside the source tree: the trajectory of a 128x128,
 128-step run is ~135 MB.
 
-Not ported yet: the band and graph engines, the 3D surface mode, the random
-initial feature, JAX checkpoints, PNG export.
+Runs poly6 models only: the cell engine's pair kernels hard-wire the poly6 /
+spiky pair math, and the Wendland models of the JAX package run on its band
+engine, which is not ported yet.
+
+Not ported yet: the band and graph engines, the 3D surface mode (the JAX CLI
+runs it on the band engine; the library entry point
+``sph_nca_tpu_torch.models.surface.rollout_mesh_cells`` runs a surface rollout
+on the cell engine), the random initial feature, JAX checkpoints, PNG export.
 """
 
 from __future__ import annotations
@@ -86,7 +92,11 @@ def load_model(args, device):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.surface:
-        raise SystemExit("the 3D surface mode is not ported yet")
+        raise SystemExit(
+            "the 3D surface mode is not ported yet: the JAX CLI runs it on "
+            "the band engine (--engine band), which comes with the band "
+            "engine's port; models.surface.rollout_mesh_cells runs a surface "
+            "rollout on a cell engine built with pair tables")
     if args.engine != "cells":
         raise SystemExit(f"--engine {args.engine} is not ported yet; "
                          "use --engine cells")
@@ -123,7 +133,11 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     t0 = time.time()
-    eng = build_cell_engine(x, h, period=period, device=device)
+    try:
+        eng = build_cell_engine(x, h, period=period, smoothing=cfg.smoothing,
+                                device=device)
+    except NotImplementedError as err:
+        raise SystemExit(f"--engine cells: {err}") from err
     print(f"image rollout: n={x.shape[0]}, {args.steps} steps, "
           f"engine C={eng.num_cells} built in {time.time() - t0:.2f}s",
           flush=True)

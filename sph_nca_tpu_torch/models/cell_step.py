@@ -1,10 +1,13 @@
 """NCA step and rollouts over the cell-dense engine (single device).
 
 Counterpart of ``sph_nca_tpu/models/cell_step.py`` (``use_pallas=True``, no
-mesh, one shard, no perception transform). Perception and both life masks go
-through the pair-pass kernels of ``ops/pair_kernel.py``; the update MLP is
-plain PyTorch. The step and ``rollout_cells`` are differentiable in the
-parameters and the state (perception's backward is the gradient-adjoint
+mesh, one shard). Perception and both life masks go through the pair-pass
+kernels of ``ops/pair_kernel.py`` (the table kernels when the engine has pair
+tables); the update MLP is plain PyTorch. ``nca_step_cells`` takes a
+``perception_transform`` (the surface rollout's tangent projection), which
+reads the gradient in the [..., C, M, F, D] layout, as the JAX step's
+non-d-major branch does. The step and ``rollout_cells`` are differentiable in
+the parameters and the state (perception's backward is the gradient-adjoint
 kernel); ``rollout_states_cells`` is inference only.
 
 States carry an optional leading batch axis: S [B, C, M, F] runs B samples on
@@ -24,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.cells import CellEngine
-from ..ops.pair_kernel import mask_blur, perceive_cells_dmajor
+from ..ops.pair_kernel import mask_blur, perceive_cells, perceive_cells_dmajor
 from .nca import ALIVE_THRESHOLD, MLPParams, SPHNCAConfig, apply_mlp
 
 # Recompute each step in the backward instead of keeping its activations
@@ -45,19 +48,27 @@ def cell_activity_s(S: torch.Tensor, use_alpha: bool) -> torch.Tensor:
 
 def _step(params: MLPParams, cfg: SPHNCAConfig, eng: CellEngine,
           S: torch.Tensor, u: torch.Tensor, h: float, fire_rate: float,
-          use_kernels: bool) -> torch.Tensor:
+          use_kernels: bool, perception_transform=None) -> torch.Tensor:
     """One step given the fire draws u [..., C, M] (uniform in [0, 1))."""
     c = cfg.channels
     f = S.shape[-1]
 
-    # the kernel's d-major [..., C, M, D*F] layout is the feature concat
-    # order (gA_x block, then gA_y; a z block in 3D is dropped)
-    gA_dm, pre_sm = perceive_cells_dmajor(eng, S, cfg.use_alpha,
-                                          use_kernels=use_kernels)
+    if perception_transform is None:
+        # the kernel's d-major [..., C, M, D*F] layout is the feature concat
+        # order (gA_x block, then gA_y; a z block in 3D is dropped)
+        gA_dm, pre_sm = perceive_cells_dmajor(eng, S, cfg.use_alpha,
+                                              use_kernels=use_kernels)
+        if cfg.normalize_perception > 0:
+            gA_dm = h * gA_dm * cfg.normalize_perception
+        y = torch.cat([S, gA_dm[..., : 2 * f]], dim=-1)
+    else:
+        gA, pre_sm = perceive_cells(eng, S, cfg.use_alpha,
+                                    use_kernels=use_kernels)
+        if cfg.normalize_perception > 0:
+            gA = h * gA * cfg.normalize_perception
+        gA = perception_transform(gA)
+        y = torch.cat([S, gA[..., 0], gA[..., 1]], dim=-1)
     prev_mask = pre_sm > ALIVE_THRESHOLD
-    if cfg.normalize_perception > 0:
-        gA_dm = h * gA_dm * cfg.normalize_perception
-    y = torch.cat([S, gA_dm[..., : 2 * f]], dim=-1)
     dA = apply_mlp(params, y)
 
     if cfg.update_rule == "gated":
@@ -88,15 +99,20 @@ def nca_step_cells(
     h: float,
     fire_rate: Optional[float] = None,
     use_kernels: bool = True,
+    perception_transform=None,
 ) -> torch.Tensor:
     """One NCA step in cell layout: S [..., C, M, F] -> [..., C, M, F].
 
     ``use_kernels=False`` runs the kernels' plain versions on any device.
+    ``perception_transform`` maps the scaled gradient gA [..., C, M, F, D]
+    to the features [..., C, M, F, >= 2] whose first two components feed the
+    MLP (the surface rollout's tangent projection).
     """
     if fire_rate is None:
         fire_rate = cfg.fire_rate
     u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
-    return _step(params, cfg, eng, S, u, h, fire_rate, use_kernels)
+    return _step(params, cfg, eng, S, u, h, fire_rate, use_kernels,
+                 perception_transform)
 
 
 def rollout_cells(

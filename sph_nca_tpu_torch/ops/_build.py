@@ -1,8 +1,9 @@
 """Build the CUDA kernels with plain nvcc and load them with ctypes.
 
-One ``nvcc`` call compiles ``sph_nca_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
-a shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds). The library lands in ``sph_nca_tpu_torch/_build/`` under a name
+One ``nvcc`` process per source in ``sph_nca_tpu_torch/csrc/*.cu``, all started
+together, compiles it for ``sm_90a``; one more links the objects into a shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds). The library lands in ``sph_nca_tpu_torch/_build/`` under a name
 carrying the hash of the sources and flags: it is built at first use and again
 only when a source changes.
 """
@@ -23,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -53,6 +54,24 @@ def library_path() -> Path:
     return BUILD_DIR / f"libsph_nca_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _run(cmds, verbose: bool) -> None:
+    """Run the commands in parallel; raise with the output of any that
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+        elif verbose and out:
+            print(out, flush=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these sources exists.
     Returns the library path; raises with nvcc's output on failure."""
@@ -60,24 +79,15 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        ptxas = ["-Xptxas=-v"] if verbose else []
+        _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(src)]
+              for obj, src in zip(objs, _sources())], verbose)
+        lib = os.path.join(tmp, out.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], verbose)
+        os.replace(lib, out)
     return out
 
 
@@ -115,4 +125,38 @@ def load_library() -> ctypes.CDLL:
         _P, _P,  # da, stream
     ]
     lib.sph_bwd_launch.restype = _I
+    lib.sph_fwd_tab_launch.argtypes = [
+        _I, _P, _P, _P,  # bf16 tables?, md, w6, gsum_b
+        _P, _L, _P, _L,  # S, S's sample stride, ab, ab's stride
+        _P, _P,  # vw_b, win
+        _I, _I, _I, _I, _I, _I, _I, _I,  # B, nb, D, F, P, M, W, Wu
+        _F, _F, _F, _I,  # sig_w, sig_g, thr, use_alpha
+        _P, _P, _P,  # ga, sm, stream
+    ]
+    lib.sph_fwd_tab_launch.restype = _I
+    lib.sph_bwd_tab_launch.argtypes = [
+        _I, _P, _P, _P,  # bf16 tables?, md, vs_b, gsum_b
+        _P, _L, _P, _L,  # gb, gb's stride, gflat, gflat's stride
+        _P,  # win
+        _I, _I, _I, _I, _I, _I, _I, _I,  # B, nb, D, F, P, M, W, Wu
+        _F,  # sig_g
+        _P, _P,  # da, stream
+    ]
+    lib.sph_bwd_tab_launch.restype = _I
+    lib.sph_mask_tab_launch.argtypes = [
+        _I, _P, _P, _L, _I,  # bf16 tables?, w6, S, S's stride, S's F
+        _P, _P,  # vw_b, win
+        _I, _I, _I, _I, _I, _I,  # B, nb, P, M, W, Wu
+        _F, _F, _I,  # sig_w, thr, use_alpha
+        _P, _P,  # sm, stream
+    ]
+    lib.sph_mask_tab_launch.restype = _I
+    lib.sph_blur_tab_launch.argtypes = [
+        _I, _P, _P, _L, _I,  # bf16 tables?, w6, X, X's stride, X's F
+        _P, _P,  # vw_b, win
+        _I, _I, _I, _I, _I, _I,  # B, nb, P, M, W, Wu
+        _F,  # sig_w
+        _P, _P,  # out, stream
+    ]
+    lib.sph_blur_tab_launch.restype = _I
     return lib

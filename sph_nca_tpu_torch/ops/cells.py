@@ -1,7 +1,7 @@
 """Cell-dense SPH engine: the layout the pair-pass kernels run over.
 
-Counterpart of ``sph_nca_tpu/ops/cells.py`` for ``pair_tables=None`` and
-``n_shards=1``. Particles live in a cell-dense layout S [C, M, F]: one row
+Counterpart of ``sph_nca_tpu/ops/cells.py`` for ``n_shards=1`` and
+``xla_tables=False``. Particles live in a cell-dense layout S [C, M, F]: one row
 block per occupied SUBCELL (fat cells split into M=8-slot subcells),
 Morton-ordered then regrouped by window size. Padded slots sit at PAD_POS, so
 every kernel weight against them is exactly 0.
@@ -13,16 +13,19 @@ tight width, ``blk2_*``: the tail at the max width).
 
 The build runs in numpy on the host, exactly as the JAX build does, and the
 results move to the device at the end. Integer layouts equal the JAX build's.
+The optional pair tables (``pair_tables="float32" | "bfloat16"``) are computed
+on the host in f32 too, in chunks of blocks, and cast on the engine's device.
 
-Not ported yet (they serve the XLA einsum path and the table kernels): the
-pair-weight tables ``Tw`` / ``Tg``, the einsum operators and the optional
-pair tables.
+Not ported (they serve only the XLA einsum path): the per-cell pair-weight
+matrices ``Tw`` / ``Tg`` and the einsum operators.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -70,6 +73,15 @@ class CellEngine:
     h: float
     sig_w: float  # smoothing normalization sigma_W
     sig_g: float  # gradient normalization sigma_g
+    # OPTIONAL pair tables (build_cell_engine(pair_tables=...)), per block:
+    # the displacement-scaled spiky factors md_d = mag * (xw_d - xb_d), rows
+    # d-major, and the poly6 core w6 = max(h^2 - d2, 0)^3, in the table
+    # dtype. With them the pair passes are products over stored tables, and
+    # gsum above is re-derived from the quantized md (see _build_pair_tables).
+    blk_md: Optional[torch.Tensor] = None  # [nb1, D*P, Wu1*M]
+    blk_w6: Optional[torch.Tensor] = None  # [nb1, P, Wu1*M]
+    blk2_md: Optional[torch.Tensor] = None  # [nb2, D*P, Wu*M]
+    blk2_w6: Optional[torch.Tensor] = None  # [nb2, P, Wu*M]
 
     @property
     def device(self) -> torch.device:
@@ -183,18 +195,36 @@ def build_cell_engine(
     h: float,
     *,
     period=None,
+    smoothing: str = "poly6",
+    gradient_kernel: str = "spiky",
+    pair_tables: Optional[str] = None,
     device="cuda",
 ) -> CellEngine:
     """Build the engine for concrete positions ``x`` [N, D] (host-side,
     one-time), then move it to ``device``.
 
     Same layout as ``sph_nca_tpu.ops.cells.build_cell_engine(x, h,
-    period=..., n_shards=1, pair_tables=None)`` with its default capacities
-    (M = 8 slots per subcell, the cell count padded to a multiple of 16).
-    Cells are keyed by their true floor coordinates; for periodic domains
-    cells tile the period exactly (cell_size_d = period_d / floor(period_d /
-    h)) and window copies of wrapped cells carry a whole-period shift.
+    period=..., n_shards=1, xla_tables=False, pair_tables=...)`` with its
+    default capacities (M = 8 slots per subcell, the cell count padded to a
+    multiple of 16). Cells are keyed by their true floor coordinates; for
+    periodic domains cells tile the period exactly (cell_size_d = period_d /
+    floor(period_d / h)) and window copies of wrapped cells carry a
+    whole-period shift.
+
+    ``pair_tables``: None (the kernels recompute the pair weights every
+    pass), "float32" or "bfloat16" (store them once per block; the pair
+    passes then run over the tables, 4 * nb * P * W * itemsize bytes).
     """
+    # the pair kernels and tables hard-wire the poly6 / spiky pair math
+    if smoothing != "poly6" or gradient_kernel != "spiky":
+        raise NotImplementedError(
+            f"CellEngine implements poly6/spiky only (got {smoothing!r}/"
+            f"{gradient_kernel!r}); the band engine runs other kernels in "
+            "the JAX package, not ported yet"
+        )
+    if pair_tables not in (None, "float32", "bfloat16"):
+        raise ValueError(f"pair_tables must be None, 'float32' or "
+                         f"'bfloat16', got {pair_tables!r}")
     dev = resolve_device(device)
     x = np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float32)
     n, d = x.shape
@@ -405,7 +435,7 @@ def build_cell_engine(
         return torch.as_tensor(np.ascontiguousarray(a)).to(dtype=dtype,
                                                            device=dev)
 
-    return CellEngine(
+    eng = CellEngine(
         slot_of_particle=t(slot_of_particle, torch.int64),
         xs=t(xs[:C]),
         vs=t(vs),
@@ -425,6 +455,9 @@ def build_cell_engine(
         sig_w=float(sig_w),
         sig_g=float(sig_g),
     )
+    if pair_tables is not None:
+        eng = _build_pair_tables(eng, getattr(torch, pair_tables))
+    return eng
 
 
 def _blk_vol_rows(xs_b: np.ndarray, xw_b: np.ndarray, h, sig_w,
@@ -463,3 +496,83 @@ def _blk_gsum_rows(xs_b: np.ndarray, xw_b: np.ndarray, vw_b: np.ndarray, h,
         t = sig_g * mag * vw_b[c0 : c0 + chunk, None, :]
         out[c0 : c0 + chunk] = np.einsum("npw,ndpw->npd", t, diff)
     return out
+
+
+def _blk_pair_mats(xs_b: np.ndarray, xw_b: np.ndarray, h) -> tuple:
+    """Per-block pair tables in f32: md [nb, D*P, W] = mag * (xw_d - xb_d),
+    rows d-major, and w6 [nb, P, W] = max(h^2 - d2, 0)^3. d2 comes from
+    direct per-axis differences, and mag = 3(h-d)^2/d in the sqrt/divide
+    form of the JAX build (numpy's sqrt rounds correctly, as XLA's does)."""
+    diff = xw_b[:, :, None, :] - xs_b[:, :, :, None]  # [nb, D, P, W]
+    d2 = diff[:, 0] * diff[:, 0]
+    for ax in range(1, diff.shape[1]):
+        d2 = d2 + diff[:, ax] * diff[:, ax]
+    dist = np.sqrt(np.where(d2 > 0.0, d2, np.float32(1.0)))
+    inside = (d2 > 0.0) & (dist < h)
+    mag = np.where(inside, np.float32(3.0) * (h - dist) ** 2 / dist,
+                   np.float32(0.0))
+    c = np.maximum(h * h - d2, np.float32(0.0))
+    nb, ddim, p, w = diff.shape
+    return (mag[:, None] * diff).reshape(nb, ddim * p, w), c * c * c
+
+
+def _blk_gsum_from_tables(md: torch.Tensor, vw_b: torch.Tensor,
+                          sig_g: torch.Tensor, ddim: int) -> torch.Tensor:
+    """The adjoint's self term re-derived from the QUANTIZED table,
+    gsum[p, d] = sig_g sum_w md_q[d*P + p, w] v_w -> [nb, P, D]. The table
+    forward subtracts A_p gsum_p as its rowsum correction, so a constant
+    field cancels to f32-accumulation noise; the exact-f32 gsum would leave
+    |A| times the table's rounding. A plain product and sum, not a matmul,
+    so the global TF32 setting cannot round it."""
+    nb, dp, _ = md.shape
+    rows = sig_g * (md.float() * vw_b[:, None, :]).sum(-1)
+    return rows.reshape(nb, ddim, dp // ddim).transpose(1, 2)
+
+
+def _build_pair_tables(eng: CellEngine, dtype: torch.dtype,
+                       chunk: int = 64) -> CellEngine:
+    """Compute the per-block pair tables of both buckets on the host in f32
+    (chunks of ``chunk`` blocks), cast them to ``dtype`` on the engine's
+    device (round to nearest even), and replace ``gsum`` with the one derived
+    from the quantized table.
+
+    The rows of pad slots are zero, so every table pass gives them exactly
+    0 (the JAX build keeps their phantom pairs with the union window's unused
+    entries; no consumer reads those rows)."""
+    c, m, d = eng.xs.shape
+    p = eng.blk_xs.shape[2]
+    h = np.float32(eng.h)
+    sig_g = torch.tensor(eng.sig_g, dtype=torch.float32, device=eng.device)
+
+    def run(xs_b, xw_b, vw_b, real):
+        xs_h, xw_h = xs_b.cpu().numpy(), xw_b.cpu().numpy()
+        mds, w6s, gss = [], [], []
+        for c0 in range(0, xs_h.shape[0], chunk):
+            md, w6 = _blk_pair_mats(xs_h[c0:c0 + chunk], xw_h[c0:c0 + chunk],
+                                    h)
+            # pad rows get empty rows: their slot sits at PAD_POS, where
+            # the union window's unused entries (cell 0's volumes, shifted
+            # to PAD_POS) would otherwise pair with it
+            keep = real[c0:c0 + chunk]  # [nb, P]
+            md = np.where(np.tile(keep, (1, d))[:, :, None], md,
+                          np.float32(0.0))
+            w6 = np.where(keep[:, :, None], w6, np.float32(0.0))
+            md = torch.from_numpy(md).to(eng.device).to(dtype)
+            mds.append(md)
+            w6s.append(torch.from_numpy(w6).to(eng.device).to(dtype))
+            gss.append(_blk_gsum_from_tables(md, vw_b[c0:c0 + chunk], sig_g,
+                                             d))
+        w = xw_b.shape[2]
+        if not mds:
+            return (xs_b.new_zeros((0, d * p, w), dtype=dtype),
+                    xs_b.new_zeros((0, p, w), dtype=dtype),
+                    xs_b.new_zeros((0, p, d)))
+        return torch.cat(mds), torch.cat(w6s), torch.cat(gss)
+
+    real = (eng.vs > 0).reshape(-1, p).cpu().numpy()
+    nb1 = eng.blk_xs.shape[0]
+    md1, w61, gs1 = run(eng.blk_xs, eng.blk_xw, eng.blk_vw, real[:nb1])
+    md2, w62, gs2 = run(eng.blk2_xs, eng.blk2_xw, eng.blk2_vw, real[nb1:])
+    gsum = torch.cat([gs1, gs2]).reshape(c, m, d).contiguous()
+    return dataclasses.replace(eng, blk_md=md1, blk_w6=w61, blk2_md=md2,
+                               blk2_w6=w62, gsum=gsum)

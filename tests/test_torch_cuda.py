@@ -290,3 +290,197 @@ def test_rollout_grads_kernels_match_plain(cuda):
         grads[use_kernels] = [p.grad for p in params]
     for gk, gp in zip(grads[True], grads[False]):
         assert float((gk - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
+
+
+# ---- the pair-table kernels (engines built with pair_tables) --------------
+
+TAB_DTYPES = ["float32", "bfloat16"]
+
+
+def _tab_cloud(device, dim=3, dtype="float32"):
+    """A random periodic cloud with pair tables that fills both buckets."""
+    x = np.random.default_rng(1).uniform(-1, 1, (600, dim)).astype(np.float32)
+    eng = build_cell_engine(x, 0.25, period=[2.0] * dim, pair_tables=dtype,
+                            device=device)
+    assert eng.blk_xs.shape[0] > 0 and eng.blk2_xs.shape[0] > 0
+    return eng
+
+
+def _tab_buckets(eng):
+    """Per bucket: (lo, hi, win, vw, md, w6)."""
+    nb1 = eng.blk_xs.shape[0]
+    nb = nb1 + eng.blk2_xs.shape[0]
+    return ((0, nb1, eng.blk_win_cells, eng.blk_vw, eng.blk_md, eng.blk_w6),
+            (nb1, nb, eng.blk2_win_cells, eng.blk2_vw, eng.blk2_md,
+             eng.blk2_w6))
+
+
+def _rand(device, shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_table_kernels_match_plain(cuda, dim, dtype, bsz):
+    """Each table kernel against its plain version (1e-5 of max: both sum
+    the same f32 products of the same upcast table, in other orders), pad
+    rows exactly 0, one launch per bucket and call."""
+    eng = _tab_cloud(cuda, dim, dtype)
+    c, m, _ = eng.xs.shape
+    S = _rand(cuda, (bsz, c, m, 16), 2)
+    G = _rand(cuda, (bsz, c, m, dim * 16), 3)
+    X = _rand(cuda, (bsz, c, m, 4), 4)
+    scal = PK.scal_vec(eng)
+    real = (eng.vs > 0).reshape(-1, 64)
+    vs = eng.vs.reshape(-1, 64)
+    gs = eng.gsum.reshape(-1, 64, dim)
+    counts = [f.launches for f in (PK.fwd_tab_bucket, PK.bwd_tab_bucket,
+                                   PK.mask_tab_bucket, PK.blur_bucket)]
+    for lo, hi, win, vw, md, w6 in _tab_buckets(eng):
+        rr = real[lo:hi]
+        ab = S.reshape(bsz, -1, 64, 16)[:, lo:hi]
+        gb = G.reshape(bsz, -1, 64, dim * 16)[:, lo:hi]
+        for use_alpha in (True, False):
+            args = (scal, ab, gs[lo:hi], vw, S, win, md, w6)
+            ga_k, sm_k = PK.fwd_tab_bucket(*args, use_alpha=use_alpha)
+            ga_p, sm_p = PK.fwd_tab_bucket_plain(*args, use_alpha=use_alpha)
+            margs = (scal, vw, S, win, w6)
+            mk = PK.mask_tab_bucket(*margs, use_alpha=use_alpha)
+            mp = PK.mask_tab_bucket_plain(*margs, use_alpha=use_alpha)
+            torch.cuda.synchronize()
+            _close(ga_k, ga_p, rr.expand(bsz, -1, -1), GA_RTOL)
+            _close(sm_k, sm_p, rr.expand(bsz, -1, -1), SM_RTOL)
+            _close(mk, mp, rr.expand(bsz, -1, -1), SM_RTOL)
+            assert torch.all(ga_k[:, ~rr] == 0) and torch.all(sm_k[:, ~rr] == 0)
+            assert torch.all(mk[:, ~rr] == 0)
+        bargs = (scal, vs[lo:hi], gs[lo:hi], gb, G, win, md)
+        dk = PK.bwd_tab_bucket(*bargs)
+        dp = PK.bwd_tab_bucket_plain(*bargs)
+        xk = PK.blur_bucket(scal, vw, X, win, w6)
+        xp = PK.blur_bucket_plain(scal, vw, X, win, w6)
+        torch.cuda.synchronize()
+        _close(dk, dp, rr.expand(bsz, -1, -1), DA_RTOL)
+        _close(xk, xp, rr.expand(bsz, -1, -1), SM_RTOL)
+        assert torch.all(dk[:, ~rr] == 0) and torch.all(xk[:, ~rr] == 0)
+    assert [f.launches for f in (PK.fwd_tab_bucket, PK.bwd_tab_bucket,
+                                 PK.mask_tab_bucket, PK.blur_bucket)] == [
+        counts[0] + 4, counts[1] + 2, counts[2] + 4, counts[3] + 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+def test_table_batched_launches_equal_per_sample(cuda, dtype):
+    eng = _tab_cloud(cuda, 3, dtype)
+    c, m, _ = eng.xs.shape
+    S = _rand(cuda, (8, c, m, 16), 5)
+    G = _rand(cuda, (8, c, m, 48), 6)
+    X = _rand(cuda, (8, c, m, 4), 7)
+    ga, sm = PK.fused_perception(eng, S, d_major=True)
+    mk = PK.mask_blur(eng, S)
+    da = PK.gradient_adjoint_dmajor(eng, G)
+    bl = PK.blur_cells(eng, X)
+    for b in range(8):
+        ga1, sm1 = PK.fused_perception(eng, S[b], d_major=True)
+        assert torch.equal(ga[b], ga1) and torch.equal(sm[b], sm1)
+        assert torch.equal(mk[b], PK.mask_blur(eng, S[b]))
+        assert torch.equal(da[b], PK.gradient_adjoint_dmajor(eng, G[b]))
+        assert torch.equal(bl[b], PK.blur_cells(eng, X[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+def test_table_function_grad_matches_plain(cuda, dtype):
+    """The perception's gradient through the table kernels (forward and
+    adjoint) against the same custom backward through the plain versions."""
+    eng = _tab_cloud(cuda, 3, dtype)
+    c, m, _ = eng.xs.shape
+    S = _rand(cuda, (2, c, m, 16), 8)
+    R = _rand(cuda, (2, c, m, 16, 3), 9)
+    R[:, eng.vs == 0] = 0.0
+    grads = {}
+    for use_kernels in (True, False):
+        Sg = S.clone().requires_grad_(True)
+        ga, _ = PK.perceive_cells(eng, Sg, use_kernels=use_kernels)
+        (ga * R).sum().backward()
+        grads[use_kernels] = Sg.grad
+    _close(grads[True], grads[False], (eng.vs > 0).expand(2, -1, -1),
+           DA_RTOL)
+
+
+@pytest.mark.cuda
+def test_table_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    eng = _tab_cloud(cuda, 3, "bfloat16")
+    c, m, _ = eng.xs.shape
+    scal = PK.scal_vec(eng)
+    nb1 = eng.blk_xs.shape[0]
+    S = torch.zeros((c, m, 16), device=cuda)
+    ab = S.reshape(-1, 64, 16)[:nb1]
+    gs = eng.gsum.reshape(-1, 64, 3)[:nb1]
+    ok = [scal, ab, gs, eng.blk_vw, S, eng.blk_win_cells, eng.blk_md,
+          eng.blk_w6]
+    PK.fwd_tab_bucket(*ok, use_alpha=True)
+    bad = {
+        6: eng.blk_md.half(),  # float16 tables
+        7: eng.blk_w6.float(),  # md and w6 of two dtypes
+        4: S.double(),  # float64 state
+        3: eng.blk_vw.cpu(),  # volumes off the card
+        5: eng.blk_win_cells.long(),  # int64 window table
+        2: gs[..., :2].contiguous(),  # gsum of the wrong D
+    }
+    for i, arg in bad.items():
+        args = list(ok)
+        args[i] = arg
+        with pytest.raises(ValueError):
+            PK.fwd_tab_bucket(*args, use_alpha=True)
+    with pytest.raises(ValueError):  # F = 8
+        PK.fwd_tab_bucket(scal, ab[..., :8].contiguous(), gs, eng.blk_vw,
+                          S[..., :8].contiguous(), eng.blk_win_cells,
+                          eng.blk_md, eng.blk_w6, use_alpha=True)
+    with pytest.raises(ValueError):  # a table of another bucket's width
+        PK.mask_tab_bucket(scal, eng.blk_vw, S, eng.blk_win_cells,
+                           eng.blk2_w6[:nb1], use_alpha=True)
+    with pytest.raises(ValueError):  # F = 3 blur (the kernel takes 4)
+        PK.blur_bucket(scal, eng.blk_vw, torch.zeros((c, m, 3), device=cuda),
+                       eng.blk_win_cells, eng.blk_w6)
+    with pytest.raises(ValueError):  # cotangent of the wrong width
+        PK.bwd_tab_bucket(scal, eng.vs.reshape(-1, 64)[:nb1], gs,
+                          torch.zeros((nb1, 64, 32), device=cuda),
+                          torch.zeros((c, m, 32), device=cuda),
+                          eng.blk_win_cells, eng.blk_md)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+def test_surface_rollout_kernels_match_plain(cuda, dtype):
+    from sph_nca_tpu_torch.models.surface import rollout_mesh_cells
+    from sph_nca_tpu_torch.utils.meshes import (
+        fibonacci_sphere,
+        sphere_normals,
+    )
+    from sph_nca_tpu_torch.utils.seeds import surface_radial_seed
+
+    x = fibonacci_sphere(3000, 1.0)
+    eng = build_cell_engine(x, 0.2, pair_tables=dtype, device=cuda)
+    xt = torch.from_numpy(x).to(cuda)
+    nrm = torch.from_numpy(sphere_normals(x)).to(cuda)
+    A0, t0 = surface_radial_seed(xt, nrm, 16, 5, 0.2,
+                                 torch.Generator().manual_seed(0))
+    g = torch.Generator(device="cpu").manual_seed(0)
+    cfg = SPHNCAConfig(fire_rate=1.0, use_alpha=False,
+                       normalize_perception=5.0)
+    params = MLPParams(
+        torch.randn(48, 256, generator=g) * 0.1, torch.zeros(256),
+        torch.randn(256, 33, generator=g) * 0.1, torch.zeros(33))
+    params = MLPParams(*(p.to(cuda) for p in params))
+    out = {}
+    for use_kernels in (True, False):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        out[use_kernels] = rollout_mesh_cells(
+            params, cfg, eng, A0, nrm, t0, gen, 6, 0.2, fire_rate=1.0,
+            use_kernels=use_kernels)
+    for k, p in zip(out[True][:2], out[False][:2]):
+        assert torch.isfinite(k).all()
+        assert float((k - p).abs().max()) <= 1e-4

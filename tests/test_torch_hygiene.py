@@ -125,3 +125,33 @@ def test_build_is_keyed_by_source_hash():
     assert path.name.startswith("libsph_nca_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_non_poly6_models_are_refused(tmp_path):
+    """The cell engine's pair kernels hard-wire the poly6 / spiky pair math:
+    a Wendland model makes the test CLI exit before it builds anything, and
+    build_cell_engine refuses other kernels, as the JAX package does."""
+    import json
+
+    from sph_nca_tpu_torch.cli import test as cli_test
+    from sph_nca_tpu_torch.ops.cells import build_cell_engine
+
+    data = json.loads(GECKO.read_text())
+    data["config"]["smoothing"] = "wendlandC2"
+    weights = tmp_path / "gecko-wendland.json"
+    weights.write_text(json.dumps(data))
+    out = tmp_path / "out"
+    out.mkdir()
+    with pytest.raises(SystemExit, match="poly6"):
+        cli_test.main(["--weights_json", str(weights), "--output_dir",
+                       str(out), "--device", "cpu", "--image_size", "8",
+                       "--steps", "1"])
+    assert os.listdir(out) == []
+    x = torch.rand(64, 2)
+    with pytest.raises(NotImplementedError, match="poly6/spiky only"):
+        build_cell_engine(x, 0.25, smoothing="wendlandC2", device="cpu")
+    with pytest.raises(NotImplementedError, match="poly6/spiky only"):
+        build_cell_engine(x, 0.25, gradient_kernel="wendlandC2",
+                          device="cpu")
+    with pytest.raises(ValueError, match="pair_tables"):
+        build_cell_engine(x, 0.25, pair_tables="float16", device="cpu")
