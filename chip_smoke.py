@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
-toolkit. Three main paths, each driven through its entry point with every
+toolkit. Four main paths, each driven through its entry point with every
 launch counter set to 0 just before it and read just after:
 
   inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
              h = 0.1) on a 128x128 grid for 128 steps, as
              ``python -m sph_nca_tpu_torch.cli.test`` runs it;
+  batched    the batched-lane path at inference: the same gecko, 8 rollouts
+             at once on bfloat16 pair tables with a bfloat16 update MLP,
+             through ``sph_nca_tpu_torch.models.cell_step.
+             rollout_cells_batched``;
   training   plane-mode MSE training at the JAX train CLI's defaults (128x128
              padded to 3D, h = 0.08, 16 channels, 256 hidden, gated rule,
              batch 8, pool 1024, Adam 3e-3), as
-             ``python -m sph_nca_tpu_torch.cli.train`` runs it, for 60
+             ``python -m sph_nca_tpu_torch.cli.train`` runs it (float32 pair
+             tables, the batched-lane rollout, a device pool), for 60
              iterations of the progressive schedule;
   surface    the cell-engine surface rollout of the in-repo stripes texture
              model (16 channels, 256 hidden, h = 0.1, texture mode) on a
@@ -23,50 +28,68 @@ launch counter set to 0 just before it and read just after:
 
 Phases, each printing one line with its wall time:
 
-  1 device       the card's name and power limit; TF32 off
-  2 build        the nvcc build of sph_nca_tpu_torch/csrc/*.cu for sm_90a
-  3 kernels      the forward and mask kernels against their plain PyTorch
-                 versions at the gecko 128x128 bucket shapes, both buckets,
-                 use_alpha on and off
-  4 rollout      the inference CLI's 128-step rollout; then 16 steps at
+  device         the card's name and power limit; TF32 off
+  build          the nvcc build of sph_nca_tpu_torch/csrc/*.cu for sm_90a
+  kernels        the recompute forward and mask kernels against their plain
+                 PyTorch versions at the gecko 128x128 bucket shapes, both
+                 buckets, use_alpha on and off
+  rollout        the inference CLI's 128-step rollout; then 16 steps at
                  fire_rate 1.0 with the kernels and with the plain versions
-  5 adjoint      at the training shapes (B = 8): the adjoint kernel against
-                 its plain version, and the batched forward and mask kernels
-                 against their plain versions and against B = 1 launches
-  6 grad         the perception's autograd gradient through the kernels
+  batched        the batched gecko: launch counts (fwd_tab, mask_tab and the
+                 MLP kernel only), finite states, each sample's alive share
+                 near the unbatched CLI's
+  batched-check  16 steps at fire_rate 1.0 from the grown states, kernels vs
+                 plain versions (with a bfloat16 MLP one step, held by the
+                 share of states that part), and the batched rollout against
+                 8 unbatched rollout_cells runs
+  adjoint        at the training shapes (B = 8): the recompute adjoint kernel
+                 against its plain version, and the batched forward and mask
+                 kernels against their plain versions and B = 1 launches
+  grad           the perception's autograd gradient through the kernels
                  against autograd through the plain forward
-  7 train        the train CLI for 60 iterations: finite, falling losses,
+  mlp            the update-MLP kernel against its plain version at the
+                 training and the batched gecko shapes, gated and orig,
+                 float32 and bfloat16 inputs (largest error and the share of
+                 outputs past 1e-5 of max); its wrapper's refusals
+  mlp-grad       gradients through mlp_fused (kernel forward) against autograd
+                 through the plain version
+  train          the train CLI for 60 iterations: finite, falling losses,
                  launch counts equal to what the drawn schedule implies, and
                  its weights JSON running 8 steps in the inference CLI
-  8 train-depth  2 iterations of full 32-48-step BPTT, with each step
-                 recomputed in the backward and without: ms per iteration
-                 and peak device memory
-  9 tables       the stripes sphere's engine with bfloat16 and float32 pair
+  train-depth    2 iterations of full 32-48-step BPTT through the train CLI,
+                 with each step recomputed in the backward and without: ms
+                 per iteration and peak device memory
+  train-recompute 2 full-depth iterations of the Trainer on the engine
+                 without tables (the recompute kernels), with launch counts
+  tables         the stripes sphere's engine with bfloat16 and float32 pair
                  tables (sizes, pairs, table bytes, build seconds); each
                  table kernel against its plain version in both dtypes at
                  B = 1 and (but the blur) B = 8, one B = 8 launch against 8
                  B = 1 launches, pad rows exactly 0
- 10 surface      the surface path: launch counts, finite states, unit
+  surface        the surface path: launch counts, finite states, unit
                  tangents, the textured share of points at steps 0, 64 and
                  128; then 16 steps at fire_rate 1.0, kernels vs plain
                  versions, in both dtypes
- 11 surface-grad the gradient of a scalar loss on a 4-step surface rollout
+  surface-grad   the gradient of a scalar loss on a 4-step surface rollout
                  through the table kernels (forward and adjoint) against the
                  same through the plain versions
- 12 times        each kernel's device time (profiler kernel records) beside
-                 its plain version's and its bound, at the training shapes
-                 and, for the forward and mask kernels, at the gecko
-                 inference shapes; the table kernels at the surface path's
-                 shapes beside one torch.bmm call (library_ms); ms per
-                 inference and per surface rollout step
-Then one JSON line describing the kernels, and as the last line
+  times          each kernel's device time (profiler kernel records) beside
+                 its plain version's, its bound and, where one exists, a
+                 library call's: the recompute kernels at the training and
+                 gecko inference shapes; the table kernels at the surface
+                 path's shapes and (forward, adjoint, mask) at the training
+                 shapes beside one torch.bmm a bucket; the MLP kernel at the
+                 training and batched gecko shapes beside addmm-relu-addmm
+                 (float32 sums, bfloat16 products for the bfloat16 row);
+                 ms per inference and per surface rollout step
+Then one JSON line describing the eight kernels, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Without a card it exits non-zero and prints no result.
 
-``python3 chip_smoke.py --profile`` adds three phases: torch.profiler traces
-of 16 surface rollout steps, of 16 inference rollout steps and of one
-full-depth training iteration, with device time by kernel and the device's
-busy share.
+``python3 chip_smoke.py --profile`` adds torch.profiler traces of 16 surface
+rollout steps, of 16 inference rollout steps and of one full-depth training
+iteration on each training path, with device time by kernel and the
+device's busy share.
 """
 
 from __future__ import annotations
@@ -87,10 +110,15 @@ from sph_nca_tpu_torch.cli import test as cli_test
 from sph_nca_tpu_torch.cli import train as cli_train
 from sph_nca_tpu_torch.io.weights_json import load_weights_json
 from sph_nca_tpu_torch.models import cell_step
-from sph_nca_tpu_torch.models.cell_step import rollout_cells
+from sph_nca_tpu_torch.models.cell_step import (
+    rollout_cells,
+    rollout_cells_batched,
+)
 from sph_nca_tpu_torch.models.surface import rollout_mesh_cells
 from sph_nca_tpu_torch.ops import _build
+from sph_nca_tpu_torch.ops import mlp_kernel as MK
 from sph_nca_tpu_torch.ops import pair_kernel as PK
+from sph_nca_tpu_torch.ops.batched import batched_gather_back, batched_scatter
 from sph_nca_tpu_torch.ops.cells import build_cell_engine
 from sph_nca_tpu_torch.utils.geometry import grange
 from sph_nca_tpu_torch.utils.meshes import fibonacci_sphere, sphere_normals
@@ -112,7 +140,8 @@ WRAPPERS = {"sph_fwd_kernel": PK.fwd_bucket, "sph_mask_kernel": PK.mask_bucket,
             "sph_fwd_tab_kernel": PK.fwd_tab_bucket,
             "sph_bwd_tab_kernel": PK.bwd_tab_bucket,
             "sph_mask_tab_kernel": PK.mask_tab_bucket,
-            "sph_blur_tab_kernel": PK.blur_bucket}
+            "sph_blur_tab_kernel": PK.blur_bucket,
+            "sph_mlp_kernel": MK.mlp_forward}
 NO_LAUNCHES = dict.fromkeys(WRAPPERS, 0)
 # the surface path: the stripes texture model on the JAX test CLI's default
 # surface size (--surface_numpoints 25600, --surface_numseed 10, a mesh
@@ -122,10 +151,29 @@ STRIPES = os.path.join(ROOT, "sph_nca_tpu", "demo", "web", "weights",
 SURF_N, SURF_RADIUS, SURF_SEEDS, SURF_STEPS = 25600, 1.0, 10, 128
 SURF_GRAD_STEPS, SURF_B = 4, 8
 TAB_RTOL = 1e-5  # table kernel vs plain: the same f32 products, other order
+# the batched-lane path at inference: the gecko on bfloat16 pair tables, B = 8
+# rollouts at once with a bfloat16 update MLP (the JAX package's recipe)
+BATCH_B = 8
+# sph_mlp_kernel vs mlp_ref: float32 sums in another order, 1e-5 of the
+# largest output; with bfloat16 inputs a hidden unit whose two float32 sums
+# round to different bfloat16 values moves the outputs by one bfloat16 ulp of
+# that unit (2^-8 to 2^-7 of it) times its weights in W2: a few such units in
+# one item stay within 1e-2 of the largest output
+MLP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# ... and such flips are rare: all outputs but MLP_FLIP_SHARE of them agree
+# within 1e-5 of the largest (summing the first product in float64 instead
+# of float32 moves ~0.06% of them past it); a kernel that skipped rounding H
+# to bfloat16 would move ~97% of them
+MLP_FLIP_SHARE = 0.005
+# the batched gecko's alive share against the unbatched CLI's: other fire
+# draws and bfloat16 arithmetic, the same grown shape
+ALIVE_ATOL = 0.03
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth. Both assume the full 700 W power limit.
+# cores, dense bf16 products with fp32 sums on the tensor cores, and HBM3
+# bandwidth. All assume the full 700 W power limit.
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain tolerance: both are float32, summing the window in other
@@ -139,6 +187,13 @@ DA_RTOL = 1e-5  # of max |dA| (also the perception's gradient)
 # 16 steps at fire_rate 1.0 through kernels vs plain versions: the states
 # (|A| <~ 1) may drift apart by the per-step rounding differences above.
 ROLLOUT_ATOL = 1e-4
+# With a bfloat16 MLP the two paths part where a hidden unit's rounding flips
+# (MLP_FLIP_SHARE above), and the alive threshold then amplifies that over
+# the steps, so the 16-step gap is only printed; one step from the grown
+# states moves no more than this share of the state values past
+# ROLLOUT_ATOL (none on an H100), where an MLP kernel that skipped rounding H
+# moved 4.3% of them
+BF16_STEP_SHARE = 0.005
 
 # Operations the functions need (D = 3, F = 16). The pair geometry is shared
 # by the B samples of a pass, so it counts once per pass: every pair needs its
@@ -294,9 +349,13 @@ def work(eng, bsz: int, f: int = 16):
                                         + rows * SAMPLE_BWD_ROW))}
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak=FP32_FLOPS):
+    """The least time of a launch: its bytes over HBM bandwidth against its
+    operations over ``peak``, the rate of the products' input type (bf16 only
+    where both factors of every product are bf16; a bf16 table times a
+    float32 state is a float32 product)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -309,18 +368,53 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def expected_train_launches(steps, n_buckets: int) -> dict:
+def expected_train_launches(steps, n_buckets: int, tables: bool) -> dict:
     """Launches a training run makes for the drawn rollout lengths: each of
     a rollout's n steps runs the forward and the mask pass once, and once
     more when it is recomputed in the backward (``cell_step.REMAT``); the
     backward runs the adjoint for every step but the first (whose input
     state needs no gradient). Each pass launches once per bucket for the
-    whole batch."""
+    whole batch. On a table engine (the batched-lane path) the passes are
+    the table kernels and each forward of a step launches the update-MLP
+    kernel once (its backward is torch.matmul)."""
     runs = 2 if cell_step.REMAT else 1
-    return {**NO_LAUNCHES,
-            "sph_fwd_kernel": n_buckets * sum(runs * n for n in steps),
-            "sph_mask_kernel": n_buckets * sum(runs * n for n in steps),
-            "sph_bwd_kernel": n_buckets * sum(n - 1 for n in steps)}
+    fwd = n_buckets * sum(runs * n for n in steps)
+    bwd = n_buckets * sum(n - 1 for n in steps)
+    if tables:
+        return {**NO_LAUNCHES, "sph_fwd_tab_kernel": fwd,
+                "sph_mask_tab_kernel": fwd, "sph_bwd_tab_kernel": bwd,
+                "sph_mlp_kernel": sum(runs * n for n in steps)}
+    return {**NO_LAUNCHES, "sph_fwd_kernel": fwd, "sph_mask_kernel": fwd,
+            "sph_bwd_kernel": bwd}
+
+
+def make_trainer(eng, x2):
+    """The port's Trainer at the train CLI's defaults on ``eng``, at full
+    depth from the first iteration, with a pool of 16 states on the host
+    (which changes no step)."""
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig
+    from sph_nca_tpu_torch.training.losses import MSELossConfig
+    from sph_nca_tpu_torch.training.pool import Pool
+    from sph_nca_tpu_torch.training.trainer import (
+        TrainConfig,
+        Trainer,
+        make_mse_bundle,
+    )
+    from sph_nca_tpu_torch.utils.image import flat_color_target
+
+    h = TRAIN_H
+    cfg = SPHNCAConfig(channels=16, hidden=256, fire_rate=0.5,
+                       normalize_perception=1.0 / h)
+    img = torch.from_numpy(flat_color_target(64)).to(eng.device)
+    loss = make_mse_bundle(img, MSELossConfig(
+        gmin=(-1.0, -1.0), gsize=(2.0, 2.0), image_scale=64 / IMAGE))
+    trainer = Trainer(cfg, TrainConfig(pool_size=16, steps_increment=0,
+                                       seed=SEED), eng, x2, loss, h)
+    seed_A = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                        radius=h)
+    pool = Pool(x2.numpy(), seed_A.numpy(), 16,
+                rng=np.random.default_rng(SEED))
+    return trainer, pool
 
 
 def run_train_cli(out_dir: str, extra) -> list:
@@ -378,32 +472,11 @@ def profile_steps(model, eng, S0, h, steps: int = 16) -> None:
 
 def profile_train(teng, x2) -> None:
     """Device time by kernel for one full-depth training iteration at the
-    train CLI's defaults (a pool of 16 states, which changes no step), per
-    BPTT step, and the device's busy share."""
+    train CLI's defaults on ``teng``, per BPTT step, and the device's busy
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sph_nca_tpu_torch.models.nca import SPHNCAConfig
-    from sph_nca_tpu_torch.training.losses import MSELossConfig
-    from sph_nca_tpu_torch.training.pool import Pool
-    from sph_nca_tpu_torch.training.trainer import (
-        TrainConfig,
-        Trainer,
-        make_mse_bundle,
-    )
-    from sph_nca_tpu_torch.utils.image import flat_color_target
-
-    h = TRAIN_H
-    cfg = SPHNCAConfig(channels=16, hidden=256, fire_rate=0.5,
-                       normalize_perception=1.0 / h)
-    img = torch.from_numpy(flat_color_target(64)).to(teng.device)
-    loss = make_mse_bundle(img, MSELossConfig(
-        gmin=(-1.0, -1.0), gsize=(2.0, 2.0), image_scale=64 / IMAGE))
-    trainer = Trainer(cfg, TrainConfig(pool_size=16, steps_increment=0,
-                                       seed=SEED), teng, x2, loss, h)
-    seed_A = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
-                        radius=h)
-    pool = Pool(x2.numpy(), seed_A.numpy(), 16,
-                rng=np.random.default_rng(SEED))
+    trainer, pool = make_trainer(teng, x2)
     trainer.run_iteration(0, pool)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -413,7 +486,8 @@ def profile_train(teng, x2) -> None:
         torch.cuda.synchronize()
         wall_us = (time.time() - t1) * 1e6
     print(f"  one iteration of {trainer.last_steps} BPTT steps, "
-          f"B={trainer.cfg.batch_size}",
+          f"B={trainer.cfg.batch_size}, "
+          f"{'pair tables' if teng.blk_md is not None else 'recompute'}",
           flush=True)
     device_breakdown(prof, wall_us, trainer.last_steps, "BPTT step")
 
@@ -458,11 +532,13 @@ TAB_OPS = {
 }
 
 
-def work_tab(eng, bsz: int, f: int = 16, fx: int = 4) -> dict:
+def work_tab(eng, bsz: int, f: int = 16, fx: int = 4,
+             use_alpha: bool = False) -> dict:
     """Bytes and operations of one pass of each table kernel over both
-    buckets at the surface path's settings (use_alpha off, the blur over
-    F = 4), batch ``bsz``: each input read once (the tables once, in their
-    stored type, shared by the samples), each output written once."""
+    buckets (the blur over F = 4), batch ``bsz``: each input read once (the
+    tables once, in their stored type, shared by the samples), each output
+    written once. ``use_alpha`` adds the alive test, one compare a window
+    slot, to the forward and the mask."""
     c, m, d = eng.xs.shape
     rows = c * m
     st = tab_stats(eng)
@@ -483,10 +559,70 @@ def work_tab(eng, bsz: int, f: int = 16, fx: int = 4) -> dict:
     }
     out = {}
     for name, (per_pair, per_slot, per_row) in TAB_OPS.items():
+        if use_alpha and name in ("sph_fwd_tab_kernel",
+                                  "sph_mask_tab_kernel"):
+            per_slot += 1
         ops = bsz * (st["within_h"] * per_pair + slots * per_slot
                      + rows * per_row)
         out[name] = (nbytes[name], ops)
     return out
+
+
+def tab_calls(eng, S, G, X, plain: bool, use_alpha: bool) -> dict:
+    """Per table kernel, a closure running it (or its plain version) over
+    both buckets of ``eng`` on S [..., C, M, 16], G [..., C, M, D*16] and
+    X [..., C, M, 4] (at most one leading batch axis)."""
+    d = eng.xs.shape[-1]
+    scal = PK.scal_vec(eng)
+    vs, gs = eng.vs.reshape(-1, 64), eng.gsum.reshape(-1, 64, d)
+    srows = S.reshape(*S.shape[:-3], -1, 64, 16)
+    grows = G.reshape(*G.shape[:-3], -1, 64, d * 16)
+    bks = tab_buckets(eng)
+    fwd = PK.fwd_tab_bucket_plain if plain else PK.fwd_tab_bucket
+    bwd = PK.bwd_tab_bucket_plain if plain else PK.bwd_tab_bucket
+    msk = PK.mask_tab_bucket_plain if plain else PK.mask_tab_bucket
+    blr = PK.blur_bucket_plain if plain else PK.blur_bucket
+    return {
+        "sph_fwd_tab_kernel": lambda: [
+            fwd(scal, srows[..., lo:hi, :, :], gs[lo:hi], vw, S, wc, md, w6,
+                use_alpha=use_alpha) for lo, hi, wc, vw, md, w6 in bks],
+        "sph_bwd_tab_kernel": lambda: [
+            bwd(scal, vs[lo:hi], gs[lo:hi], grows[..., lo:hi, :, :], G, wc,
+                md) for lo, hi, wc, vw, md, w6 in bks],
+        "sph_mask_tab_kernel": lambda: [
+            msk(scal, vw, S, wc, w6, use_alpha=use_alpha)
+            for lo, hi, wc, vw, md, w6 in bks],
+        "sph_blur_tab_kernel": lambda: [
+            blr(scal, vw, X, wc, w6) for lo, hi, wc, vw, md, w6 in bks],
+    }
+
+
+def mlp_inputs(dev, dtype, k: int, lead, seed: int, hid: int = 256):
+    """Random inputs of the update MLP at a path's shapes: S [*lead, 16],
+    ga [*lead, 48] of which the MLP reads the first 32 features (the
+    perception's layout), w1k [48, hid], b1, w2 [hid, k], b2; weights at the
+    scale of torch.nn.Linear's init."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = torch.randn(*lead, 16, generator=g, device=dev)
+    ga = torch.randn(*lead, 48, generator=g, device=dev)
+    w1k = torch.randn(48, hid, generator=g, device=dev) * 48 ** -0.5
+    b1 = torch.randn(hid, generator=g, device=dev) * 0.1
+    w2 = torch.randn(hid, k, generator=g, device=dev) * hid ** -0.5
+    b2 = torch.randn(k, generator=g, device=dev) * 0.1
+    if dtype != torch.float32:
+        S, ga, w1k, w2 = (t.to(dtype) for t in (S, ga, w1k, w2))
+    return [S, ga[..., :32], w1k, b1, w2, b2]
+
+
+def work_mlp(n: int, hid: int, k: int, in_bytes: int):
+    """Bytes and operations of one update-MLP launch over n items: each
+    input read once (S, the 32 perception features the MLP reads, the
+    weights, the biases), each output written once; a multiply-add is two
+    operations."""
+    out_per_item = 2 * 16 + 1 if k == 2 * 16 + 1 else 16
+    nbytes = (n * (16 + 32) * in_bytes + (48 * hid + hid * k) * in_bytes
+              + 4 * (hid + k) + 4 * n * out_per_item)
+    return nbytes, n * 2 * (48 * hid + hid * k)
 
 
 def normal_cuda(rng, shape, dev):
@@ -582,11 +718,11 @@ def surface_rollout(params, cfg, eng, A0, nrm, t0, steps, h, *,
 
 
 def surface_phases(dev, rng, smi: str) -> list:
-    """Phases 9-12: the stripes surface engine with pair tables, each table
-    kernel against its plain version, the surface path (launch counts reset
-    just before it and read just after), its gradient, and the table
+    """The surface phases: the stripes surface engine with pair tables, each
+    table kernel against its plain version, the surface path (launch counts
+    reset just before it and read just after), its gradient, and the table
     kernels' times. Returns the table kernels' rows of the kernels line."""
-    # ---- 9 tables: the surface engine, each table kernel vs plain -------
+    # ---- tables: the surface engine, each table kernel vs plain -------
     t0 = time.time()
     stripes = load_weights_json(STRIPES, device=dev)
     sh = stripes.h
@@ -617,7 +753,7 @@ def surface_phases(dev, rng, smi: str) -> list:
           f"== plain within {TAB_RTOL} of max in bfloat16 and float32, B = 1 "
           f"and B = {SURF_B}; pad rows 0")
 
-    # ---- 10 the surface path ---------------------------------------------
+    # ---- the surface path ---------------------------------------------
     t0 = time.time()
     A0s, t0s = surface_radial_seed(xsph, nsph, scfg.channels, SURF_SEEDS, sh,
                                    torch.Generator().manual_seed(SEED))
@@ -673,7 +809,7 @@ def surface_phases(dev, rng, smi: str) -> list:
     if not all(v <= ROLLOUT_ATOL for v in sdiff.values()):
         fail(f"surface rollout kernels vs plain: {sdiff}")
 
-    # ---- 11 the gradient of a surface rollout through the table kernels ---
+    # ---- the gradient of a surface rollout through the table kernels ---
     t0 = time.time()
     R = normal_cuda(rng, (SURF_N, scfg.channels), dev)
     sgrads = {}
@@ -704,39 +840,14 @@ def surface_phases(dev, rng, smi: str) -> list:
         fail(f"table adjoint launches {grad_launches}, expected {want_g}")
     del sgrads, sstates, R
 
-    # ---- 12 the table kernels' times --------------------------------------
+    # ---- the table kernels' times --------------------------------------
     t0 = time.time()
     # the table kernels at the surface path's shapes (bfloat16, B = 1,
     # use_alpha off, the diffusion blur's F = 4)
-    scal_s = PK.scal_vec(eng_s)
     c_s, m_s, d_s = eng_s.xs.shape
     S1 = normal_cuda(rng, (c_s, m_s, 16), dev)
     G1 = normal_cuda(rng, (c_s, m_s, d_s * 16), dev)
     X1 = normal_cuda(rng, (c_s, m_s, 4), dev)
-    vs_s = eng_s.vs.reshape(-1, 64)
-    gs_s = eng_s.gsum.reshape(-1, 64, d_s)
-    bks = tab_buckets(eng_s)
-
-    def tab_calls(plain):
-        fwd = PK.fwd_tab_bucket_plain if plain else PK.fwd_tab_bucket
-        bwd = PK.bwd_tab_bucket_plain if plain else PK.bwd_tab_bucket
-        msk = PK.mask_tab_bucket_plain if plain else PK.mask_tab_bucket
-        blr = PK.blur_bucket_plain if plain else PK.blur_bucket
-        srows = S1.reshape(-1, 64, 16)
-        grows = G1.reshape(-1, 64, d_s * 16)
-        return {
-            "sph_fwd_tab_kernel": lambda: [
-                fwd(scal_s, srows[lo:hi], gs_s[lo:hi], vw, S1, wc, md, w6,
-                    use_alpha=False) for lo, hi, wc, vw, md, w6 in bks],
-            "sph_bwd_tab_kernel": lambda: [
-                bwd(scal_s, vs_s[lo:hi], gs_s[lo:hi], grows[lo:hi], G1, wc, md)
-                for lo, hi, wc, vw, md, w6 in bks],
-            "sph_mask_tab_kernel": lambda: [
-                msk(scal_s, vw, S1, wc, w6, use_alpha=False)
-                for lo, hi, wc, vw, md, w6 in bks],
-            "sph_blur_tab_kernel": lambda: [
-                blr(scal_s, vw, X1, wc, w6) for lo, hi, wc, vw, md, w6 in bks],
-        }
 
     # the yardstick: one torch.bmm of the f32 tables against a right-hand
     # side of the kernel's width, per bucket (timed here, used nowhere)
@@ -751,7 +862,8 @@ def surface_phases(dev, rng, smi: str) -> list:
             (w6, normal_cuda(rng, (nb, w, 1), dev)))
         lib_args["sph_blur_tab_kernel"].append(
             (w6, normal_cuda(rng, (nb, w, 4), dev)))
-    kcalls, pcalls = tab_calls(False), tab_calls(True)
+    kcalls = tab_calls(eng_s, S1, G1, X1, plain=False, use_alpha=False)
+    pcalls = tab_calls(eng_s, S1, G1, X1, plain=True, use_alpha=False)
     sneed = work_tab(eng_s, 1)
     rows = []
     for name, replaces in (
@@ -825,13 +937,205 @@ def surface_phases(dev, rng, smi: str) -> list:
     return rows
 
 
+def mlp_phases(dev, shapes: dict) -> dict:
+    """sph_mlp_kernel against mlp_ref at each path's shapes (lead axes
+    [B, C, M]), gated and orig, float32 and bfloat16 inputs; the wrapper
+    refusing what the kernel does not take; the gradients through mlp_fused
+    (kernel forward) against autograd through mlp_ref. Returns the largest
+    absolute error per (shapes, dtype)."""
+    t0 = time.time()
+    errs = {}
+    for label, lead in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for k in (33, 16):
+                args = mlp_inputs(dev, dtype, k, lead, seed=k)
+                got = MK.mlp_forward(*args)
+                want = MK.mlp_ref(*args)
+                torch.cuda.synchronize()
+                if [g is None for g in got] != [w is None for w in want]:
+                    fail(f"sph_mlp_kernel outputs {got} vs {want}")
+                err = max(float((g - w).abs().max())
+                          for g, w in zip(got, want) if w is not None)
+                top = max(float(w.abs().max())
+                          for w in want if w is not None)
+                diff = torch.cat([(g - w).abs().reshape(-1)
+                                  for g, w in zip(got, want) if w is not None])
+                rel = float(diff.max()) / max(top, 1e-30)
+                share = float((diff > 1e-5 * top).float().mean())
+                key = (label, dtype)
+                errs[key] = max(errs.get(key, 0.0), err)
+                print(f"  {label} {tuple(lead)} {str(dtype)[6:]} K={k}: max "
+                      f"abs {err:.3e} (rel to max {rel:.3e}, limit "
+                      f"{MLP_RTOL[dtype]}); share of outputs past 1e-5 of max "
+                      f"{share:.3e} (limit {MLP_FLIP_SHARE})", flush=True)
+                if not (rel <= MLP_RTOL[dtype] and share <= MLP_FLIP_SHARE):
+                    fail(f"sph_mlp_kernel vs mlp_ref: {rel:.3e} of max "
+                         f"(limit {MLP_RTOL[dtype]}), {share:.3e} of outputs "
+                         f"past 1e-5 of max (limit {MLP_FLIP_SHARE}) "
+                         f"({label}, {dtype}, K={k})")
+    S, ga, w1k, b1, w2, b2 = mlp_inputs(dev, torch.float32, 33, (64,), 0)
+    refused = 0
+    for bad in ([S.double(), ga.double(), w1k.double(), b1, w2.double(), b2],
+                [S.bfloat16(), ga, w1k, b1, w2, b2],
+                [S[..., :8].contiguous(), ga[..., :16], w1k[:24], b1,
+                 w2[:, :17].contiguous(), b2[:17].contiguous()],
+                [S, ga, *mlp_inputs(dev, torch.float32, 33, (64,), 0,
+                                    hid=600)[2:]],
+                [S, ga.cpu(), w1k, b1, w2, b2]):
+        try:
+            MK.mlp_forward(*bad)
+        except ValueError:
+            refused += 1
+    if refused != 5:
+        fail(f"sph_mlp_kernel's wrapper took {5 - refused} bad argument sets")
+    phase("mlp", t0, "sph_mlp_kernel == mlp_ref at " + ", ".join(
+        f"{label} {tuple(lead)}" for label, lead in shapes.items())
+        + f", gated and orig, float32 / bfloat16 within {MLP_RTOL[torch.float32]}"
+        f" / {MLP_RTOL[torch.bfloat16]} of max, all but {MLP_FLIP_SHARE} of "
+        "the outputs within 1e-5 of max; float64, mixed dtypes, F = 8,"
+        " hid = 600 and a CPU tensor refused")
+
+    t0 = time.time()
+    lead = shapes["train"]
+    grads = {}
+    for use_kernel in (True, False):
+        args = [t.clone().requires_grad_(True)
+                for t in mlp_inputs(dev, torch.float32, 33, lead, 7)]
+        g = torch.Generator(device=dev).manual_seed(8)
+        outs = (MK.mlp_fused(*args) if use_kernel else MK.mlp_ref(*args))
+        sum((o * torch.randn(o.shape, generator=g, device=dev)).sum()
+            for o in outs).backward()
+        grads[use_kernel] = [a.grad for a in args]
+    torch.cuda.synchronize()
+    g_rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(grads[True], grads[False]))
+    phase("mlp-grad", t0, f"d(loss)/d(S, ga, w1k, b1, w2, b2) through "
+          f"mlp_fused (kernel forward) vs autograd through mlp_ref at "
+          f"{tuple(lead)}: rel to max {g_rel:.3e} (limit {DA_RTOL})")
+    if not g_rel <= DA_RTOL:
+        fail(f"the MLP's gradient through the kernel departs: {g_rel:.3e}")
+    return errs
+
+
+def batched_phases(dev, model, x, h, A0, alive_ref: float) -> dict:
+    """The batched-lane path at inference: the gecko on bfloat16 pair
+    tables, BATCH_B rollouts of STEPS steps at fire_rate 0.5 with a
+    bfloat16 update MLP (counters reset just before and read just after);
+    then CHECK_STEPS steps at fire_rate 1.0 with the kernels against the
+    plain versions, and the batched rollout against BATCH_B unbatched
+    rollout_cells runs; ms per batched step. Returns the path's launch
+    counts."""
+    t0 = time.time()
+    t1 = time.time()
+    beng = build_cell_engine(x, h, pair_tables="bfloat16", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t1
+    st = tab_stats(beng)
+    SB0 = batched_scatter(beng, A0[None].expand(BATCH_B, -1, -1))
+    reset_launches()
+    t1 = time.time()
+    with torch.no_grad():
+        SBf = rollout_cells_batched(
+            model.params, model.cfg, beng, SB0, BATCH_B,
+            torch.Generator(device=dev).manual_seed(SEED), STEPS, h,
+            fire_rate=0.5, mlp_dtype="bfloat16")
+    torch.cuda.synchronize()
+    secs = time.time() - t1
+    launches = read_launches()
+    want = {**NO_LAUNCHES, "sph_fwd_tab_kernel": 2 * STEPS,
+            "sph_mask_tab_kernel": 2 * STEPS, "sph_mlp_kernel": STEPS}
+    Af = batched_gather_back(beng, SBf, BATCH_B)
+    alive = [float(a) for a in (Af[..., 3] > 0.1).float().mean(-1)]
+    print(f"  engine with bfloat16 tables: C={beng.num_cells}, blocks x W "
+          + " + ".join(f"{nb} x {w}" for nb, w in st["buckets"])
+          + f", tables {st['bytes'] / 1e6:.1f} MB, built in {build_s:.2f} s",
+          flush=True)
+    print(f"  launches {launches}", flush=True)
+    phase("batched", t0, f"gecko, B={BATCH_B}, {STEPS} steps at fire_rate "
+          f"0.5, bfloat16 tables and MLP, in {secs:.2f} s "
+          f"({secs * 1e3 / STEPS:.4f} ms a step): alive share per sample "
+          + " ".join(f"{a:.4f}" for a in alive)
+          + f" (unbatched CLI {alive_ref:.4f}, limit +-{ALIVE_ATOL})")
+    if launches != want:
+        fail(f"batched launch counts {launches}, expected {want}")
+    if not bool(torch.isfinite(Af).all()):
+        fail("non-finite states in the batched rollout")
+    if not all(abs(a - alive_ref) <= ALIVE_ATOL for a in alive):
+        fail(f"the batched gecko did not grow as the unbatched one: {alive}")
+
+    t0 = time.time()
+    cfg1 = dataclasses.replace(model.cfg, fire_rate=1.0)
+    diffs, shares = {}, {}
+    with torch.no_grad():
+        for mlp_dtype in (None, "bfloat16"):
+            outs = [rollout_cells_batched(
+                model.params, cfg1, beng, SBf, BATCH_B,
+                torch.Generator(device=dev).manual_seed(SEED), CHECK_STEPS,
+                h, fire_rate=1.0, mlp_dtype=mlp_dtype, use_kernels=uk)
+                for uk in (True, False)]
+            gap = (outs[0] - outs[1]).abs()
+            diffs[mlp_dtype] = float(gap.max())
+            shares[mlp_dtype] = float((gap > ROLLOUT_ATOL).float().mean())
+        one = [rollout_cells_batched(
+            model.params, cfg1, beng, SBf, BATCH_B,
+            torch.Generator(device=dev).manual_seed(SEED), 1, h,
+            fire_rate=1.0, mlp_dtype="bfloat16", use_kernels=uk)
+            for uk in (True, False)]
+        gap1 = (one[0] - one[1]).abs()
+        share1 = float((gap1 > ROLLOUT_ATOL).float().mean())
+        per = max(float((batched_gather_back(beng, outs_f32, BATCH_B)[b]
+                         - beng.gather_back(rollout_cells(
+                             model.params, cfg1, beng, beng.scatter(Af[b]),
+                             torch.Generator(device=dev).manual_seed(SEED),
+                             CHECK_STEPS, h, fire_rate=1.0))).abs().max())
+                  for outs_f32 in [rollout_cells_batched(
+                      model.params, cfg1, beng, SBf, BATCH_B,
+                      torch.Generator(device=dev).manual_seed(SEED),
+                      CHECK_STEPS, h, fire_rate=1.0)]
+                  for b in range(BATCH_B))
+    phase("batched-check", t0, f"{CHECK_STEPS} steps at fire_rate 1.0 from "
+          f"the grown states: kernels vs plain versions, max state "
+          f"difference {diffs[None]:.3e} with a float32 MLP (limit "
+          f"{ROLLOUT_ATOL}), {diffs['bfloat16']:.3e} with a bfloat16 MLP "
+          f"(a hidden unit's bfloat16 rounding may differ; share of state "
+          f"values past {ROLLOUT_ATOL}: {shares['bfloat16']:.3e}, after one "
+          f"step {share1:.3e} (max {float(gap1.max()):.3e}), limit "
+          f"{BF16_STEP_SHARE}); the "
+          f"B={BATCH_B} rollout vs {BATCH_B} unbatched rollout_cells runs: "
+          f"{per:.3e} (limit {ROLLOUT_ATOL})")
+    if not (diffs[None] <= ROLLOUT_ATOL and per <= ROLLOUT_ATOL
+            and share1 <= BF16_STEP_SHARE):
+        fail(f"batched rollout kernels vs plain {diffs} (bfloat16 MLP, one "
+             f"step: {share1:.3e} of the states past {ROLLOUT_ATOL}), vs "
+             f"unbatched {per}")
+
+    step_ms = {}
+    with torch.no_grad():
+        for uk in (True, False):
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            rollout_cells_batched(model.params, model.cfg, beng, SB0,
+                                  BATCH_B, gen, 4, h, fire_rate=0.5,
+                                  mlp_dtype="bfloat16", use_kernels=uk)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            rollout_cells_batched(model.params, model.cfg, beng, SB0,
+                                  BATCH_B, gen, STEPS, h, fire_rate=0.5,
+                                  mlp_dtype="bfloat16", use_kernels=uk)
+            torch.cuda.synchronize()
+            step_ms[uk] = (time.time() - t1) * 1e3 / STEPS
+    print(f"  batched gecko step (B={BATCH_B}): {step_ms[True]:.4f} ms with "
+          f"the kernels, {step_ms[False]:.4f} ms with the plain versions "
+          "(host clock around synchronize)", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
 
-    # ---- 1 device -------------------------------------------------------
+    # ---- device -------------------------------------------------------
     t0 = time.time()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -845,14 +1149,14 @@ def main() -> int:
     phase("device", t0, f"{kind} | nvidia-smi: {smi} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda} | TF32 off")
 
-    # ---- 2 build --------------------------------------------------------
+    # ---- build --------------------------------------------------------
     t0 = time.time()
     lib_path = _build.build(verbose=True)
     _build.load_library()
     phase("build", t0, f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
           f"{os.path.relpath(lib_path, ROOT)}")
 
-    # ---- 3 kernels vs plain at the inference path's shapes --------------
+    # ---- kernels vs plain at the inference path's shapes --------------
     t0 = time.time()
     model = load_weights_json(GECKO, device=dev)
     h = model.h
@@ -903,7 +1207,7 @@ def main() -> int:
     phase("kernels", t0, f"kernel == plain within gA {GA_RTOL} and sm "
           f"{SM_RTOL} of max, at {shapes}")
 
-    # ---- 4 the inference path, through its CLI --------------------------
+    # ---- the inference path, through its CLI --------------------------
     t0 = time.time()
     with tempfile.TemporaryDirectory() as out_dir:
         reset_launches()
@@ -968,7 +1272,10 @@ def main() -> int:
             torch.cuda.synchronize()
             step_ms[use_kernels] = (time.time() - t1) * 1e3 / STEPS
 
-    # ---- 5 adjoint and batch axis at the training shapes ----------------
+    # ---- the batched-lane path at inference ----------------------------
+    batched_launches = batched_phases(dev, model, x, h, A0, alive)
+
+    # ---- adjoint and batch axis at the training shapes ----------------
     t0 = time.time()
     teng = build_cell_engine(x, TRAIN_H, device=dev)
     tnb1, tnb2 = teng.blk_xs.shape[0], teng.blk2_xs.shape[0]
@@ -1031,7 +1338,7 @@ def main() -> int:
     phase("adjoint", t0, f"sph_bwd_kernel == plain within {DA_RTOL} of max "
           f"|dA|; batched kernels == plain and == per-sample, at {tshapes}")
 
-    # ---- 6 the perception's gradient through the kernels ----------------
+    # ---- the perception's gradient through the kernels ----------------
     t0 = time.time()
     R = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 48)).astype(
         np.float32)).to(dev)
@@ -1057,7 +1364,12 @@ def main() -> int:
         fail(f"kernel gradient departs from plain autograd: {g_rel:.3e}")
     del SB, GB, R, grads, Sg, ga
 
-    # ---- 7 the training path, through its CLI ---------------------------
+    # ---- the update-MLP kernel at the training and batched gecko shapes --
+    mlp_shapes = {"train": (TRAIN_B, c_t, m_t),
+                  "gecko": (BATCH_B, eng.num_cells, eng.slots_per_cell)}
+    mlp_errs = mlp_phases(dev, mlp_shapes)
+
+    # ---- the training path, through its CLI ---------------------------
     t0 = time.time()
     with tempfile.TemporaryDirectory() as out_dir:
         reset_launches()
@@ -1074,14 +1386,15 @@ def main() -> int:
             trained_states = z["states"]
     losses = [r["loss"] for r in rows]
     steps = [r["steps"] for r in rows]
-    want = expected_train_launches(steps, 2)
+    want = expected_train_launches(steps, 2, tables=True)
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     iter_ms = [1e3 * r["seconds"] for r in rows]
     print(f"  losses {' '.join(f'{l:.4f}' for l in losses)}", flush=True)
     print(f"  rollout lengths {steps}", flush=True)
     print(f"  launches expected {want}, measured {train_launches}",
           flush=True)
-    phase("train", t0, f"train CLI {TRAIN_ITERS} iterations at {tshapes}: "
+    phase("train", t0, f"train CLI {TRAIN_ITERS} iterations (float32 pair "
+          f"tables, the batched-lane rollout, a device pool) at {tshapes}: "
           f"loss {first:.4f} (mean of first 5) -> {last:.4f} (last 5), "
           f"median {np.median(iter_ms):.1f} ms/iteration over "
           f"{sum(steps)} steps; trained weights ran 8 steps in the test CLI "
@@ -1095,7 +1408,7 @@ def main() -> int:
     if not np.isfinite(trained_states).all():
         fail("the trained model's rollout is not finite")
 
-    # ---- 8 full-depth BPTT, with and without the recompute -------------
+    # ---- full-depth BPTT, with and without the recompute -------------
     t0 = time.time()
     depth, peak_gb = {}, {}
     for remat in (cell_step.REMAT, not cell_step.REMAT):
@@ -1116,17 +1429,48 @@ def main() -> int:
     if [r[2] for r in depth[True]] != [r[2] for r in depth[False]]:
         print("  note: the losses with and without the recompute differ: "
               f"{depth[True]} vs {depth[False]}", flush=True)
-    phase("train-depth", t0, "; ".join(
+    phase("train-depth", t0, "batched path (train CLI): " + "; ".join(
         f"remat={remat}: full-depth iterations (steps, ms, loss) "
         + ", ".join(f"({n}, {ms:.1f}, {l:.4f})" for n, ms, l in depth[remat])
         + f", {depth[remat][-1][1] / depth[remat][-1][0]:.2f} ms per BPTT "
         f"step in the last, peak device memory {peak_gb[remat]:.3f} GiB "
-        "(max_memory_allocated)" for remat in (True, False)) + f" | {smi}")
+        "(max_memory_allocated, the 1.07 GB device pool included)"
+        for remat in (True, False)) + f" | {smi}")
 
-    # ---- 9-12 the surface path and its table kernels ---------------------
+    # the recompute path: the Trainer on the engine without tables (kernels
+    # 2.1-2.3), full depth, each step recomputed in the backward
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer, pool = make_trainer(teng, x2)
+    reset_launches()
+    rdepth = []
+    for i in range(DEPTH_ITERS):
+        t1 = time.time()
+        loss = trainer.run_iteration(i, pool)
+        torch.cuda.synchronize()
+        rdepth.append((trainer.last_steps, (time.time() - t1) * 1e3, loss))
+    recompute_launches = read_launches()
+    rpeak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rwant = expected_train_launches([n for n, _, _ in rdepth], 2,
+                                    tables=False)
+    phase("train-recompute", t0, "Trainer on the engine without tables, "
+          "full-depth iterations (steps, ms, loss) "
+          + ", ".join(f"({n}, {ms:.1f}, {l:.4f})" for n, ms, l in rdepth)
+          + f", {rdepth[-1][1] / rdepth[-1][0]:.2f} ms per BPTT step in the "
+          f"last, peak device memory {rpeak:.3f} GiB (a 16-state host pool); "
+          f"launches {recompute_launches}")
+    if not all(np.isfinite(r[2]) for r in rdepth):
+        fail(f"recompute-path losses not finite: {rdepth}")
+    if recompute_launches != rwant:
+        fail(f"recompute-path launch counts {recompute_launches}, expected "
+             f"{rwant}")
+    del trainer, pool
+
+    # ---- the surface path and its table kernels ---------------------
     rows_tab = surface_phases(dev, rng, smi)
 
-    # ---- 13 times -------------------------------------------------------
+    # ---- times -------------------------------------------------------
     t0 = time.time()
     SB = torch.from_numpy(rng.normal(size=(TRAIN_B, c_t, m_t, 16)).astype(
         np.float32)).to(dev)
@@ -1181,8 +1525,11 @@ def main() -> int:
               f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations; "
               f"{need['pairs']} pairs, {need['pairs_in_support']} within h)",
               flush=True)
-        train = {"shapes": f"train {IMAGE}x{IMAGE} h={TRAIN_H} B={TRAIN_B}",
-                 "launches": train_launches[name],
+        # the recompute kernels' training path is the Trainer on the engine
+        # without tables (train-recompute phase)
+        train = {"shapes": f"train {IMAGE}x{IMAGE} h={TRAIN_H} B={TRAIN_B} "
+                           "recompute",
+                 "launches": recompute_launches[name],
                  "max_abs_err": terrs[name], "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by}
         row = {"name": name, "route": "cuda",
@@ -1210,6 +1557,116 @@ def main() -> int:
         else:  # the adjoint runs on the training path only
             row.update(train)
         rows.append(row)
+    # the table kernels on the training path: B = 8, float32 tables of the
+    # train CLI's engine, use_alpha on; beside one torch.bmm per bucket with
+    # the batch's right-hand side (the one-read-per-batch yardstick)
+    tteng = build_cell_engine(x, TRAIN_H, pair_tables="float32", device=dev)
+    ttab_errs = check_tab_kernels(tteng, rng, dev)
+    SBt = normal_cuda(rng, (TRAIN_B, c_t, m_t, 16), dev)
+    GBt = normal_cuda(rng, (TRAIN_B, c_t, m_t, 48), dev)
+    Xt = normal_cuda(rng, (TRAIN_B, c_t, m_t, 4), dev)
+    tk = tab_calls(tteng, SBt, GBt, Xt, plain=False, use_alpha=True)
+    tp = tab_calls(tteng, SBt, GBt, Xt, plain=True, use_alpha=True)
+    tneed = work_tab(tteng, TRAIN_B, use_alpha=True)
+    tlib = {"sph_fwd_tab_kernel": [], "sph_mask_tab_kernel": []}
+    for *_, md, w6 in tab_buckets(tteng):
+        nb, w = w6.shape[0], w6.shape[2]
+        tlib["sph_fwd_tab_kernel"].append(
+            (md, normal_cuda(rng, (nb, w, TRAIN_B * 16), dev)))
+        tlib["sph_mask_tab_kernel"].append(
+            (w6, normal_cuda(rng, (nb, w, TRAIN_B), dev)))
+    tlib["sph_bwd_tab_kernel"] = tlib["sph_fwd_tab_kernel"]
+    tst = tab_stats(tteng)
+    print(f"  training engine with float32 tables: blocks x W "
+          + " + ".join(f"{nb} x {w}" for nb, w in tst["buckets"])
+          + f", {tst['pairs']} pairs, {tst['within_h']} within h, tables "
+          f"{tst['bytes'] / 1e6:.1f} MB", flush=True)
+    train_tab = {}
+    for name in ("sph_fwd_tab_kernel", "sph_bwd_tab_kernel",
+                 "sph_mask_tab_kernel"):
+        ms, plain_ms = device_ms(tk[name], name), device_ms(tp[name])
+        lib_ms = device_ms(lambda args=tlib[name]: [
+            torch.bmm(a, b) for a, b in args])
+        nbytes, ops = tneed[name]
+        bound_ms, bound_by = bound(nbytes, ops)
+        print(f"  {name} at the training shapes (float32 tables, B="
+              f"{TRAIN_B}, both buckets): {ms:.4f} ms device time, plain "
+              f"{plain_ms:.4f} ms, torch.bmm with the batch's right-hand "
+              f"side {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)",
+              flush=True)
+        train_tab[name] = {
+            "shapes": f"train {IMAGE}x{IMAGE} h={TRAIN_H} float32 tables "
+                      f"B={TRAIN_B}",
+            "launches": train_launches[name],
+            "launches_path": "train",
+            "max_abs_err": ttab_errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    del tteng, SBt, GBt, Xt, tk, tp, tlib
+
+    # the update-MLP kernel at the training shapes (float32) and at the
+    # batched gecko's (bfloat16 inputs), gated, hid 256; beside the library
+    # chain addmm -> relu -> addmm on [n, 48]: in float32 with TF32 off, or
+    # on bfloat16 inputs with float32 sums and outputs and H rounded to
+    # bfloat16 between the two (the function the kernel computes)
+    mlp_rows = {}
+    for label, lead, dtype, launches in (
+            ("train", mlp_shapes["train"], torch.float32,
+             train_launches["sph_mlp_kernel"]),
+            ("gecko", mlp_shapes["gecko"], torch.bfloat16,
+             batched_launches["sph_mlp_kernel"])):
+        args = mlp_inputs(dev, dtype, 33, lead, seed=11)
+        S_m, ga_m, w1k, b1, w2, b2 = args
+        X = torch.cat([S_m, ga_m], -1).reshape(-1, 48)
+        if dtype == torch.float32:
+            def library():
+                return torch.addmm(b2, torch.relu(torch.addmm(b1, X, w1k)),
+                                   w2)
+        else:
+            def library():
+                f32 = torch.float32
+                H = torch.relu(torch.addmm(b1, X, w1k, out_dtype=f32))
+                return torch.addmm(b2, H.to(dtype), w2, out_dtype=f32)
+        lib_err = float((library() - torch.cat(
+            [o.reshape(X.shape[0], -1) for o in MK.mlp_ref(*args)], -1)
+        ).abs().max())
+        ms = device_ms(lambda: MK.mlp_forward(*args), "sph_mlp_kernel")
+        plain_ms = device_ms(lambda: MK.mlp_ref(*args))
+        lib_ms = device_ms(library)
+        n = X.shape[0]
+        nbytes, ops = work_mlp(n, w1k.shape[1], 33, S_m.element_size())
+        bound_ms, bound_by = bound(
+            nbytes, ops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        print(f"  sph_mlp_kernel at the {label} shapes ({n} items, "
+              f"{str(dtype)[6:]} inputs, gated, hid {w1k.shape[1]}): "
+              f"{ms:.4f} ms device time, plain {plain_ms:.4f} ms, library "
+              f"chain {lib_ms:.4f} ms (max abs {lib_err:.3e} from mlp_ref), "
+              f"bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)",
+              flush=True)
+        mlp_rows[label] = {
+            "shapes": f"{label} {tuple(lead)} {str(dtype)[6:]} inputs",
+            "launches": launches,
+            "launches_path": "train" if label == "train" else "batched",
+            "max_abs_err": mlp_errs[(label, dtype)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+        del args, X
+    mlp_row = {"name": "sph_mlp_kernel", "route": "cuda",
+               "source": "sph_nca_tpu_torch/csrc/mlp_kernel.cu",
+               "replaces": "sph_nca_tpu/ops/pallas/mlp_kernel.py:48",
+               **mlp_rows["train"], "inference": mlp_rows["gecko"]}
+
+    # rows 2.4-2.6 head with the training path's numbers; the surface path's
+    # go under "surface"
+    for i, row in enumerate(rows_tab):
+        if row["name"] in train_tab:
+            surface = {k: v for k, v in row.items()
+                       if k not in ("name", "route", "source", "replaces")}
+            rows_tab[i] = {k: row[k] for k in ("name", "route", "source",
+                                               "replaces")}
+            rows_tab[i].update(train_tab[row["name"]], surface=surface)
+
     phase("times", t0, f"inference rollout step {step_ms[True]:.4f} ms with "
           f"the kernels, {step_ms[False]:.4f} ms with the plain versions "
           f"({STEPS} steps, fire_rate 0.5, host clock around synchronize, "
@@ -1222,12 +1679,19 @@ def main() -> int:
         profile_steps(model, eng, S0, h)
         phase("profile", t0, "torch.profiler, 16 inference steps at "
               "fire_rate 0.5")
-        t0 = time.time()
-        profile_train(teng, x2)
-        phase("profile-train", t0, "torch.profiler, one full-depth "
-              "training iteration")
+        for label, train_eng in (
+                ("pair tables", build_cell_engine(
+                    x, TRAIN_H, pair_tables="float32", device=dev)),
+                ("recompute", teng)):
+            t0 = time.time()
+            profile_train(train_eng, x2)
+            phase("profile-train", t0, "torch.profiler, one full-depth "
+                  f"training iteration ({label})")
 
-    print(json.dumps({"kernels": rows + rows_tab}), flush=True)
+    kernels = rows + rows_tab + [mlp_row]
+    if len(kernels) != 8:
+        fail(f"the kernels line has {len(kernels)} rows, expected 8")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

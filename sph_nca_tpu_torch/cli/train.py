@@ -16,12 +16,13 @@ logs the loss every ``--log_every`` iterations and writes to ``--output_dir``:
   sphnca-<time>-<iters>.json  the trained weights, for ``cli.test``
 
 It runs ``--training_iter`` iterations (the JAX CLI runs one more, to
-checkpoint at the last). The cell engine is built without pair tables: the
-trainer then takes the kernels' recompute path (the JAX CLI builds f32
-tables and trains on its batched-lane path, which computes the same
-function). Not ported yet: the OT and CLIP losses, the band and graph
+checkpoint at the last). As the JAX CLI, it builds the cell engine with
+float32 pair tables, so the trainer takes the batched-lane rollout (the
+table kernels and the fused update-MLP kernel), and keeps the pool on the
+device (``DevicePool``) when it is under 4 GB (``--device_pool auto``; 1.07 GB
+at the defaults). Not ported yet: the OT and CLIP losses, the band and graph
 engines, surface mode, emoji targets, the random initial feature,
-checkpoints and resume, the device-resident pool.
+checkpoints and resume.
 """
 
 from __future__ import annotations
@@ -74,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--engine", choices=["band", "cells", "graph"],
                    default="cells")
+    p.add_argument("--device_pool", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="keep the pool on the device (auto: when under 4 GB)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -97,7 +101,7 @@ def main(argv=None) -> int:
     from ..models.nca import SPHNCAConfig, num_params
     from ..ops.cells import build_cell_engine
     from ..training.losses import MSELossConfig
-    from ..training.pool import Pool
+    from ..training.pool import DevicePool, Pool
     from ..training.trainer import TrainConfig, Trainer, make_mse_bundle
     from ..utils.geometry import grange
     from ..utils.image import flat_color_target, load_image
@@ -136,10 +140,16 @@ def main(argv=None) -> int:
         x = x2
         period = list(gsize) if args.wrap else None
     t0 = time.time()
-    eng = build_cell_engine(x, h, period=period, device=device)
+    # float32 pair tables send the trainer to the batched-lane rollout, as
+    # the JAX CLI does
+    eng = build_cell_engine(x, h, period=period, pair_tables="float32",
+                            device=device)
+    table_mb = sum(t.numel() * t.element_size() for t in (
+        eng.blk_md, eng.blk_w6, eng.blk2_md, eng.blk2_w6)) / 1e6
     print(f"cell engine: n={x.shape[0]} C={eng.num_cells} "
           f"M={eng.slots_per_cell} buckets {eng.blk_xs.shape[0]} + "
-          f"{eng.blk2_xs.shape[0]} blocks ({time.time() - t0:.2f}s"
+          f"{eng.blk2_xs.shape[0]} blocks, float32 pair tables "
+          f"{table_mb:.1f} MB ({time.time() - t0:.2f}s"
           f"{', periodic' if args.wrap else ''})", flush=True)
 
     model_cfg = SPHNCAConfig(
@@ -172,8 +182,16 @@ def main(argv=None) -> int:
 
     A_seed = plane_seed(x2, args.channels, gmin=gmin, gsize=gsize,
                         radius=seed_radius)
-    pool = Pool(x2.numpy(), A_seed.numpy(), args.pool_size,
-                rng=np.random.default_rng(args.seed))
+    pool_bytes = args.pool_size * x2.shape[0] * args.channels * 4
+    rng = np.random.default_rng(args.seed)
+    if args.device_pool == "on" or (args.device_pool == "auto"
+                                    and pool_bytes < 4e9):
+        pool = DevicePool(x2.numpy(), A_seed.numpy(), args.pool_size,
+                          rng=rng, device=device)
+    else:
+        pool = Pool(x2.numpy(), A_seed.numpy(), args.pool_size, rng=rng)
+    print(f"pool: {type(pool).__name__}, {pool_bytes / 1e9:.2f} GB",
+          flush=True)
 
     os.makedirs(args.output_dir, exist_ok=True)
     run_id = time.strftime("%m%d%H%M")

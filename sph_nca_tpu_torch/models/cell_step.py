@@ -14,9 +14,20 @@ States carry an optional leading batch axis: S [B, C, M, F] runs B samples on
 one geometry, each kernel launching once per bucket for the whole batch (the
 JAX trainer vmaps the per-sample rollout instead).
 
-The fire-rate mask is drawn per SLOT from a ``torch.Generator``: the same
-Bernoulli(fire_rate) law as the JAX package, another stream, so trajectories
-match the JAX package exactly only at fire_rate == 1.
+The batched-lane path (``nca_step_cells_batched``, ``_update_core``,
+``rollout_cells_batched``; engines with pair tables) keeps the JAX package's
+lane layout [C, M, B*F] at its boundary and steps in [B, C, M, F] inside
+(``ops/batched.py``). Its update MLP is the fused kernel of
+``ops/mlp_kernel.py`` on per-sample weights with the perception scale folded
+into W1's gA rows (the JAX package's ``_update_core_pallas``). The JAX
+package's other two implementations of the same function, ``blockdiag`` and
+``sublane`` (TPU layouts chosen by ``SPH_NCA_MLP_IMPL``), are not ported, and
+the port has no such switch.
+
+The fire-rate mask is drawn per SLOT (per slot and sample on the batched
+path) from a ``torch.Generator``: the same Bernoulli(fire_rate) law as the JAX
+package, another stream, so trajectories match the JAX package exactly only
+at fire_rate == 1.
 """
 
 from __future__ import annotations
@@ -26,7 +37,9 @@ from typing import Optional, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import batched as BT
 from ..ops.cells import CellEngine
+from ..ops.mlp_kernel import mlp_fused
 from ..ops.pair_kernel import mask_blur, perceive_cells, perceive_cells_dmajor
 from .nca import ALIVE_THRESHOLD, MLPParams, SPHNCAConfig, apply_mlp
 
@@ -188,3 +201,188 @@ def rollout_states_cells(
                            fire_rate=fire_rate, use_kernels=use_kernels)
         states[t + 1] = eng.gather_back(S)
     return states
+
+
+# ---- the batched-lane path (engines with pair tables) ---------------------
+
+
+def _mlp_weights(params: MLPParams, cfg: SPHNCAConfig, f: int, h: float,
+                 mlp_dtype):
+    """The update MLP's per-sample weights for ``mlp_fused``: W1 and W2 in
+    the MLP dtype, the perception scale h k folded into W1's gA rows (the
+    scale rounded to the MLP dtype on the host, as the JAX step rounds it),
+    W2 cut to the rule's outputs; the biases float32. Built once per
+    rollout (XLA hoists the same out of the JAX scan)."""
+    if cfg.update_rule not in ("gated", "orig"):
+        raise ValueError(f"unknown update rule {cfg.update_rule!r}")
+    ydt = getattr(torch, mlp_dtype) if mlp_dtype else torch.float32
+    scale = torch.tensor(h * cfg.normalize_perception
+                         if cfg.normalize_perception > 0 else 1.0,
+                         dtype=ydt).item()
+    w1 = params.w1.to(ydt)
+    w2 = params.w2.to(ydt)
+    if cfg.update_rule == "orig":
+        w2 = w2[:, :cfg.channels]
+    return (torch.cat([w1[:f], w1[f:] * scale]), params.b1.float(),
+            w2.contiguous(), params.b2.float()[:w2.shape[-1]].contiguous())
+
+
+def _update_samples(cfg: SPHNCAConfig, weights, S: torch.Tensor,
+                    ga: torch.Tensor, u: torch.Tensor, fire_rate: float,
+                    use_kernels: bool) -> torch.Tensor:
+    """The batched step's update for states S [..., F], their perception ga
+    [..., >= 2F] (per-sample d-major: gA_x, gA_y, ...) and fire draws u
+    [...]: the fused update MLP on ``_mlp_weights``, the gated or orig rule,
+    and the fire mask. Returns the pre-life-mask state [..., F]."""
+    f = S.shape[-1]
+    ydt = weights[0].dtype
+    g_pre, d_pre, m_pre = mlp_fused(S.to(ydt), ga[..., :2 * f].to(ydt),
+                                    *weights, use_kernel=use_kernels)
+    if cfg.update_rule == "gated":
+        nS = (S * torch.sigmoid(g_pre)
+              + torch.tanh(d_pre) * torch.sigmoid(m_pre)[..., None])
+    else:
+        nS = S + g_pre * (cfg.fire_rate / fire_rate)
+    # select, not lerp (S + 1 * (nS - S) can differ from nS by an ulp)
+    return torch.where((u <= fire_rate)[..., None], nS, S)
+
+
+def _update_core(params: MLPParams, cfg: SPHNCAConfig, SB2: torch.Tensor,
+                 gaB: torch.Tensor, b: int, f: int,
+                 generator: torch.Generator, h: float, fire_rate: float,
+                 mlp_dtype=None, *, use_kernels: bool = True) -> torch.Tensor:
+    """The batched step's update in the JAX package's lane layout: SB2
+    [rows, B*F], gaB [..., D*B*F] (d-major lane blocks) -> the pre-life-mask
+    state [rows, B*F], with a fire draw per (slot, sample) from
+    ``generator``."""
+    rows = SB2.shape[0]
+    d = gaB.shape[-1] // (b * f)
+    ga = gaB.reshape(rows, d, b, f)[:, :2].transpose(1, 2).reshape(
+        rows, b, 2 * f)
+    u = torch.rand((rows, b), generator=generator, device=SB2.device)
+    return _update_samples(cfg, _mlp_weights(params, cfg, f, h, mlp_dtype),
+                           SB2.reshape(rows, b, f), ga, u, fire_rate,
+                           use_kernels).reshape(rows, b * f)
+
+
+def _step_samples(cfg: SPHNCAConfig, eng: CellEngine, weights,
+                  S: torch.Tensor, u: torch.Tensor, fire_rate: float,
+                  use_kernels: bool,
+                  perception_transform=None) -> torch.Tensor:
+    """One batched step on S [B, C, M, F] given the MLP's weights
+    (``_mlp_weights``) and the fire draws u [B, C, M]: perception (table
+    kernels 2.4 / 2.5), pre-mask, the update, the post-update mask
+    (detached)."""
+    ga, pre_sm = perceive_cells_dmajor(eng, S, cfg.use_alpha,
+                                       use_kernels=use_kernels)
+    if perception_transform is not None:
+        # the transform reads and returns the JAX layout's lane blocks
+        d = eng.xs.shape[-1]
+        ga = BT.lanes_to_dmajor(
+            perception_transform(BT.dmajor_to_lanes(ga, d)), S.shape[0], d)
+    prev_mask = pre_sm > ALIVE_THRESHOLD
+    nS = _update_samples(cfg, weights, S, ga, u, fire_rate, use_kernels)
+    new_sm = mask_blur(eng, nS.detach(), use_alpha=cfg.use_alpha,
+                       use_kernels=use_kernels)
+    living = (prev_mask & (new_sm > ALIVE_THRESHOLD)).to(nS.dtype)
+    return nS * living[..., None]
+
+
+def nca_step_cells_batched(
+    params: MLPParams,
+    cfg: SPHNCAConfig,
+    eng: CellEngine,
+    SB: torch.Tensor,
+    b: int,
+    generator: torch.Generator,
+    h: float,
+    fire_rate: Optional[float] = None,
+    mlp_dtype=None,
+    perception_transform=None,
+    *,
+    use_kernels: bool = True,
+) -> torch.Tensor:
+    """One NCA step of B same-geometry rollouts in the lane layout:
+    SB [C, M, B*F] -> [C, M, B*F]; per sample the function of
+    ``nca_step_cells``, with a fire draw per (slot, sample).
+
+    ``mlp_dtype="bfloat16"`` runs the update MLP on bfloat16 inputs and
+    weights (float32 sums). ``perception_transform`` maps the unscaled
+    gradient lanes gaB [C, M, D*B*F] to the same layout (it costs two layout
+    copies a step). Needs an engine with pair tables, as the JAX package's.
+    """
+    BT.require_tables(eng)
+    if fire_rate is None:
+        fire_rate = cfg.fire_rate
+    S = BT.to_samples(SB, b)
+    u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
+    weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
+    return BT.to_lanes(_step_samples(cfg, eng, weights, S, u, fire_rate,
+                                     use_kernels, perception_transform))
+
+
+def rollout_cells_batched(
+    params: MLPParams,
+    cfg: SPHNCAConfig,
+    eng: CellEngine,
+    SB0: torch.Tensor,
+    b: int,
+    generator: torch.Generator,
+    max_steps: int,
+    h: float,
+    *,
+    n_steps: Optional[Sequence[int]] = None,
+    fire_rate: Optional[float] = None,
+    collect_steps: Optional[Sequence[int]] = None,
+    mlp_dtype=None,
+    use_kernels: bool = True,
+):
+    """``max_steps`` batched steps from SB0 [C, M, B*F].
+
+    ``n_steps`` [B] gives each sample its own length: a sample stops changing
+    after its n_steps steps (the progressive-growing rollouts freeze finished
+    samples in place). Returns the final state or, with ``collect_steps``,
+    (final, collected [len(collect_steps), C, M, B*F]) holding the state
+    after step k for each k (k = 0 is SB0). The layout changes to
+    [B, C, M, F] once on entry and back once on exit. When a gradient is
+    needed each step is recomputed in the backward (``REMAT``); the fire
+    draws are made outside the recomputed function.
+    """
+    BT.require_tables(eng)
+    if fire_rate is None:
+        fire_rate = cfg.fire_rate
+    collect = [] if collect_steps is None else [int(k) for k in collect_steps]
+    if any(not 0 <= k <= max_steps for k in collect):
+        raise ValueError(f"collect_steps {collect} outside [0, {max_steps}]")
+    ends = [max_steps] * b if n_steps is None else [int(n) for n in n_steps]
+    if len(ends) != b:
+        raise ValueError(f"n_steps has {len(ends)} entries for {b} samples")
+    remat = REMAT and torch.is_grad_enabled() and (
+        SB0.requires_grad or any(p.requires_grad for p in params))
+
+    S = BT.to_samples(SB0, b)
+    weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
+    ends_dev = torch.tensor(ends, device=S.device)  # one copy a rollout
+
+    def step(S, u):
+        return _step_samples(cfg, eng, weights, S, u, fire_rate, use_kernels)
+
+    buf = [S] * len(collect)
+    for t in range(max_steps):
+        u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
+        if remat:
+            nS = checkpoint(step, S, u, use_reentrant=False,
+                            preserve_rng_state=False)
+        else:
+            nS = step(S, u)
+        if any(t >= n for n in ends):
+            nS = torch.where((ends_dev > t)[:, None, None, None], nS, S)
+        S = nS
+        for i, k in enumerate(collect):
+            if k == t + 1:
+                buf[i] = S
+    final = BT.to_lanes(S)
+    if collect_steps is None:
+        return final
+    return final, (BT.to_lanes(torch.stack(buf)) if buf
+                   else SB0.new_empty((0,) + SB0.shape))

@@ -159,4 +159,11 @@ def load_library() -> ctypes.CDLL:
         _P, _P,  # out, stream
     ]
     lib.sph_blur_tab_launch.restype = _I
+    lib.sph_mlp_launch.argtypes = [
+        _I, _P, _L, _P, _L,  # bf16 inputs?, S, S's row stride, ga, its stride
+        _P, _P, _P, _P,  # w1k, b1, w2, b2
+        _L, _I, _I, _I,  # n items, F, hid, K
+        _P, _P, _P, _P,  # gate, delta, mult, stream
+    ]
+    lib.sph_mlp_launch.restype = _I
     return lib

@@ -1,5 +1,5 @@
-"""Plane-mode trainer on the cell engine (counterpart of the cell-engine path
-of ``sph_nca_tpu/training/trainer.py``, an engine built without pair tables).
+"""Plane-mode trainer on the cell engine (counterpart of the cell-engine
+paths of ``sph_nca_tpu/training/trainer.py``).
 
 One iteration: sample B states from the pool, rank them by per-sample loss
 and put a fresh seed in the worst one's place, roll the batch out for a
@@ -9,6 +9,14 @@ recomputed in the backward), take the MSE loss on the final state plus
 per-parameter gradient normalization g / (|g| + 1e-8) before Adam, whose
 learning rate falls linearly from lr to lr * lr_end_factor over
 lr_decay_steps iterations.
+
+As in the JAX trainer, an engine with pair tables (what the train CLI builds)
+takes the batched-lane rollout (``rollout_cells_batched``: table kernels and
+the fused update-MLP kernel); an engine without tables takes the recompute
+kernels through ``rollout_cells`` on the batch. The rollout runs exactly n
+steps (the JAX trainer rounds its length up to a bucket and freezes the
+samples after n). With a ``DevicePool`` the rolled-out states go back to the
+pool on the device.
 """
 
 from __future__ import annotations
@@ -19,11 +27,11 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.cell_step import rollout_cells
+from ..models.cell_step import rollout_cells, rollout_cells_batched
 from ..models.nca import MLPParams, SPHNCAConfig, init_params
+from ..ops.batched import batched_gather_back, batched_scatter
 from ..ops.cells import CellEngine
 from .losses import mse_loss, overflow_penalty, rgba_with_margin, target_at
-from .pool import Pool
 
 
 class LossBundle(NamedTuple):
@@ -148,8 +156,24 @@ class Trainer:
             decay_steps=train_cfg.lr_decay_steps)
         self.last_steps = 0  # rollout length of the last iteration
 
-    def run_iteration(self, i: int, pool: Pool) -> float:
-        """One training iteration; returns the loss."""
+    def _rollout(self, A0: torch.Tensor, n: int, collect):
+        """(final [B, N, C], collected [S, B, N, C]) in particle order."""
+        eng, bsz = self.eng, A0.shape[0]
+        if eng.blk_md is not None:
+            final, coll = rollout_cells_batched(
+                self.params, self.model_cfg, eng, batched_scatter(eng, A0),
+                bsz, self.generator, n, self.h, n_steps=[n] * bsz,
+                collect_steps=collect)
+            return (batched_gather_back(eng, final, bsz),
+                    [batched_gather_back(eng, c, bsz) for c in coll])
+        final, coll = rollout_cells(
+            self.params, self.model_cfg, eng, eng.scatter(A0),
+            self.generator, n, self.h, collect_steps=collect)
+        return eng.gather_back(final), list(eng.gather_back(coll))
+
+    def run_iteration(self, i: int, pool) -> float:
+        """One training iteration on a ``Pool`` or a ``DevicePool``; returns
+        the loss."""
         cfg = self.cfg
         idx, A0 = pool.sample(cfg.batch_size, degrade_prob=cfg.degrade_prob,
                               erase_radius=cfg.erase_radius)
@@ -159,23 +183,20 @@ class Trainer:
         collect = self.np_rng.integers(0, n + 1, size=cfg.aux_states)
         self.last_steps = n
 
-        A0 = torch.from_numpy(A0).to(self.device)
+        A0 = torch.as_tensor(A0, device=self.device)
         with torch.no_grad():
             # replace-worst: rank by per-sample loss, descending and stable,
             # and swap the worst for a fresh seed
             order = torch.argsort(-self.loss.per_sample(self.x, A0),
                                   stable=True)
         A0 = A0[order]
-        A0[0] = torch.tensor(seed_A, device=self.device)
+        A0[0] = seed_A if torch.is_tensor(seed_A) else torch.tensor(seed_A)
 
-        final, collected = rollout_cells(
-            self.params, self.model_cfg, self.eng, self.eng.scatter(A0),
-            self.generator, n, self.h, collect_steps=collect)
-        final = self.eng.gather_back(final)
+        final, collected = self._rollout(A0, n, collect)
         total = self.loss.batch_total(self.x, final)
         for s in range(cfg.aux_states):
             total = total + cfg.aux_weight * self.loss.batch_total(
-                self.x, self.eng.gather_back(collected[s]))
+                self.x, collected[s])
 
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -183,5 +204,6 @@ class Trainer:
             normalize_grads_(self.params)
         self.optimizer.step()
         self.scheduler.step()
-        pool.update(idx[order.cpu().numpy()], final.detach().cpu().numpy())
+        pool.update(torch.as_tensor(idx, device=self.device)[order],
+                    final.detach())
         return total.item()

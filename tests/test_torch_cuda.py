@@ -484,3 +484,140 @@ def test_surface_rollout_kernels_match_plain(cuda, dtype):
     for k, p in zip(out[True][:2], out[False][:2]):
         assert torch.isfinite(k).all()
         assert float((k - p).abs().max()) <= 1e-4
+
+
+# ---- the update-MLP kernel and the batched-lane path ----------------------
+
+# Kernel vs plain MLP: float32 sums in another order, 1e-5 of the largest
+# output. With bfloat16 inputs the products are exact in float32 in both, but
+# a hidden unit whose two float32 sums round to different bfloat16 values
+# moves the outputs by one bfloat16 ulp of that unit (2^-8 to 2^-7 of it)
+# times its weights in W2: with this test's weights one such unit moved the
+# largest output by 1.02e-3 of it on the card, so a few of them stay within
+# 1e-2 of the largest output. Such flips are rare: all outputs but
+# MLP_FLIP_SHARE of them agree within 1e-5 of the largest (summing the first
+# product in float64 instead of float32 moves ~0.06% of them past it), where a
+# kernel that skipped rounding H to bfloat16 would move ~97% of them.
+MLP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+MLP_FLIP_SHARE = 0.005
+
+
+def _mlp_args(device, dtype, k, hid=256, lead=(3, 40, 8), seed=0):
+    """S [*lead, 16], ga [*lead, 48] (the perception's layout; the MLP reads
+    its first 32 features), w1k [48, hid], b1, w2 [hid, k], b2."""
+    g = torch.Generator().manual_seed(seed)
+    S = torch.randn(*lead, 16, generator=g)
+    ga = torch.randn(*lead, 48, generator=g)
+    w1k = torch.randn(48, hid, generator=g) * 0.2
+    b1 = torch.randn(hid, generator=g) * 0.1
+    w2 = torch.randn(hid, k, generator=g) * 0.1
+    b2 = torch.randn(k, generator=g) * 0.1
+    S, ga, w1k, w2 = (t.to(device=device, dtype=dtype)
+                      for t in (S, ga, w1k, w2))
+    return [S, ga[..., :32], w1k, b1.to(device), w2, b2.to(device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [33, 16])
+def test_mlp_kernel_matches_plain(cuda, dtype, k):
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    args = _mlp_args(cuda, dtype, k)
+    n0 = MK.mlp_forward.launches
+    got = MK.mlp_forward(*args)
+    want = MK.mlp_ref(*args)
+    torch.cuda.synchronize()
+    assert MK.mlp_forward.launches == n0 + 1
+    past = []
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= MLP_RTOL[dtype] * scale
+        past.append(((g - w).abs() > 1e-5 * scale).reshape(-1))
+    assert float(torch.cat(past).float().mean()) <= MLP_FLIP_SHARE
+
+
+@pytest.mark.cuda
+def test_mlp_kernel_grad_matches_plain(cuda):
+    """Gradients through mlp_fused (kernel forward, recomputing backward)
+    against autograd through mlp_ref, for every input."""
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    grads = {}
+    for use_kernel in (True, False):
+        args = [t.clone().requires_grad_(True) for t in _mlp_args(cuda,
+                torch.float32, 33)]
+        g = torch.Generator(device=cuda).manual_seed(1)
+        outs = (MK.mlp_fused(*args) if use_kernel else MK.mlp_ref(*args))
+        loss = sum((o * torch.randn(o.shape, generator=g, device=cuda)).sum()
+                   for o in outs)
+        loss.backward()
+        grads[use_kernel] = [a.grad for a in args]
+    for gk, gp in zip(grads[True], grads[False]):
+        assert float((gk - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+
+
+@pytest.mark.cuda
+def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    ok = _mlp_args(cuda, torch.float32, 33, lead=(64,))
+    MK.mlp_forward(*ok)
+    S, ga, w1k, b1, w2, b2 = ok
+    bad = [
+        [S.double(), ga.double(), w1k.double(), b1, w2.double(), b2],
+        [S.bfloat16(), ga, w1k, b1, w2, b2],  # mixed dtypes
+        [S, ga, w1k, b1.double(), w2, b2],  # float64 bias
+        [S[..., :8], ga[..., :16], w1k[:24], b1, w2[:, :17], b2[:17]],  # F 8
+        [S, ga, w1k, b1, w2[:, :20].contiguous(), b2[:20]],  # K = 20
+        [S, ga, *_mlp_args(cuda, torch.float32, 33, hid=600,
+                           lead=(64,))[2:]],  # hid over the maximum
+        [S, ga.cpu(), w1k, b1, w2, b2],  # off the card
+        [S, torch.zeros(64, 36, device=cuda)[:, :32], w1k, b1, w2, b2],
+        [S, ga[:32], w1k, b1, w2, b2],  # fewer rows of ga than of S
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            MK.mlp_forward(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+def test_batched_rollout_kernels_match_plain(cuda, dtype):
+    """A 4-step batched rollout (B = 3, fire_rate 1) through the table and
+    MLP kernels against the plain versions, with one launch per bucket and
+    step of the forward and mask table kernels and one MLP launch a step."""
+    from sph_nca_tpu_torch.models.cell_step import rollout_cells_batched
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+    from sph_nca_tpu_torch.ops.batched import (
+        batched_gather_back,
+        batched_scatter,
+    )
+
+    eng = _tab_cloud(cuda, 3, dtype)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    cfg = SPHNCAConfig(fire_rate=1.0, normalize_perception=4.0)
+    params = MLPParams(
+        torch.randn(48, 256, generator=g) * 0.1, torch.zeros(256),
+        torch.randn(256, 33, generator=g) * 0.1, torch.zeros(33))
+    params = MLPParams(*(p.to(cuda) for p in params))
+    A = torch.rand(3, eng.num_particles, 16, generator=g).to(cuda)
+    SB = batched_scatter(eng, A)
+    out = {}
+    for use_kernels in (True, False):
+        counts = (PK.fwd_tab_bucket.launches, PK.mask_tab_bucket.launches,
+                  MK.mlp_forward.launches)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        out[use_kernels] = batched_gather_back(eng, rollout_cells_batched(
+            params, cfg, eng, SB, 3, gen, 4, 0.25, fire_rate=1.0,
+            use_kernels=use_kernels), 3)
+        got = (PK.fwd_tab_bucket.launches - counts[0],
+               PK.mask_tab_bucket.launches - counts[1],
+               MK.mlp_forward.launches - counts[2])
+        assert got == ((8, 8, 4) if use_kernels else (0, 0, 0))
+    assert torch.isfinite(out[True]).all()
+    assert float((out[True] - out[False]).abs().max()) <= 1e-4

@@ -75,6 +75,18 @@ def test_port_package_imports_without_card():
     import sph_nca_tpu_torch.ops.pair_kernel  # noqa: F401
 
 
+def test_batched_path_modules_import_without_card():
+    """The batched-lane path's modules import no JAX and need no card."""
+    import sph_nca_tpu_torch.ops.batched  # noqa: F401
+    import sph_nca_tpu_torch.ops.mlp_kernel  # noqa: F401
+    import sph_nca_tpu_torch.training.pool  # noqa: F401
+    import sph_nca_tpu_torch.training.trainer  # noqa: F401
+
+    names = {p.name for p in _port_files()}
+    assert {"batched.py", "mlp_kernel.py", "pool.py"} <= names
+    assert (PORT / "csrc" / "mlp_kernel.cu").exists()
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -115,6 +127,31 @@ def test_train_entry_point_raises_without_card(no_card, tmp_path):
     assert os.listdir(tmp_path) == []
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(SPHNCAConfig(), torch.Generator())
+
+
+def test_device_pool_raises_without_card(no_card):
+    from sph_nca_tpu_torch.training.pool import DevicePool
+
+    x = torch.rand(16, 2).numpy()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DevicePool(x, x, 4)
+    assert DevicePool(x, x, 4, device="cpu").A.device.type == "cpu"
+
+
+def test_every_launcher_has_a_c_signature():
+    """ctypes passes an undeclared argument as a 32-bit int, which cuts a
+    pointer: every extern "C" launcher of csrc/ has its argtypes declared."""
+    import re
+
+    launchers = set()
+    for src in (PORT / "csrc").glob("*.cu"):
+        launchers |= set(re.findall(r'extern "C" int (\w+)\(',
+                                    src.read_text()))
+    assert "sph_mlp_launch" in launchers and len(launchers) == 8
+    build = (PORT / "ops" / "_build.py").read_text()
+    for name in launchers:
+        assert f"lib.{name}.argtypes" in build, name
+        assert f"lib.{name}.restype" in build, name
 
 
 def test_build_is_keyed_by_source_hash():

@@ -36,6 +36,7 @@ from sph_nca_tpu.training import Trainer as JaxTrainer
 from sph_nca_tpu.training import make_mse_bundle as jax_bundle
 from sph_nca_tpu.training import mse_loss as jax_mse
 from sph_nca_tpu.training import progressive_steps as jax_progressive
+from sph_nca_tpu.training.pool import DevicePool as JaxDevicePool
 from sph_nca_tpu.utils.geometry import bilinear_sample as jax_bilinear
 from sph_nca_tpu.utils.image import flat_color_target as jax_flat
 from sph_nca_tpu.utils.seeds import plane_seed as jax_plane_seed
@@ -53,7 +54,7 @@ from sph_nca_tpu_torch.models.nca import (
 )
 from sph_nca_tpu_torch.ops.cells import build_cell_engine
 from sph_nca_tpu_torch.training.losses import MSELossConfig, mse_loss
-from sph_nca_tpu_torch.training.pool import Pool
+from sph_nca_tpu_torch.training.pool import DevicePool, Pool
 from sph_nca_tpu_torch.training.trainer import (
     TrainConfig,
     Trainer,
@@ -306,6 +307,147 @@ def test_trainer_losses_match_jax(scene):
     assert tt.last_steps == 3
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
     np.testing.assert_allclose(tpool.A, jpool.A, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def table_engines(scene):
+    """The scene's engines with float32 pair tables (what the train CLIs
+    build)."""
+    _, _, x2, h = scene
+    x = np.random.default_rng(1).uniform(-1, 1, (200, 3)).astype(np.float32)
+    x[:, 2] *= 0.3
+    je = jax_build(jnp.asarray(x), h, pair_tables="float32", xla_tables=False)
+    te = build_cell_engine(x, h, pair_tables="float32", device="cpu")
+    return je, te
+
+
+def test_table_trainer_losses_match_jax(scene, table_engines):
+    """Three iterations of the port's Trainer and of the JAX Trainer on
+    table engines (both take their batched-lane rollout) with device pools,
+    from the same params and pool draws: the same losses and pool states."""
+    _, _, x2, h = scene
+    je, te = table_engines
+    jcfg, tcfg = _configs(h)
+    jp, tp = _params(jcfg, seed=2)
+    img = _target()
+    kw = dict(gmin=(-1, -1), gsize=(2, 2), image_scale=1.0)
+    tc = dict(batch_size=2, pool_size=4, steps_range=(3, 5),
+              steps_increment=1, aux_states=2, lr_decay_steps=10)
+    seed_A = np.asarray(jax_plane_seed(jnp.asarray(x2), 16, gmin=(-1, -1),
+                                       gsize=(2, 2), radius=h))
+    jt = JaxTrainer(jcfg, JaxTrainConfig(**tc), je, jnp.asarray(x2),
+                    jax_bundle(jnp.asarray(img), JaxMSECfg(**kw)), h,
+                    params=jp)
+    jpool = JaxDevicePool(x2, seed_A, 4, rng=np.random.default_rng(0))
+    tt = Trainer(tcfg, TrainConfig(**tc), te, torch.from_numpy(x2),
+                 make_mse_bundle(torch.from_numpy(img), MSELossConfig(**kw)),
+                 h, params=tp)
+    tpool = DevicePool(x2, seed_A, 4, rng=np.random.default_rng(0),
+                       device="cpu")
+    calls = []
+    batched = cell_step.rollout_cells_batched
+    import sph_nca_tpu_torch.training.trainer as trainer_mod
+
+    def spy(*a, **k):
+        calls.append(k["n_steps"])
+        return batched(*a, **k)
+
+    trainer_mod.rollout_cells_batched = spy
+    try:
+        got = [tt.run_iteration(i, tpool) for i in range(3)]
+    finally:
+        trainer_mod.rollout_cells_batched = batched
+    want = [float(jt.run_iteration(i, jpool)) for i in range(3)]
+    assert calls == [[1, 1], [2, 2], [3, 3]]
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(tpool.state_np(), jpool.state_np(), atol=1e-3)
+
+
+@pytest.mark.parametrize("randomized", [False, True])
+def test_device_pool_draws_match_jax(randomized):
+    """The same host index draws as the JAX DevicePool (and the host Pool);
+    damage consumes the numpy rng the same way, so later draws still agree,
+    and applies the same law: degraded particles hold values in [0, 1),
+    erased ones zeros."""
+    rng = np.random.default_rng(0)
+    x = rng.random((40, 2)).astype(np.float32)
+    seed_A = (rng.random((40, 4)) + 2.0).astype(np.float32)
+    got = DevicePool(x, seed_A, 10, rng=np.random.default_rng(7),
+                     randomized_feat=randomized, device="cpu")
+    want = JaxDevicePool(x, seed_A, 10, rng=np.random.default_rng(7),
+                         randomized_feat=randomized)
+    host = Pool(x, seed_A, 10, rng=np.random.default_rng(7))
+    assert got.A.shape == (10, 40, 4) and got.A.device.type == "cpu"
+    if not randomized:
+        np.testing.assert_array_equal(got.state_np(), want.state_np())
+        for _ in range(2):
+            gi, gA = got.sample(4)
+            wi, wA = want.sample(4)
+            hi, hA = host.sample(4)
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gi, hi)
+            np.testing.assert_array_equal(gA.numpy(), np.asarray(wA))
+            got.update(gi, gA + 1)
+            want.update(wi, wA + 1)
+        np.testing.assert_array_equal(got.state_np(), want.state_np())
+    else:
+        a = got.state_np()
+        assert (0 <= a).all() and (a < 1).all() and a.std() > 0.2
+    gi, gA = got.sample(4, degrade_prob=0.3)
+    wi, _ = want.sample(4, degrade_prob=0.3)
+    np.testing.assert_array_equal(gi, wi)
+    if not randomized:
+        hit = (gA.numpy() < 2.0).all(-1)  # re-randomized particles
+        assert 0.1 < hit.mean() < 0.5
+        assert (gA.numpy()[hit] < 1.0).all()
+    gi, gA = got.sample(4, erase_radius=0.3)
+    wi, _ = want.sample(4, erase_radius=0.3)
+    np.testing.assert_array_equal(gi, wi)
+    erased = (gA.numpy() == 0).all(-1)
+    assert erased.any(axis=1).all()
+    np.testing.assert_array_equal(got.sample(3)[0], want.sample(3)[0])
+    got.load_state(want.state_np())
+    np.testing.assert_array_equal(got.state_np(), want.state_np())
+
+
+def test_train_cli_builds_tables_and_device_pool(tmp_path, monkeypatch):
+    """The train CLI builds float32 pair tables and a device pool, as the
+    JAX CLI does at its defaults, so the trainer takes the batched path;
+    --device_pool off keeps the host pool."""
+    import sph_nca_tpu_torch.ops.cells as cells_mod
+    import sph_nca_tpu_torch.training.trainer as trainer_mod
+
+    built, pools, rollouts = [], [], []
+    build = cells_mod.build_cell_engine
+    batched = trainer_mod.rollout_cells_batched
+
+    def spy_build(*a, **k):
+        built.append(k.get("pair_tables"))
+        return build(*a, **k)
+
+    def spy_rollout(*a, **k):
+        rollouts.append(k["n_steps"])
+        return batched(*a, **k)
+
+    run_iteration = trainer_mod.Trainer.run_iteration
+
+    def spy_iteration(self, i, pool):
+        pools.append(type(pool).__name__)
+        return run_iteration(self, i, pool)
+
+    monkeypatch.setattr(cells_mod, "build_cell_engine", spy_build)
+    monkeypatch.setattr(trainer_mod, "rollout_cells_batched", spy_rollout)
+    monkeypatch.setattr(trainer_mod.Trainer, "run_iteration", spy_iteration)
+    argv = ["--device", "cpu", "--image_size", "12", "--h", "0.3",
+            "--training_iter", "2", "--batch_size", "2", "--pool_size", "4",
+            "--steps_range", "2,3", "--steps_increment", "1", "--hidden",
+            "16", "--log_every", "1"]
+    assert cli_train.main(argv + ["--output_dir", str(tmp_path / "a")]) == 0
+    assert cli_train.main(argv + ["--output_dir", str(tmp_path / "b"),
+                                  "--device_pool", "off"]) == 0
+    assert built == ["float32", "float32"]
+    assert pools == ["DevicePool"] * 2 + ["Pool"] * 2
+    assert rollouts == [[1, 1], [2, 2]] * 2
 
 
 def test_train_cli_weights_run_in_test_cli(tmp_path):
