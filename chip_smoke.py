@@ -29,7 +29,9 @@ launch counter set to 0 just before it and read just after:
 Phases, each printing one line with its wall time:
 
   device         the card's name and power limit; TF32 off
-  build          the nvcc build of sph_nca_tpu_torch/csrc/*.cu for sm_90a
+  build          the nvcc build of sph_nca_tpu_torch/csrc/*.cu for sm_90a,
+                 with nvcc's -Xptxas -v output (registers, shared memory and
+                 spills of every kernel instantiation)
   kernels        the recompute forward and mask kernels against their plain
                  PyTorch versions at the gecko 128x128 bucket shapes, both
                  buckets, use_alpha on and off
@@ -61,11 +63,16 @@ Phases, each printing one line with its wall time:
                  per iteration and peak device memory
   train-recompute 2 full-depth iterations of the Trainer on the engine
                  without tables (the recompute kernels), with launch counts
+  train-turns    full-depth Trainer iterations on the two training paths in
+                 turns (batched on float32 tables, recompute, recompute,
+                 batched, twice): ms per BPTT step of each
   tables         the stripes sphere's engine with bfloat16 and float32 pair
                  tables (sizes, pairs, table bytes, build seconds); each
                  table kernel against its plain version in both dtypes at
                  B = 1 and (but the blur) B = 8, one B = 8 launch against 8
-                 B = 1 launches, pad rows exactly 0
+                 B = 1 launches, pad rows exactly 0, and a constant state
+                 cancelling through the forward table kernel (|gA| < 1e-4;
+                 also on the training engine in the times phase)
   surface        the surface path: launch counts, finite states, unit
                  tangents, the textured share of points at steps 0, 64 and
                  128; then 16 steps at fire_rate 1.0, kernels vs plain
@@ -78,7 +85,9 @@ Phases, each printing one line with its wall time:
                  library call's: the recompute kernels at the training and
                  gecko inference shapes; the table kernels at the surface
                  path's shapes and (forward, adjoint, mask) at the training
-                 shapes beside one torch.bmm a bucket; the MLP kernel at the
+                 shapes beside one torch.bmm a bucket (forward and adjoint
+                 beside their first design's recorded times), the forward also at
+                 the batched gecko's shapes; the MLP kernel at the
                  training and batched gecko shapes beside addmm-relu-addmm
                  (float32 sums, bfloat16 products for the bfloat16 row);
                  ms per inference and per surface rollout step
@@ -151,6 +160,18 @@ STRIPES = os.path.join(ROOT, "sph_nca_tpu", "demo", "web", "weights",
 SURF_N, SURF_RADIUS, SURF_SEEDS, SURF_STEPS = 25600, 1.0, 10, 128
 SURF_GRAD_STEPS, SURF_B = 4, 8
 TAB_RTOL = 1e-5  # table kernel vs plain: the same f32 products, other order
+# a constant state cancels in the table forward against the gsum of the
+# quantized table to f32 rounding: |gA| below this (the CPU tests' bound; a
+# single TF32 product instead of the kernel's split ones does not cancel it,
+# tests/test_torch_tf32_split.py)
+CONST_ATOL = 1e-4
+# the first design of the forward and adjoint table kernels (one sample a
+# thread block, f32 FMAs), as recorded in PERF.md: device ms at the training
+# shapes (f32 tables, B = 8, both buckets) on an H100 80GB HBM3 at 700 W.
+# Printed as a record beside the redesigned kernels' times, never measured
+# here (the first design's code is gone) and not in the kernels JSON line
+TAB_RECORDED_MS = {"sph_fwd_tab_kernel": 0.8850,
+                   "sph_bwd_tab_kernel": 0.8543}
 # the batched-lane path at inference: the gecko on bfloat16 pair tables, B = 8
 # rollouts at once with a bfloat16 update MLP (the JAX package's recipe)
 BATCH_B = 8
@@ -241,31 +262,41 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, name=None, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, name=None, iters: int = 20, warmup: int = 3,
+              attempts: int = 3) -> float:
     """Device time of fn() per call from the profiler's kernel records:
     the kernels whose name contains ``name``, or every kernel fn() launches
-    when ``name`` is None. Host gaps between launches do not count."""
+    when ``name`` is None. Host gaps between launches do not count. A
+    profile that holds no kernel record at all (seen once in a no-argument
+    run on the H100, for a kernel recorded in every other run) is taken
+    again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CPU:
-            continue
-        if name is not None and name not in ev.key:
-            continue
-        total_us += getattr(ev, "self_device_time_total",
-                            getattr(ev, "self_cuda_time_total", 0))
-    if total_us <= 0:
-        fail(f"the profiler recorded no device time for {name or 'fn'}")
-    return total_us / iters / 1e3
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, seen = 0.0, set()
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                continue
+            seen.add(ev.key[:48])
+            if name is not None and name not in ev.key:
+                continue
+            total_us += getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0))
+        if total_us > 0:
+            return total_us / iters / 1e3
+        print(f"  the profiler recorded no device time for {name or 'fn'} "
+              f"(attempt {attempt} of {attempts}; device records: "
+              f"{sorted(seen)[:8]})", flush=True)
+    fail(f"the profiler recorded no device time for {name or 'fn'} in "
+         f"{attempts} attempts")
 
 
 def bucket_args(eng, S, bucket):
@@ -492,6 +523,33 @@ def profile_train(teng, x2) -> None:
     device_breakdown(prof, wall_us, trainer.last_steps, "BPTT step")
 
 
+def train_turns(teng, x, x2, dev, rounds: int = 2) -> dict:
+    """ms per BPTT step of full-depth Trainer iterations on the two
+    training paths in turns (ABBA, ``rounds`` times): the batched path on
+    float32 pair tables and the recompute path on ``teng`` (no tables). Both
+    trainers draw the same rollout lengths."""
+    tab_eng = build_cell_engine(x, TRAIN_H, pair_tables="float32",
+                                device=dev)
+    runs = {"batched": make_trainer(tab_eng, x2),
+            "recompute": make_trainer(teng, x2)}
+    out = {label: [] for label in runs}
+    for label, (trainer, pool) in runs.items():  # warm-up
+        trainer.run_iteration(0, pool)
+    torch.cuda.synchronize()
+    order = []
+    for _ in range(rounds):
+        order += ["batched", "recompute", "recompute", "batched"]
+    for i, label in enumerate(order):
+        trainer, pool = runs[label]
+        t1 = time.time()
+        loss = trainer.run_iteration(1 + i, pool)
+        torch.cuda.synchronize()
+        if not np.isfinite(loss):
+            fail(f"{label} path: loss not finite in the turns")
+        out[label].append((time.time() - t1) * 1e3 / trainer.last_steps)
+    return out
+
+
 def tab_buckets(eng):
     """Per window-size bucket of a table engine: (first block, end block,
     win_cells, vw, md, w6)."""
@@ -702,11 +760,30 @@ def check_tab_kernels(eng, rng, dev) -> dict:
                              and torch.equal(dk1, dk[b]))
     if not same:
         fail(f"a B = {SURF_B} table launch differs from B = 1 launches")
+    const_field(eng, dev)
     print("  " + ", ".join(f"{n} max abs {errs[n]:.3e} (rel to max "
                            f"{worst[n]:.3e})" for n in TAB_KERNELS)
           + f"; B = {SURF_B} launch == {SURF_B} B = 1 launches: {same}; "
           "pad rows exactly 0", flush=True)
     return errs
+
+
+def const_field(eng, dev) -> None:
+    """A constant state (1.7 in every channel) through the forward table
+    kernel: |gA| must stay below CONST_ATOL, as the gsum of the quantized
+    table cancels it."""
+    S = eng.scatter(torch.full((eng.num_particles, 16), 1.7, device=dev))
+    got = {}
+    for use_kernels in (True, False):
+        ga, _ = PK.fused_perception(eng, S, d_major=True,
+                                    use_kernels=use_kernels)
+        got[use_kernels] = float(eng.gather_back(ga).abs().max())
+    print(f"  constant field ({str(eng.blk_md.dtype)[6:]} tables): max |gA| "
+          f"{got[True]:.3e} with the kernel, {got[False]:.3e} plain "
+          f"(bound {CONST_ATOL})", flush=True)
+    if not got[True] < CONST_ATOL:
+        fail(f"a constant field leaves |gA| = {got[True]:.3e} >= {CONST_ATOL}"
+             " through sph_fwd_tab_kernel")
 
 
 def surface_rollout(params, cfg, eng, A0, nrm, t0, steps, h, *,
@@ -1467,6 +1544,16 @@ def main() -> int:
              f"{rwant}")
     del trainer, pool
 
+    # ---- the two training paths in turns -----------------------------
+    t0 = time.time()
+    turns = train_turns(teng, x, x2, dev)
+    phase("train-turns", t0, "full-depth Trainer iterations in turns "
+          "(batched path on float32 tables, recompute path, recompute, "
+          "batched, ...): ms per BPTT step " + "; ".join(
+              f"{label} {' '.join(f'{v:.3f}' for v in vals)} (median "
+              f"{np.median(vals):.3f})" for label, vals in turns.items())
+          + f" | {smi}")
+
     # ---- the surface path and its table kernels ---------------------
     rows_tab = surface_phases(dev, rng, smi)
 
@@ -1589,11 +1676,14 @@ def main() -> int:
             torch.bmm(a, b) for a, b in args])
         nbytes, ops = tneed[name]
         bound_ms, bound_by = bound(nbytes, ops)
+        before = (f" (first design, recorded: {TAB_RECORDED_MS[name]:.4f} "
+                  f"ms)" if name in TAB_RECORDED_MS else "")
         print(f"  {name} at the training shapes (float32 tables, B="
-              f"{TRAIN_B}, both buckets): {ms:.4f} ms device time, plain "
-              f"{plain_ms:.4f} ms, torch.bmm with the batch's right-hand "
-              f"side {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)",
+              f"{TRAIN_B}, both buckets): {ms:.4f} ms device time{before}, "
+              f"plain {plain_ms:.4f} ms, torch.bmm with the batch's "
+              f"right-hand side {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({100 * bound_ms / ms:.1f}% of it; "
+              f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)",
               flush=True)
         train_tab[name] = {
             "shapes": f"train {IMAGE}x{IMAGE} h={TRAIN_H} float32 tables "
@@ -1603,6 +1693,42 @@ def main() -> int:
             "max_abs_err": ttab_errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
     del tteng, SBt, GBt, Xt, tk, tp, tlib
+
+    # the forward table kernel at the batched gecko's shapes (bfloat16
+    # tables, B = 8, use_alpha on), beside one torch.bmm of the f32 tables
+    # per bucket with the batch's right-hand side
+    geng = build_cell_engine(x, h, pair_tables="bfloat16", device=dev)
+    c_g, m_g, _ = geng.xs.shape
+    SBg = normal_cuda(rng, (BATCH_B, c_g, m_g, 16), dev)
+    GBg = normal_cuda(rng, (BATCH_B, c_g, m_g, 48), dev)
+    gk = tab_calls(geng, SBg, GBg, None, plain=False, use_alpha=True)
+    gp = tab_calls(geng, SBg, GBg, None, plain=True, use_alpha=True)
+    name = "sph_fwd_tab_kernel"
+    g_err = g_rel = 0.0
+    for kk, pp in zip(gk[name](), gp[name]()):
+        for k, q in zip(kk, pp):
+            err = float((k - q).abs().max())
+            g_err = max(g_err, err)
+            g_rel = max(g_rel, err / max(float(q.abs().max()), 1e-30))
+    if not g_rel <= TAB_RTOL:
+        fail(f"{name} vs plain at the batched gecko's shapes: {g_rel:.3e} > "
+             f"{TAB_RTOL} of max")
+    g_ms, g_plain = device_ms(gk[name], name), device_ms(gp[name])
+    glib = [(md.float(), normal_cuda(rng, (md.shape[0], md.shape[2],
+                                           BATCH_B * 16), dev))
+            for *_, md, _ in tab_buckets(geng)]
+    g_lib = device_ms(lambda: [torch.bmm(a, b) for a, b in glib])
+    g_bound, g_by = bound(*work_tab(geng, BATCH_B, use_alpha=True)[name])
+    print(f"  {name} at the batched gecko's shapes (bfloat16 tables, B="
+          f"{BATCH_B}, both buckets): {g_ms:.4f} ms device time, plain "
+          f"{g_plain:.4f} ms, torch.bmm {g_lib:.4f} ms, bound {g_bound:.4f} "
+          f"ms by {g_by}, max abs {g_err:.3e} from plain", flush=True)
+    train_tab[name]["batched"] = {
+        "shapes": f"gecko {IMAGE}x{IMAGE} h={h} bfloat16 tables B={BATCH_B}",
+        "launches": batched_launches[name], "launches_path": "batched",
+        "max_abs_err": g_err, "ms": g_ms, "plain_ms": g_plain,
+        "bound_ms": g_bound, "bound_by": g_by, "library_ms": g_lib}
+    del geng, SBg, GBg, gk, gp, glib
 
     # the update-MLP kernel at the training shapes (float32) and at the
     # batched gecko's (bfloat16 inputs), gated, hid 256; beside the library

@@ -26,56 +26,124 @@
 // state cancels in the forward to f32 rounding.
 //
 // Numerics, as the TPU kernels (pair_kernel.py:175-181): the tables are read
-// in their type and upcast; every product and sum is f32, and the right-hand
-// sides (v_w S_w, v_w X_w, the alive column, the cotangents) stay f32, since
-// quantizing them would bring back the |A| * eps error the gsum removes. No
-// TF32, no fast-math. Pad rows (v_b = 0, gsum = 0, md and w6 rows that only
-// meet pad slots of v = 0) and pad slots come out as exact zeros, and the
-// tail of the last tile is staged as zeros.
+// in their type; every product is f32-accurate and every sum f32, and the
+// right-hand sides (v_w S_w, v_w X_w, the alive column, the cotangents) stay
+// f32, since quantizing them would bring back the |A| * eps error the gsum
+// removes. Pad rows (v_b = 0, gsum = 0, md and w6 rows of zeros) come out as
+// exact zeros.
 //
-// Bound on this card. At the surface path's shapes (stripes, a 25,600-point
-// sphere at h = 0.1: 370 + 124 blocks at W = 576 / 1000, B = 1) the tables
-// are 345 MB in f32 (173 MB in bf16). A rollout step streams md and w6 once
-// in the forward and w6 once in each of the mask and blur passes, ~517 MB in
-// f32, ~0.15 ms at 3.35 TB/s, against ~2 GFLOP of f32 products (~0.03 ms at
-// 67 TFLOP/s): every table pass is bound by BYTES, the table read.
+// ---- sph_fwd_tab_kernel and sph_bwd_tab_kernel -------------------------
 //
-// Design, simple first. The table is the one stream that matters, so every
-// kernel reads it in coalesced 16-byte vectors (4 floats or 8 bf16) and reads
-// it once per launch; what it is multiplied with sits in shared memory.
-//   fwd / bwd: one thread block (256 threads) per (block, sample). A tile of
-//     TW = 32 window slots of md (and w6) is staged, upcast, in shared memory
-//     with a padded row stride (conflict-free per-row reads), beside the
-//     tile's f32 right-hand side; the next tile's chunks and right-hand side
-//     are loaded into registers before the current tile's products, so their
-//     latency hides behind them (1-3 blocks fit an SM). fwd: thread r < D*P
-//     owns md row r and its F sums, the next 64 threads own the w6 rows
-//     (sm). bwd: thread (p, q) owns row p and features 4q..4q+3, summing
-//     over d and w.
-//   mask / blur: matrix-vector shaped, so one warp per 8 rows; a warp reads
-//     its rows 16 bytes a lane straight from device memory (a 512-byte
-//     coalesced load per row and step) against a 256-slot chunk of the
-//     right-hand side staged f-major in shared memory.
-// Left for later: tensor cores (the [D*P, W] @ [W, F] product fits wgmma),
-// TMA / cp.async double buffering of the tiles, and reading the table once
-// for all B samples of a launch (B rides blockIdx.y, so at B > 1 the table is
-// read B times, from L2 when it fits).
+// Bound on this card. At the training shapes (f32 tables, B = 8, D = 3, F =
+// 16; 237 + 79 blocks at W = 536 / 680, 185 MB of tables) one forward call
+// must read md and w6 once (~0.07 ms at 3.35 TB/s); its dense products are
+// 2 * 192 * 16 * 180,752 * 8 = 8.9 GFLOP (~0.13 ms at the 67 TFLOP/s fp32
+// rate), of which only the pairs within h (~12%) are not zero. Bound by
+// BYTES, the table read, once per sample tile (not once per sample).
+//
+// One table read per sample tile. A thread block owns one half of a block's
+// rows (P/2 = 32 rows: the forward's D*32 md rows and 32 w6 rows, the
+// adjoint's D*32 md rows) and a tile of BT = 8 samples; the grid is
+// (2 nb, ceil(B / BT)). The forward is one product [D*32, W] @ [W, BT*F]
+// per thread block plus [32, W] @ [W, BT] for w6; the adjoint is [32, D*W]
+// @ [D*W, BT*F], K running over (w, d). Halving the rows (rather than one
+// thread block a table block) gives 474 + 158 thread blocks of the forward
+// at the training shapes, two resident on each of the 132 SMs.
+//
+// Tensor cores at f32 accuracy: mma.sync.m16n8k8 TF32 with the operands
+// split, "3xTF32": x = big + small, big and small x and x - big rounded to
+// TF32 (to nearest, ties away, by integer arithmetic: cvt.rna.tf32.f32
+// costs more); acc += A_small B_big + A_big B_small + A_big B_big. A bf16
+// table entry is exact in TF32, so bf16 tables take 2 products (A B_small +
+// A B_big). One TF32 product would leave an error of |A| 2^-11 that the
+// gsum cannot cancel (tests/test_torch_tf32_split.py emulates both on the
+// CPU). The tensor core's f32 sums are truncated, not rounded: each k8
+// step's products go into fresh sums, the small terms and the big one
+// apart, which are added to the running sums in round-to-nearest f32 (see
+// product()). The split is made in registers as the fragments are loaded;
+// wgmma, whose TF32 operands come from shared memory, K-major, would need
+// the split, transposed right-hand side staged there twice and M tiles of
+// 64 rows (ROADMAP). Most 16 x 8 tiles of a table are all zero (only the
+// pairs within h are not): a warp vote on the A fragment skips their split
+// and products, which would add exact zeros; which tiles are skipped
+// depends on the table only.
+//
+// A ring of NS = 3 shared-memory stages (more for B <= 2) fed by the TMA. Per
+// stage one warp posts the stage's byte count on its "full" mbarrier and
+// issues one TMA copy of the md tile (a 4D map [nb*D, 2, 32, W], box [D, 1,
+// 32, TW]: the D row groups of this half in one request), one of the w6 tile
+// (the same view, one group), both with an L2 evict-first policy so that the
+// state and the cotangents, read by ~9 windows each, stay in L2 while the
+// tables stream past, and one bulk copy of v_w; then its lane c copies window
+// cell c of the stage for the tile's samples, one TMA box of a 4D map of the
+// cell-layout tensor ([B, C, R, E]: a sample's cell is one contiguous run of 8
+// x F floats of S, 8 x D*F of G, seen as R rows of E <= 256 floats, so that
+// the TMA makes few, long requests). Warp 0 issues the first NS stages; after
+// that the warp that leaves a stage last (a count in shared memory) refills
+// its slot at once, so no warp waits for a free one. The window's cell indices
+// are read into shared memory at the start. Copies past W are not made: the
+// TMA fills the table tile's tail, and the box's samples past B, with zeros,
+// and the warps stop at the last valid 8-slot step. Table tiles are TW slots
+// wide (forward 32, adjoint 16) and stored with the TMA's 128 B / 64 B / 32 B
+// swizzle (the tile row's width), which makes the A-fragment reads
+// conflict-free.
+//
+// Warps: 8, as 2 (rows) x 4 (sample pairs). A warp owns 16*D md rows (D m16
+// tiles) in the forward, 16 rows in the adjoint, and the 4 n8 tiles of its
+// two samples; v_w is applied and the right-hand side split while the B
+// fragments are loaded. A warp whose samples lie past B (a ragged last
+// tile, or B < 8) skips their products. The forward's w6 product runs on
+// the tensor cores too, one n8 tile of the 8 samples' alive columns: warp
+// (m, n) takes w6 tile m at the k8 step n of each stage, and the 4 partial
+// sums are added in a fixed order at the end.
+//
+// Per thread block (3 stages): forward D = 3 f32 102,400 B of dynamic
+// shared memory (and the window's cell indices) + 4 KB static, 128
+// registers; adjoint D = 3 f32 96,256 B, ~80 registers: two blocks an SM,
+// 8 warps each (with 9, two blocks' odd warps share one sub-partition's
+// 16 K registers and ptxas allows 96 a thread, which spilled). chip_smoke.py
+// prints ptxas's counts. The sums of one sample do not depend on B or on
+// the sample's place in its tile (the k order is the block's and W's only),
+// so one launch of B samples equals B launches of one, bit for bit.
+//
+// ---- sph_mask_tab_kernel and sph_blur_tab_kernel -----------------------
+//
+// Matrix-vector shaped: one thread block (256 threads) per (block, sample);
+// one warp per 8 rows reads its rows 16 bytes a lane straight from device
+// memory (a 512-byte coalesced load per row and step) against a 256-slot
+// chunk of the right-hand side staged f-major in shared memory. They read
+// the table once per sample (the sample tiles above would read it once per
+// tile; ROADMAP).
 
+#include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <set>
+#include <tuple>
+#include <utility>
+
+
 namespace {
 
 constexpr int P = 64;          // block rows
-constexpr int THREADS = 256;
-constexpr int TW = 32;         // window slots per staged table tile
-constexpr int LD = TW + 1;     // padded shared row stride
+constexpr int THREADS = 256;   // mask, blur
 constexpr int CH = THREADS;    // window slots per staged chunk (mask, blur)
 constexpr int WARPS = THREADS / 32;
 constexpr int RPW = P / WARPS; // rows per warp (mask, blur)
 
-// 16 bytes of table -> V floats
+// fwd / bwd
+constexpr int FF = 16;         // features
+constexpr int BT = 8;          // samples per tile (and an n8 tile's)
+constexpr int HALF = P / 2;    // rows of a block per thread block
+constexpr int CELL = 8;        // slots per cell (M): one contiguous run
+constexpr int WARPS_T = 8;     // warps of a thread block (fwd / bwd)
+constexpr int TAB_THREADS = WARPS_T * 32;
+
+// 16 bytes of table -> V floats (mask, blur)
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int N = 4; };
 template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
@@ -99,255 +167,624 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* out,
     }
 }
 
-// One TW-slot tile of ROWS table rows (row stride W), held in registers
-// between its load and its store to shared memory: each thread owns
-// ceil(ROWS * TW / V / THREADS) 16-byte chunks. Rows below SPLIT come from
-// `a`, the rest from `b` (the forward stages md and w6 as one tile). The
-// loads of the next tile are issued before the current tile's products and
-// land while they run.
-template <typename T, int ROWS, int SPLIT>
-struct TableTile {
-    static constexpr int V = Vec<T>::N;
-    static constexpr int CPR = TW / V;  // 16-byte chunks per row and tile
-    static constexpr int N = (ROWS * CPR + THREADS - 1) / THREADS;
-    uint4 raw[N];
-
-    __device__ __forceinline__ void load(const T* __restrict__ a,
-                                         const T* __restrict__ b, int W,
-                                         int t0) {
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-            const int i = threadIdx.x + k * THREADS;
-            const int r = i / CPR;
-            const int w = t0 + (i % CPR) * V;
-            raw[k] = make_uint4(0u, 0u, 0u, 0u);  // slots at or past W: 0
-            if (i < ROWS * CPR && w < W) {
-                const T* row = r < SPLIT ? a + (size_t)r * W
-                                         : b + (size_t)(r - SPLIT) * W;
-                raw[k] = *reinterpret_cast<const uint4*>(row + w);
-            }
-        }
-    }
-
-    __device__ __forceinline__ void store(float (*dst)[LD]) const {
-#pragma unroll
-        for (int k = 0; k < N; ++k) {
-            const int i = threadIdx.x + k * THREADS;
-            if (i < ROWS * CPR) {
-                float v[V];
-                unpack16(raw[k], v, T());
-#pragma unroll
-                for (int e = 0; e < V; ++e)
-                    dst[i / CPR][(i % CPR) * V + e] = v[e];
-            }
-        }
-    }
-};
-
 __device__ __forceinline__ size_t win_row(const int* __restrict__ wc, int w,
                                           int M) {
     return (size_t)wc[w / M] * M + (w % M);
 }
 
-template <typename T, int D, int F>
-__global__ void __launch_bounds__(THREADS) sph_fwd_tab_kernel(
-    const T* __restrict__ md,          // [nb, D*P, W]
-    const T* __restrict__ w6,          // [nb, P, W]
+// ---- shared-memory layout of one stage -----------------------------------
+
+// Forward (FWD) or adjoint stage of table type T at D for sample tiles of
+// BTC samples: the md tile [D*32][TW], the w6 tile [32][TW] (forward), the
+// window's state (K = F floats a slot) or cotangents (K = D*F) as TW / 8
+// cell boxes [nbx][8][K] of the tile's nbx = min(B, BTC) samples, and v_w
+// (forward). Table tiles start 1024-byte aligned, as the 128 B swizzle
+// needs; cell boxes 128-byte aligned, as the TMA needs. NS stages: 3 with
+// tiles of 8 samples (two blocks an SM), more with tiles of 2 (B <= 2, the
+// surface path: the stages are smaller, and more of them in flight hide
+// the copies' latency when few warps have products to do).
+template <typename T, int D, bool FWD, int BTC>
+struct Stage {
+    static constexpr int TW = FWD ? 32 : 16;
+    static constexpr int ROWB = TW * (int)sizeof(T);  // 128, 64 or 32
+    static constexpr int K = FWD ? FF : D * FF;       // floats per slot
+    static constexpr int MD = 0;
+    static constexpr int W6 = MD + D * HALF * ROWB;
+    static constexpr int RHS = W6 + (FWD ? HALF * ROWB : 0);
+    static constexpr int V = RHS + BTC * TW * K * 4;
+    static constexpr int END = V + (FWD ? TW * 4 : 0);
+    static constexpr int BYTES = (END + 1023) / 1024 * 1024;
+    static constexpr int NS = BTC == BT ? 3 : FWD ? 5 : 8;
+    // dynamic shared memory of a launch: the stages, the window's Wu cell
+    // indices and 1024 bytes of alignment slack
+    static constexpr int smem(int Wu) {
+        return 1024 + NS * BYTES + (Wu * 4 + 15) / 16 * 16;
+    }
+    static_assert(W6 % 1024 == 0 && RHS % 1024 == 0 && V % 16 == 0
+                  && CELL * K * 4 % 128 == 0, "tile alignment");
+};
+
+// A lane's addressing of a TMA-swizzled table tile whose rows are ROWB
+// bytes (CU_TENSOR_MAP_SWIZZLE_{128,64,32}B): the 16-byte chunk index of a
+// byte offset is XORed with its bits 7.. (128 B: bits 7-9, 64 B: 7-8, 32 B:
+// 7). For the A fragment of an m16 tile starting at a row that is a
+// multiple of 16, rows g and g + 8 get the same XOR, so a lane keeps the
+// in-row offsets of its columns t and t + 4; a k8 step at k0 XORs in
+// k0 * sizeof(T), whose bits do not overlap theirs.
+template <typename T, int ROWB>
+struct TileLane {
+    uint32_t x0, x4;
+
+    __device__ __forceinline__ TileLane(int g, int t) {
+        const uint32_t xs = ((uint32_t)(g * ROWB) >> 7 & (ROWB / 16 - 1)) << 4;
+        x0 = (uint32_t)(t * sizeof(T)) ^ xs;
+        x4 = (uint32_t)((t + 4) * sizeof(T)) ^ xs;
+    }
+};
+
+// A table entry as f32 (a bf16 entry is exact in f32 and in TF32)
+template <typename T>
+__device__ __forceinline__ float tab_ld(const unsigned char* p) {
+    if constexpr (sizeof(T) == 4) {
+        return *reinterpret_cast<const float*>(p);
+    } else {
+        return __uint_as_float(
+            (uint32_t)*reinterpret_cast<const unsigned short*>(p) << 16);
+    }
+}
+
+// ---- PTX: mbarriers, bulk and tensor copies, TF32 mma --------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t a = smem_u32(bar);
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+    uint64_t pol;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                 : "=l"(pol));
+    return pol;
+}
+
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, int c3,
+                                       uint64_t* bar, uint64_t pol) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes.L2::cache_hint [%0], [%1, {%2, %3, %4, %5}], [%6], %7;"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)), "l"(pol)
+        : "memory");
+}
+
+// a cell box of the state / cotangent map (cell, first sample): no cache
+// hint, they should stay
+__device__ __forceinline__ void tma_cell(void* dst, const CUtensorMap* map,
+                                         int cell, int y0, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+        "::bytes [%0], [%1, {%2, %2, %3, %4}], [%5];"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(0), "r"(cell), "r"(y0), "r"(smem_u32(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero, as
+// cvt.rna.tf32.f32) by integer arithmetic on the full-rate ALUs
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small in TF32: big = rna(x), small = rna(x - big), to ~2^-22 of x
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+    big = rna_tf32(x);
+    small = rna_tf32(x - __uint_as_float(big));
+}
+
+// c += a b
+__device__ __forceinline__ void mma_tf32_acc(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a b: a the m16 x k8 A fragment (a0 (g, t), a1 (g+8, t), a2 (g, t+4),
+// a3 (g+8, t+4)), b the k8 x n8 B fragment (b0 (t, g), b1 (t+4, g)), c the
+// m16 x n8 sums (c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)),
+// g = lane / 4, t = lane % 4
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+    asm(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.0f));
+}
+
+// The A fragment of the m16 tile at rows r0.. (a multiple of 16) and the k8
+// step at k0 of a table tile. load() reads it (into big, as f32 bits) and
+// tells, warp-wide, whether any entry is nonzero: most 16 x 8 tiles of a
+// table are all zero (only pairs within h are not), and their products add
+// exact zeros, so they are skipped; which are skipped depends on the table
+// only. split_parts() then makes big + small (f32 tables; a bf16 entry
+// is exact).
+template <typename T, int ROWB>
+struct AFrag {
+    uint32_t big[4], small[4];
+
+    __device__ __forceinline__ bool load(const unsigned char* tile, int r0,
+                                         int k0, int g,
+                                         const TileLane<T, ROWB>& ln) {
+        const unsigned char* row = tile + (r0 + g) * ROWB;
+        const uint32_t k = (uint32_t)(k0 * sizeof(T));
+        big[0] = __float_as_uint(tab_ld<T>(row + (k ^ ln.x0)));
+        big[1] = __float_as_uint(tab_ld<T>(row + 8 * ROWB + (k ^ ln.x0)));
+        big[2] = __float_as_uint(tab_ld<T>(row + (k ^ ln.x4)));
+        big[3] = __float_as_uint(tab_ld<T>(row + 8 * ROWB + (k ^ ln.x4)));
+        // nonzero but for the sign bit (-0 is a zero)
+        return __any_sync(0xffffffffu,
+                          ((big[0] | big[1] | big[2] | big[3]) << 1) != 0);
+    }
+
+    __device__ __forceinline__ void split_parts() {
+        if constexpr (sizeof(T) == 4) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                split(__uint_as_float(big[i]), big[i], small[i]);
+        }
+    }
+};
+
+// The products of a k8 step in two passes, each into c from zero: pass 0
+// the small terms (A_small B_big + A_big B_small for f32 tables, A B_small
+// for bf16), pass 1 the big one (A_big B_big). The tensor core's f32 sums
+// are truncated, and an addend much smaller than the sum loses its low
+// bits, so the caller adds each pass to its running sums in
+// round-to-nearest f32; the small terms' truncation is ~2^-11 of theirs.
+// Chaining the passes in the tensor core (over the window, or the 3
+// products of a step) left ~1e-6 of the largest output, which 16 chaotic
+// surface rollout steps amplified past 1e-4.
+template <typename T, int ROWB>
+__device__ __forceinline__ void product(int pass, float* c,
+                                        const AFrag<T, ROWB>& a,
+                                        const uint32_t* bb,
+                                        const uint32_t* bs) {
+    if (pass == 1) {
+        mma_tf32(c, a.big, bb[0], bb[1]);
+    } else if constexpr (sizeof(T) == 4) {
+        mma_tf32(c, a.small, bb[0], bb[1]);
+        mma_tf32_acc(c, a.big, bs[0], bs[1]);
+    } else {
+        mma_tf32(c, a.big, bs[0], bs[1]);
+    }
+}
+
+__device__ __forceinline__ void add4(float* acc, const float* c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += c[e];
+}
+
+// Stage ring: the dynamic shared memory, 1024-byte aligned (NS stages of
+// `bytes`, then the block's Wu window cells, read once at the start so that
+// no copy waits on a load of its cell index); per stage a "full" mbarrier
+// (the copies landed) and a count of the warps done with it. The warp that
+// finishes a stage last refills its slot with the stage NS ahead, at
+// once: no warp waits for a free slot.
+template <int NS>
+struct Ring {
+    unsigned char* base;
+    uint64_t* full;
+    int* done;
+    int* cells;
+
+    __device__ __forceinline__ void init(unsigned char* dyn, int bytes,
+                                         uint64_t* bars, int* counts,
+                                         const int* __restrict__ wc, int Wu) {
+        const uint32_t a = smem_u32(dyn);
+        base = dyn + ((1024u - (a & 1023u)) & 1023u);
+        full = bars;
+        done = counts;
+        cells = reinterpret_cast<int*>(base + NS * bytes);
+        for (int i = threadIdx.x; i < Wu; i += blockDim.x) cells[i] = wc[i];
+        if (threadIdx.x < NS) {
+            bar_init(&full[threadIdx.x], 1);
+            done[threadIdx.x] = 0;
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        __syncthreads();
+    }
+
+    // After a warp's last read of slot s: true in the warp that is the last
+    // of the block to leave it (which may then overwrite it)
+    __device__ __forceinline__ bool leave(int s, int lane) {
+        __syncwarp();
+        int last = 0;
+        if (lane == 0) {
+            __threadfence_block();
+            last = atomicAdd(&done[s], 1) == WARPS_T - 1;
+            if (last) done[s] = 0;
+            __threadfence_block();
+        }
+        last = __shfl_sync(0xffffffffu, last, 0);
+        if (last)  // the block's reads before the copy engine's writes
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        return last;
+    }
+};
+
+template <typename T, int D, int BTC>
+__global__ void __launch_bounds__(TAB_THREADS, 2) sph_fwd_tab_kernel(
+    const __grid_constant__ CUtensorMap md_map,  // md as [nb*D, 2, 32, W]
+    const __grid_constant__ CUtensorMap w6_map,  // w6 as [nb, 2, 32, W]
+    const __grid_constant__ CUtensorMap s_map,   // S as [B, C*M, F]
     const float* __restrict__ gsum_b,  // [nb, P, D]
-    const float* __restrict__ S,       // [B][C*M, F] cell-layout state
-    long long s_bs,                    // S's sample stride (elements)
     const float* __restrict__ ab,      // [B][nb, P, F] the blocks' own rows
     long long ab_bs,
     const float* __restrict__ vw_b,    // [nb, W]
     const int* __restrict__ win,       // [nb, Wu] window cells
-    int M, int W, int Wu, float sig_w, float sig_g, float thr,
+    int B, int W, int Wu, float sig_w, float sig_g, float thr,
     int use_alpha,
     float* __restrict__ ga,            // [B, nb, P, D*F]
     float* __restrict__ sm)            // [B, nb, P]
 {
-    constexpr int R = D * P;  // md rows; rows R..R+P-1 of s_t hold w6
-    static_assert(R + P <= THREADS, "one thread per table row");
-    static_assert(F % 4 == 0, "float4 right-hand side rows");
-    __shared__ float s_t[R + P][LD];
-    __shared__ __align__(16) float s_rhs[TW][F];  // v_w S_w
-    __shared__ float s_col[TW];                   // sig_w v_w alive_w
+    using L = Stage<T, D, true, BTC>;
+    constexpr int TW = L::TW;
+    constexpr int NS = L::NS;
+    extern __shared__ unsigned char dyn[];
+    __shared__ uint64_t bars[NS];
+    __shared__ int counts[NS];
+    // the w6 product's partial sums: [k phase][m16 tile][lane][4]
+    __shared__ float4 red[4][2][32];
+    Ring<NS> ring;
+    ring.init(dyn, L::BYTES, bars, counts, win + (size_t)(blockIdx.x / 2) * Wu,
+              Wu);
 
-    const int b = blockIdx.x;
-    const int nb = gridDim.x;
-    const int y = blockIdx.y;
-    const int tid = threadIdx.x;
-    const T* mdb = md + (size_t)b * R * W;
-    const T* w6b = w6 + (size_t)b * P * W;
-    const float* vw = vw_b + (size_t)b * W;
-    const int* wc = win + (size_t)b * Wu;
-    const float* Sy = S + (size_t)y * s_bs;
+    const int nb = gridDim.x / 2;
+    const int b = blockIdx.x / 2;
+    const int hh = blockIdx.x % 2;        // rows hh*32 .. hh*32+31
+    const int y0 = blockIdx.y * BTC;      // first sample of the tile
+    const int nbt = min(BTC, B - y0);     // samples of this tile
+    const int nbx = min(BTC, B);          // samples a cell box holds
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int nt = (W + TW - 1) / TW;
 
-    float acc[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-
-    // per tile and thread: table chunks, RK right-hand-side values (v_w and
-    // the raw state) and, for the first TW threads, the column's inputs
-    constexpr int RK = TW * F / THREADS;
-    static_assert(TW * F % THREADS == 0 && TW <= THREADS, "rhs split");
-    TableTile<T, R + P, R> tile;
-    float rv[RK], rs[RK], cv = 0.0f, ca = 0.0f;
-    auto prefetch = [&](int t0) {
-        tile.load(mdb, w6b, W, t0);
-#pragma unroll
-        for (int k = 0; k < RK; ++k) {
-            const int i = tid + k * THREADS;
-            const int w = t0 + i / F;
-            rv[k] = w < W ? vw[w] : 0.0f;
-            rs[k] = w < W ? Sy[win_row(wc, w, M) * F + i % F] : 0.0f;
+    // ---- the copies of stage k into slot k % NS, by one warp ----
+    const uint64_t pol = evict_first_policy();
+    auto issue = [&](int k) {
+        const int s = k % NS;
+        const int t0 = k * TW;
+        const int nv = min(TW, W - t0);
+        unsigned char* st = ring.base + s * L::BYTES;
+        const int cell = lane < nv / CELL ? ring.cells[t0 / CELL + lane] : 0;
+        if (lane == 0) {
+            bar_expect(&ring.full[s],
+                       L::RHS + (nv / CELL) * nbx * CELL * FF * 4 + nv * 4);
+            tma_4d(st + L::MD, &md_map, t0, 0, hh, b * D, &ring.full[s], pol);
+            tma_4d(st + L::W6, &w6_map, t0, 0, hh, b, &ring.full[s], pol);
+            bulk_copy(st + L::V, vw_b + (size_t)b * W + t0, nv * 4,
+                      &ring.full[s]);
         }
-        if (tid < TW) {
-            const int w = t0 + tid;
-            cv = w < W ? vw[w] : 0.0f;
-            ca = (w < W && use_alpha) ? Sy[win_row(wc, w, M) * F + 3] : 0.0f;
-        }
+        __syncwarp();
+        if (lane < nv / CELL)  // lane c: window cell c of the tile's samples
+            tma_cell(st + L::RHS + lane * nbx * CELL * FF * 4, &s_map, cell,
+                     y0, &ring.full[s]);
     };
+    if (warp == 0)
+        for (int k = 0; k < min(NS, nt); ++k) issue(k);
 
-    prefetch(0);
-    for (int t0 = 0; t0 < W; t0 += TW) {
-        __syncthreads();  // the previous tile is consumed
-        tile.store(s_t);
+    // ---- products ----
+    const int wm = warp / 4;  // md m16 tiles wm*D .. wm*D+D-1; w6 tile wm
+    const int wn = warp % 4;  // samples 2wn, 2wn+1; w6 k8 step wn a stage
+    const int s0 = 2 * wn;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const TileLane<T, L::ROWB> ln(g, t);
+    float acc[D][4][4];
 #pragma unroll
-        for (int k = 0; k < RK; ++k) {
-            const int i = tid + k * THREADS;
-            s_rhs[i / F][i % F] = rv[k] * rs[k];
-        }
-        if (tid < TW) {
-            const bool alive = use_alpha ? ca > thr : cv > 0.0f;
-            s_col[tid] = alive ? sig_w * cv : 0.0f;
-        }
-        __syncthreads();
-        if (t0 + TW < W) prefetch(t0 + TW);  // in flight during the products
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+    float acc6[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-        if (tid < R) {
-            for (int j = 0; j < TW; ++j) {
-                const float m = s_t[tid][j];
-                const float4* rr = reinterpret_cast<const float4*>(s_rhs[j]);
+    for (int it = 0; it < nt; ++it) {
+        const int s = it % NS;
+        const int nv = min(TW, W - it * TW);
+        const unsigned char* st = ring.base + s * L::BYTES;
+        const float* rhs = reinterpret_cast<const float*>(st + L::RHS);
+        const float* vv = reinterpret_cast<const float*>(st + L::V);
+        bar_wait(&ring.full[s], (it / NS) & 1);
+
+        if (s0 < nbt) {
 #pragma unroll
-                for (int q = 0; q < F / 4; ++q) {
-                    const float4 v = rr[q];
-                    acc[4 * q] += m * v.x;
-                    acc[4 * q + 1] += m * v.y;
-                    acc[4 * q + 2] += m * v.z;
-                    acc[4 * q + 3] += m * v.w;
+            for (int k0 = 0; k0 < TW; k0 += 8) {
+                if (k0 >= nv) break;
+                AFrag<T, L::ROWB> a[D];
+                bool nz[D], any = false;
+#pragma unroll
+                for (int i = 0; i < D; ++i) {
+                    nz[i] = a[i].load(st + L::MD, (wm * D + i) * 16, k0, g,
+                                      ln);
+                    any |= nz[i];
+                }
+                if (!any) continue;
+                const float v0 = vv[k0 + t];
+                const float v1 = vv[k0 + t + 4];
+                // cell box k0 / 8: (sample, slot, f) at (s * 8 + slot) * F
+                const float* box = rhs + (k0 / CELL) * nbx * CELL * FF;
+                uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const float* col = box + ((s0 + j / 2) * CELL + t) * FF
+                        + (j % 2) * 8 + g;
+                    split(v0 * col[0], bb[j][0], bs[j][0]);
+                    split(v1 * col[4 * FF], bb[j][1], bs[j][1]);
+                }
+#pragma unroll
+                for (int i = 0; i < D; ++i) {
+                    if (!nz[i]) continue;
+                    a[i].split_parts();
+                    // pass by pass: 4 independent products between two
+                    // into the same registers
+                    float c[4][4];
+#pragma unroll
+                    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            if (s0 + j / 2 < nbt)
+                                product(pass, c[j], a[i], bb[j], bs[j]);
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            if (s0 + j / 2 < nbt) add4(acc[i][j], c[j]);
+                    }
                 }
             }
-        } else if (tid < R + P) {
-            for (int j = 0; j < TW; ++j) acc[0] += s_t[tid][j] * s_col[j];
         }
+        // w6 @ column, on the tensor cores as well: this warp's k8 step of
+        // the stage, its m16 tile of w6, the n8 tile of the 8 samples
+        // (columns past nbt are 0 and not stored)
+        const int k0 = wn * 8;
+        AFrag<T, L::ROWB> a6;
+        if (k0 < nv && a6.load(st + L::W6, wm * 16, k0, g, ln)) {
+            uint32_t cb[2], cs[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int k = k0 + t + 4 * h;
+                const float v = vv[k];
+                const bool alive = g < nbt && (use_alpha
+                    ? rhs[((k / CELL) * nbx + g) * CELL * FF
+                          + (k % CELL) * FF + 3] > thr
+                    : v > 0.0f);
+                split(alive ? sig_w * v : 0.0f, cb[h], cs[h]);
+            }
+            a6.split_parts();
+#pragma unroll
+            for (int pass = 0; pass < 2; ++pass) {
+                float c6[4];
+                product(pass, c6, a6, cb, cs);
+                add4(acc6, c6);
+            }
+        }
+        if (ring.leave(s, lane) && it + NS < nt) issue(it + NS);
     }
 
-    const size_t blk = (size_t)y * nb + b;  // output block of this sample
-    if (tid < R) {
-        const int d = tid / P;
-        const int p = tid % P;
-        const float g = gsum_b[((size_t)b * P + p) * D + d];
-        const float* abr = ab + (size_t)y * ab_bs + ((size_t)b * P + p) * F;
-        float4* out = reinterpret_cast<float4*>(
-            ga + (blk * P + p) * (D * F) + d * F);
+    // ---- epilogue: sig_g acc - S_b gsum_d, d-major ----
 #pragma unroll
-        for (int q = 0; q < F / 4; ++q) {
-            out[q] = make_float4(sig_g * acc[4 * q] - abr[4 * q] * g,
-                                 sig_g * acc[4 * q + 1] - abr[4 * q + 1] * g,
-                                 sig_g * acc[4 * q + 2] - abr[4 * q + 2] * g,
-                                 sig_g * acc[4 * q + 3] - abr[4 * q + 3] * g);
+    for (int i = 0; i < D; ++i) {
+        const int mt = wm * D + i;
+        const int d = mt / 2;
+#pragma unroll
+        for (int up = 0; up < 2; ++up) {
+            const int p = hh * HALF + (mt % 2) * 16 + g + 8 * up;
+            const size_t row = (size_t)b * P + p;
+            const float gs = gsum_b[row * D + d];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int smp = s0 + j / 2;
+                if (smp >= nbt) continue;
+                const int f = (j % 2) * 8 + 2 * t;
+                const float* abr = ab + (size_t)(y0 + smp) * ab_bs
+                    + row * FF + f;
+                const size_t blk = (size_t)(y0 + smp) * nb + b;
+                *reinterpret_cast<float2*>(
+                    ga + (blk * P + p) * (D * FF) + d * FF + f) =
+                    make_float2(sig_g * acc[i][j][2 * up] - abr[0] * gs,
+                                sig_g * acc[i][j][2 * up + 1]
+                                    - abr[1] * gs);
+            }
         }
-    } else if (tid < R + P) {
-        sm[blk * P + (tid - R)] = acc[0];
+    }
+    // ---- sm: the 4 k phases' partial sums, added in a fixed order ----
+    red[wn][wm][lane] = make_float4(acc6[0], acc6[1], acc6[2], acc6[3]);
+    __syncthreads();
+    const int r = threadIdx.x / BT;      // row of the half, 0..31
+    const int smp = threadIdx.x % BT;    // sample of the tile
+    if (smp < nbt) {
+        // (row r, column smp) is c[2 * up + smp % 2] of lane
+        // (r % 8) * 4 + smp / 2 of the tile r / 16, up = r % 16 / 8
+        const int src = (r % 8) * 4 + smp / 2;
+        const int e = 2 * (r % 16 / 8) + smp % 2;
+        float v = 0.0f;
+#pragma unroll
+        for (int ph = 0; ph < 4; ++ph) {
+            const float4 c4 = red[ph][r / 16][src];
+            v += e == 0 ? c4.x : e == 1 ? c4.y : e == 2 ? c4.z : c4.w;
+        }
+        sm[((size_t)(y0 + smp) * nb + b) * P + hh * HALF + r] = v;
     }
 }
 
-template <typename T, int D, int F>
-__global__ void __launch_bounds__(THREADS) sph_bwd_tab_kernel(
-    const T* __restrict__ md,          // [nb, D*P, W]
+template <typename T, int D, int BTC>
+__global__ void __launch_bounds__(TAB_THREADS, 2) sph_bwd_tab_kernel(
+    const __grid_constant__ CUtensorMap md_map,  // md as [nb*D, 2, 32, W]
+    const __grid_constant__ CUtensorMap g_map,   // G as [B, C*M, D*F]
     const float* __restrict__ vs_b,    // [nb, P] the rows' own volumes
     const float* __restrict__ gsum_b,  // [nb, P, D]
     const float* __restrict__ gb,      // [B][nb, P, D*F] the rows' cotangents
     long long gb_bs,
-    const float* __restrict__ Gc,      // [B][C*M, D*F] cotangent of gA
-    long long g_bs,
     const int* __restrict__ win,       // [nb, Wu]
-    int M, int W, int Wu, float sig_g,
+    int B, int W, int Wu, float sig_g,
     float* __restrict__ da)            // [B, nb, P, F]
 {
-    constexpr int R = D * P;
-    constexpr int DF = D * F;
-    constexpr int Q = F / 4;  // feature quads: thread (p, q) owns 4q..4q+3
-    static_assert(P * Q == THREADS, "one thread per row and feature quad");
-    __shared__ float s_t[R][LD];
-    __shared__ __align__(16) float s_G[TW][DF];
+    using L = Stage<T, D, false, BTC>;
+    constexpr int TW = L::TW;
+    constexpr int NS = L::NS;
+    constexpr int DF = D * FF;
+    extern __shared__ unsigned char dyn[];
+    __shared__ uint64_t bars[NS];
+    __shared__ int counts[NS];
+    Ring<NS> ring;
+    ring.init(dyn, L::BYTES, bars, counts, win + (size_t)(blockIdx.x / 2) * Wu,
+              Wu);
 
-    const int b = blockIdx.x;
-    const int nb = gridDim.x;
-    const int y = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int p = tid % P;
-    const int q = tid / P;
-    const T* mdb = md + (size_t)b * R * W;
-    const int* wc = win + (size_t)b * Wu;
-    const float* Gy = Gc + (size_t)y * g_bs;
+    const int nb = gridDim.x / 2;
+    const int b = blockIdx.x / 2;
+    const int hh = blockIdx.x % 2;
+    const int y0 = blockIdx.y * BTC;
+    const int nbt = min(BTC, B - y0);     // samples of this tile
+    const int nbx = min(BTC, B);          // samples a cell box holds
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int nt = (W + TW - 1) / TW;
 
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    constexpr int GK = TW * DF / THREADS;  // cotangent values per thread
-    static_assert(TW * DF % THREADS == 0, "cotangent split");
-    TableTile<T, R, R> tile;
-    float gv[GK];
-    auto prefetch = [&](int t0) {
-        tile.load(mdb, mdb, W, t0);
-#pragma unroll
-        for (int k = 0; k < GK; ++k) {
-            const int i = tid + k * THREADS;
-            const int w = t0 + i / DF;
-            gv[k] = w < W ? Gy[win_row(wc, w, M) * DF + i % DF] : 0.0f;
+    // ---- the copies (as in the forward) ----
+    const uint64_t pol = evict_first_policy();
+    auto issue = [&](int k) {
+        const int s = k % NS;
+        const int t0 = k * TW;
+        const int ncell = min(TW, W - t0) / CELL;
+        unsigned char* st = ring.base + s * L::BYTES;
+        const int cell = lane < ncell ? ring.cells[t0 / CELL + lane] : 0;
+        if (lane == 0) {
+            bar_expect(&ring.full[s], L::RHS + ncell * nbx * CELL * DF * 4);
+            tma_4d(st + L::MD, &md_map, t0, 0, hh, b * D, &ring.full[s], pol);
         }
+        __syncwarp();
+        if (lane < ncell)
+            tma_cell(st + L::RHS + lane * nbx * CELL * DF * 4, &g_map, cell,
+                     y0, &ring.full[s]);
     };
+    if (warp == 0)
+        for (int k = 0; k < min(NS, nt); ++k) issue(k);
 
-    prefetch(0);
-    for (int t0 = 0; t0 < W; t0 += TW) {
-        __syncthreads();
-        tile.store(s_t);
+    // ---- products ----
+    const int wm = warp / 4;              // rows wm*16 .. wm*16+15 of the half
+    const int s0 = 2 * (warp % 4);
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const TileLane<T, L::ROWB> ln(g, t);
+    float acc[4][4];
 #pragma unroll
-        for (int k = 0; k < GK; ++k) {
-            const int i = tid + k * THREADS;
-            s_G[i / DF][i % DF] = gv[k];
-        }
-        __syncthreads();
-        if (t0 + TW < W) prefetch(t0 + TW);  // in flight during the products
-        for (int j = 0; j < TW; ++j) {
-            const float4* gr = reinterpret_cast<const float4*>(s_G[j]);
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-            for (int d = 0; d < D; ++d) {
-                const float m = s_t[d * P + p][j];
-                const float4 g = gr[d * Q + q];
-                acc[0] += m * g.x;
-                acc[1] += m * g.y;
-                acc[2] += m * g.z;
-                acc[3] += m * g.w;
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+    for (int it = 0; it < nt; ++it) {
+        const int s = it % NS;
+        const int nv = min(TW, W - it * TW);
+        const unsigned char* st = ring.base + s * L::BYTES;
+        const float* rhs = reinterpret_cast<const float*>(st + L::RHS);
+        bar_wait(&ring.full[s], (it / NS) & 1);
+        if (s0 < nbt) {
+#pragma unroll
+            for (int k0 = 0; k0 < TW; k0 += 8) {
+                if (k0 >= nv) break;
+#pragma unroll
+                for (int d = 0; d < D; ++d) {
+                    AFrag<T, L::ROWB> a;
+                    if (!a.load(st + L::MD, d * HALF + wm * 16, k0, g, ln))
+                        continue;
+                    a.split_parts();
+                    uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const float* col = rhs
+                            + (((k0 / CELL) * nbx + s0 + j / 2) * CELL + t)
+                                * DF
+                            + d * FF + (j % 2) * 8 + g;
+                        split(col[0], bb[j][0], bs[j][0]);
+                        split(col[4 * DF], bb[j][1], bs[j][1]);
+                    }
+                    float c[4][4];
+#pragma unroll
+                    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            if (s0 + j / 2 < nbt)
+                                product(pass, c[j], a, bb[j], bs[j]);
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            if (s0 + j / 2 < nbt) add4(acc[j], c[j]);
+                    }
+                }
             }
         }
+        if (ring.leave(s, lane) && it + NS < nt) issue(it + NS);
     }
 
-    const size_t row = (size_t)b * P + p;
-    const float sv = -sig_g * vs_b[row];
-    const float* gbr = gb + (size_t)y * gb_bs + row * DF + 4 * q;
-    float t2[4];
+    // ---- epilogue: -sig_g v_b acc - sum_d gsum_d gbar_d ----
 #pragma unroll
-    for (int k = 0; k < 4; ++k) t2[k] = 0.0f;
+    for (int up = 0; up < 2; ++up) {
+        const int p = hh * HALF + wm * 16 + g + 8 * up;
+        const size_t row = (size_t)b * P + p;
+        const float sv = -sig_g * vs_b[row];
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-        const float g = gsum_b[row * D + d];
+        for (int j = 0; j < 4; ++j) {
+            const int smp = s0 + j / 2;
+            if (smp >= nbt) continue;
+            const int f = (j % 2) * 8 + 2 * t;
+            const float* gbr = gb + (size_t)(y0 + smp) * gb_bs + row * DF + f;
+            float t2[2] = {0.0f, 0.0f};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) t2[k] += g * gbr[d * F + k];
+            for (int d = 0; d < D; ++d) {
+                const float gs = gsum_b[row * D + d];
+                t2[0] += gs * gbr[d * FF];
+                t2[1] += gs * gbr[d * FF + 1];
+            }
+            const float a0 = acc[j][2 * up];
+            const float a1 = acc[j][2 * up + 1];
+            const size_t blk = (size_t)(y0 + smp) * nb + b;
+            *reinterpret_cast<float2*>(da + (blk * P + p) * FF + f) =
+                make_float2(sv * a0 - t2[0], sv * a1 - t2[1]);
+        }
     }
-    const size_t blk = (size_t)y * nb + b;
-    *reinterpret_cast<float4*>(da + (blk * P + p) * F + 4 * q) =
-        make_float4(sv * acc[0] - t2[0], sv * acc[1] - t2[1],
-                    sv * acc[2] - t2[2], sv * acc[3] - t2[3]);
 }
 
 // The body of the mask and blur kernels:
@@ -475,46 +912,199 @@ bool bad_grid(int P_, int nb, int B, int W, int M) {
         || M <= 0 || W % M;
 }
 
-template <typename T>
+// cuTensorMapEncodeTiled, reached through the runtime (the build links no
+// libcuda).
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* out) {
+    static std::once_flag once;
+    static EncodeTiled fn = nullptr;
+    static cudaError_t err = cudaSuccess;
+    std::call_once(once, [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+        err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                               12000, cudaEnableDefault, &q);
+#else
+        err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                      cudaEnableDefault, &q);
+#endif
+        if (err == cudaSuccess && (q != cudaDriverEntryPointSuccess || !p))
+            err = cudaErrorSymbolNotFound;
+        fn = reinterpret_cast<EncodeTiled>(p);
+    });
+    *out = fn;
+    return err;
+}
+
+// The TMA map of a table [nb, rows, W] in type T, read in tiles of TW slots
+// and `box` rows, swizzled by the tile row's width. With `groups` > 1 the
+// table is seen as [nb*groups, 2, 32, W] (md: the D row groups of a block,
+// each in two halves) and a box takes the D groups of one half. A map is a
+// function of (table, nb, groups, W) alone, and an engine's tables stay put
+// for its life, so maps are cached by those (only the state's or the
+// cotangents' map is encoded per launch).
+template <typename T, int TW>
+cudaError_t table_map(CUtensorMap* map, const void* table, int nb, int groups,
+                      int W) {
+    using Key = std::tuple<const void*, int, int, int>;
+    static std::mutex mu;
+    static std::map<Key, CUtensorMap> cache;
+    const Key key{table, nb, groups, W};
+    std::lock_guard<std::mutex> lock(mu);
+    const auto hit = cache.find(key);
+    if (hit != cache.end()) {
+        *map = hit->second;
+        return cudaSuccess;
+    }
+    EncodeTiled enc = nullptr;
+    cudaError_t err = encode_tiled(&enc);
+    if (err != cudaSuccess) return err;
+    constexpr int ROWB = TW * (int)sizeof(T);
+    const CUtensorMapSwizzle sw = ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+        : ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+    const CUtensorMapDataType dt = sizeof(T) == 4
+        ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const cuuint64_t row = (cuuint64_t)W * sizeof(T);
+    const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)HALF, 2,
+                                (cuuint64_t)nb * groups};
+    const cuuint64_t strides[3] = {row, HALF * row, 2 * HALF * row};
+    const cuuint32_t box[4] = {(cuuint32_t)TW, (cuuint32_t)HALF, 1,
+                               (cuuint32_t)groups};
+    const cuuint32_t one[4] = {1, 1, 1, 1};
+    const CUresult r = enc(map, dt, 4, const_cast<void*>(table), dims,
+                           strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           sw, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    if (cache.size() >= 1024) cache.clear();  // tables freed and made anew
+    cache.emplace(key, *map);
+    return cudaSuccess;
+}
+
+// The TMA map of a cell-layout tensor X [B][C, M*K] (f32, sample stride
+// x_bs elements) read in boxes of one cell of min(B, btc) samples,
+// [nbx][M*K], unswizzled: a sample's cell is one contiguous run of M*K
+// floats, seen as R rows of E = M*K / R <= 256 floats (the fewer and longer
+// the rows, the fewer requests the TMA makes). Samples past B are filled
+// with zeros.
+cudaError_t cell_map(CUtensorMap* map, const float* X, long long x_bs, int K,
+                     int B, int btc) {
+    EncodeTiled enc = nullptr;
+    cudaError_t err = encode_tiled(&enc);
+    if (err != cudaSuccess) return err;
+    const int run = CELL * K;
+    const int R = (run + 255) / 256;
+    const cuuint64_t E = (cuuint64_t)(run / R);
+    const cuuint64_t dims[4] = {E, (cuuint64_t)R,
+                                (cuuint64_t)(x_bs / run), (cuuint64_t)B};
+    const cuuint64_t strides[3] = {E * 4, (cuuint64_t)run * 4,
+                                   (cuuint64_t)x_bs * 4};
+    const cuuint32_t box[4] = {(cuuint32_t)E, (cuuint32_t)R, 1,
+                               (cuuint32_t)(B < btc ? B : btc)};
+    const cuuint32_t one[4] = {1, 1, 1, 1};
+    if (run % R) return cudaErrorInvalidValue;
+    const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                           const_cast<float*>(X), dims, strides, box, one,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_NONE,
+                           CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Raise a kernel's dynamic shared memory limit to the most a block may use
+// beside its static shared memory, once per device; a launch that asks for
+// more is refused.
+cudaError_t allow_smem(const void* kern) {
+    static std::mutex mu;
+    static std::set<std::pair<const void*, int>> done;
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mu);
+    if (done.count({kern, dev})) return cudaSuccess;
+    cudaFuncAttributes fa;
+    if ((err = cudaFuncGetAttributes(&fa, kern)) != cudaSuccess
+        || (err = cudaDeviceGetAttribute(
+                &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+               != cudaSuccess)
+        return err;
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)fa.sharedSizeBytes);
+    if (err == cudaSuccess) done.insert({kern, dev});
+    return err;
+}
+
+template <typename T, int D, int BTC>
 int fwd_tab(const void* md, const void* w6, const float* gsum, const float* S,
             long long s_bs, const float* ab, long long ab_bs, const float* vw,
-            const int* win, int B, int nb, int D, int M, int W, int Wu,
-            float sig_w, float sig_g, float thr, int use_alpha, float* ga,
-            float* sm, cudaStream_t st) {
-    const dim3 grid(nb, B);
-    const T* m = static_cast<const T*>(md);
-    const T* w = static_cast<const T*>(w6);
-    if (D == 2) {
-        sph_fwd_tab_kernel<T, 2, 16><<<grid, THREADS, 0, st>>>(
-            m, w, gsum, S, s_bs, ab, ab_bs, vw, win, M, W, Wu, sig_w, sig_g,
-            thr, use_alpha, ga, sm);
-    } else if (D == 3) {
-        sph_fwd_tab_kernel<T, 3, 16><<<grid, THREADS, 0, st>>>(
-            m, w, gsum, S, s_bs, ab, ab_bs, vw, win, M, W, Wu, sig_w, sig_g,
-            thr, use_alpha, ga, sm);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
+            const int* win, int B, int nb, int W, int Wu, float sig_w,
+            float sig_g, float thr, int use_alpha, float* ga, float* sm,
+            cudaStream_t st) {
+    using L = Stage<T, D, true, BTC>;
+    CUtensorMap md_map, w6_map, s_map;
+    cudaError_t err = table_map<T, L::TW>(&md_map, md, nb, D, W);
+    if (err == cudaSuccess) err = table_map<T, L::TW>(&w6_map, w6, nb, 1, W);
+    if (err == cudaSuccess) err = cell_map(&s_map, S, s_bs, FF, B, BTC);
+    if (err == cudaSuccess)
+        err = allow_smem((const void*)sph_fwd_tab_kernel<T, D, BTC>);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(2 * nb, (B + BTC - 1) / BTC);
+    sph_fwd_tab_kernel<T, D, BTC><<<grid, TAB_THREADS, L::smem(Wu), st>>>(
+        md_map, w6_map, s_map, gsum, ab, ab_bs, vw, win, B, W, Wu, sig_w,
+        sig_g, thr, use_alpha, ga, sm);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int D, int BTC>
+int bwd_tab(const void* md, const float* vs, const float* gsum,
+            const float* gb, long long gb_bs, const float* G, long long g_bs,
+            const int* win, int B, int nb, int W, int Wu, float sig_g,
+            float* da, cudaStream_t st) {
+    using L = Stage<T, D, false, BTC>;
+    CUtensorMap md_map, g_map;
+    cudaError_t err = table_map<T, L::TW>(&md_map, md, nb, D, W);
+    if (err == cudaSuccess) err = cell_map(&g_map, G, g_bs, D * FF, B, BTC);
+    if (err == cudaSuccess)
+        err = allow_smem((const void*)sph_bwd_tab_kernel<T, D, BTC>);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(2 * nb, (B + BTC - 1) / BTC);
+    sph_bwd_tab_kernel<T, D, BTC><<<grid, TAB_THREADS, L::smem(Wu), st>>>(
+        md_map, g_map, vs, gsum, gb, gb_bs, win, B, W, Wu, sig_g, da);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-int bwd_tab(const void* md, const float* vs, const float* gsum,
-            const float* gb, long long gb_bs, const float* G, long long g_bs,
-            const int* win, int B, int nb, int D, int M, int W, int Wu,
-            float sig_g, float* da, cudaStream_t st) {
-    const dim3 grid(nb, B);
-    const T* m = static_cast<const T*>(md);
-    if (D == 2) {
-        sph_bwd_tab_kernel<T, 2, 16><<<grid, THREADS, 0, st>>>(
-            m, vs, gsum, gb, gb_bs, G, g_bs, win, M, W, Wu, sig_g, da);
-    } else if (D == 3) {
-        sph_bwd_tab_kernel<T, 3, 16><<<grid, THREADS, 0, st>>>(
-            m, vs, gsum, gb, gb_bs, G, g_bs, win, M, W, Wu, sig_g, da);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
+int fwd_tab_d(int D, const void* md, const void* w6, const float* gsum,
+              const float* S, long long s_bs, const float* ab,
+              long long ab_bs, const float* vw, const int* win, int B, int nb,
+              int W, int Wu, float sig_w, float sig_g, float thr,
+              int use_alpha, float* ga, float* sm, cudaStream_t st) {
+    if (D != 2 && D != 3) return (int)cudaErrorInvalidValue;
+    // tiles of 2 samples for B <= 2 (see Stage), else of 8
+    auto f = D == 2 ? (B <= 2 ? fwd_tab<T, 2, 2> : fwd_tab<T, 2, BT>)
+                    : (B <= 2 ? fwd_tab<T, 3, 2> : fwd_tab<T, 3, BT>);
+    return f(md, w6, gsum, S, s_bs, ab, ab_bs, vw, win, B, nb, W, Wu, sig_w,
+             sig_g, thr, use_alpha, ga, sm, st);
+}
+
+template <typename T>
+int bwd_tab_d(int D, const void* md, const float* vs, const float* gsum,
+              const float* gb, long long gb_bs, const float* G,
+              long long g_bs, const int* win, int B, int nb, int W, int Wu,
+              float sig_g, float* da, cudaStream_t st) {
+    if (D != 2 && D != 3) return (int)cudaErrorInvalidValue;
+    auto f = D == 2 ? (B <= 2 ? bwd_tab<T, 2, 2> : bwd_tab<T, 2, BT>)
+                    : (B <= 2 ? bwd_tab<T, 3, 2> : bwd_tab<T, 3, BT>);
+    return f(md, vs, gsum, gb, gb_bs, G, g_bs, win, B, nb, W, Wu, sig_g, da,
+             st);
 }
 
 template <typename T>
@@ -541,9 +1131,11 @@ int blur_tab(const void* w6, const float* X, long long x_bs, int F,
 }  // namespace
 
 // Plain C launchers for ctypes: raw device pointers, sizes, sample strides,
-// the table type (0 = float32, 1 = bfloat16) and the caller's stream; the grid
-// is (nb blocks, B samples). Each returns the cudaGetLastError() code of its
-// launch (0 = ok).
+// the table type (0 = float32, 1 = bfloat16) and the caller's stream. The
+// forward and adjoint run on a grid of (2 nb row halves, ceil(B / 8) sample
+// tiles) and take M = 8 slots a cell and 16-byte aligned tables, state,
+// cotangents and volumes; mask and blur on (nb blocks, B samples). Each
+// returns the CUDA error code of its set-up or launch (0 = ok).
 
 extern "C" int sph_fwd_tab_launch(
     int bf16, const void* md, const void* w6, const float* gsum,
@@ -553,13 +1145,15 @@ extern "C" int sph_fwd_tab_launch(
     float* ga, float* sm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bad_grid(P_, nb, B, W, M) || F != 16) return (int)cudaErrorInvalidValue;
+    if (bad_grid(P_, nb, B, W, M) || F != FF || M != CELL)
+        return (int)cudaErrorInvalidValue;
     return bf16
-        ? fwd_tab<__nv_bfloat16>(md, w6, gsum, S, s_bs, ab, ab_bs, vw, win, B,
-                                 nb, D, M, W, Wu, sig_w, sig_g, thr,
-                                 use_alpha, ga, sm, st)
-        : fwd_tab<float>(md, w6, gsum, S, s_bs, ab, ab_bs, vw, win, B, nb, D,
-                         M, W, Wu, sig_w, sig_g, thr, use_alpha, ga, sm, st);
+        ? fwd_tab_d<__nv_bfloat16>(D, md, w6, gsum, S, s_bs, ab, ab_bs, vw,
+                                   win, B, nb, W, Wu, sig_w, sig_g, thr,
+                                   use_alpha, ga, sm, st)
+        : fwd_tab_d<float>(D, md, w6, gsum, S, s_bs, ab, ab_bs, vw, win, B,
+                           nb, W, Wu, sig_w, sig_g, thr, use_alpha, ga, sm,
+                           st);
 }
 
 extern "C" int sph_bwd_tab_launch(
@@ -569,12 +1163,13 @@ extern "C" int sph_bwd_tab_launch(
     float sig_g, float* da, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (bad_grid(P_, nb, B, W, M) || F != 16) return (int)cudaErrorInvalidValue;
+    if (bad_grid(P_, nb, B, W, M) || F != FF || M != CELL)
+        return (int)cudaErrorInvalidValue;
     return bf16
-        ? bwd_tab<__nv_bfloat16>(md, vs, gsum, gb, gb_bs, G, g_bs, win, B, nb,
-                                 D, M, W, Wu, sig_g, da, st)
-        : bwd_tab<float>(md, vs, gsum, gb, gb_bs, G, g_bs, win, B, nb, D, M, W,
-                         Wu, sig_g, da, st);
+        ? bwd_tab_d<__nv_bfloat16>(D, md, vs, gsum, gb, gb_bs, G, g_bs, win,
+                                   B, nb, W, Wu, sig_g, da, st)
+        : bwd_tab_d<float>(D, md, vs, gsum, gb, gb_bs, G, g_bs, win, B, nb,
+                           W, Wu, sig_g, da, st);
 }
 
 extern "C" int sph_mask_tab_launch(

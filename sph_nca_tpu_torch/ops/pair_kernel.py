@@ -271,6 +271,14 @@ def _check_cuda(name: str, tensors: dict, win_cells: torch.Tensor) -> None:
         raise ValueError(f"{name}: win_cells must be contiguous int32")
 
 
+def _check_aligned(name: str, tensors: dict) -> None:
+    """The forward and adjoint table kernels copy these tensors with the
+    TMA, which needs 16-byte aligned addresses."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
 def _sample_stride(name: str, key: str, t: torch.Tensor) -> int:
     """The sample stride of a batched rows argument [B, nb, P, X]: each
     sample's rows must be contiguous (a slice of a contiguous batch is)."""
@@ -502,14 +510,15 @@ def fwd_tab_bucket(scal: Scal, ab, gsum_b, vw_b, S, win_cells, md, w6, *,
                          win_cells)
     _check_cuda("fwd_tab_bucket", dict(gsum_b=gsum_b, vw_b=vw_b, S=S),
                 win_cells)
-    if (p != 64 or f != 16 or ddim not in (2, 3) or md.shape[1] != ddim * p
-            or ab.shape != (bsz, nb, p, f) or gsum_b.shape != (nb, p, ddim)
-            or vw_b.shape != (nb, w)):
+    if (p != 64 or f != 16 or m != 8 or ddim not in (2, 3)
+            or md.shape[1] != ddim * p or ab.shape != (bsz, nb, p, f)
+            or gsum_b.shape != (nb, p, ddim) or vw_b.shape != (nb, w)):
         raise ValueError(
             f"fwd_tab_bucket: unsupported shapes md {tuple(md.shape)}, w6 "
             f"{tuple(w6.shape)}, ab {tuple(ab.shape)}, gsum_b "
             f"{tuple(gsum_b.shape)}, S {tuple(S.shape)} (the kernel takes "
-            "P=64, F=16, D in {2, 3})")
+            "P=64, F=16, M=8, D in {2, 3})")
+    _check_aligned("fwd_tab_bucket", dict(S=S, vw_b=vw_b))
     ab_bs = _sample_stride("fwd_tab_bucket", "ab", ab)
     ga = torch.empty((bsz, nb, p, ddim * f), dtype=torch.float32, device=dev)
     sm = torch.empty((bsz, nb, p), dtype=torch.float32, device=dev)
@@ -561,14 +570,16 @@ def bwd_tab_bucket(scal: Scal, vs_b, gsum_b, gb, gflat, win_cells, md):
     bf16 = _check_tables("bwd_tab_bucket", dict(md=md), nb, w, m, win_cells)
     _check_cuda("bwd_tab_bucket", dict(vs_b=vs_b, gsum_b=gsum_b,
                                        gflat=gflat), win_cells)
-    if (p != 64 or f != 16 or ddim not in (2, 3) or md.shape[1] != ddim * p
-            or fd != ddim * f or gsum_b.shape != (nb, p, ddim)
+    if (p != 64 or f != 16 or m != 8 or ddim not in (2, 3)
+            or md.shape[1] != ddim * p or fd != ddim * f
+            or gsum_b.shape != (nb, p, ddim)
             or gb.shape != (bsz, nb, p, fd)):
         raise ValueError(
             f"bwd_tab_bucket: unsupported shapes md {tuple(md.shape)}, gb "
             f"{tuple(gb.shape)}, gflat {tuple(gflat.shape)}, gsum_b "
-            f"{tuple(gsum_b.shape)} (the kernel takes P=64, F=16, D in "
+            f"{tuple(gsum_b.shape)} (the kernel takes P=64, F=16, M=8, D in "
             "{2, 3})")
+    _check_aligned("bwd_tab_bucket", dict(gflat=gflat))
     gb_bs = _sample_stride("bwd_tab_bucket", "gb", gb)
     da = torch.empty((bsz, nb, p, f), dtype=torch.float32, device=dev)
     if nb and bsz:

@@ -323,11 +323,13 @@ def _rand(device, shape, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("dtype", TAB_DTYPES)
-@pytest.mark.parametrize("bsz", [1, 3])
+@pytest.mark.parametrize("bsz", [1, 3, 2, 20])
 def test_table_kernels_match_plain(cuda, dim, dtype, bsz):
     """Each table kernel against its plain version (1e-5 of max: both sum
     the same f32 products of the same upcast table, in other orders), pad
-    rows exactly 0, one launch per bucket and call."""
+    rows exactly 0, one launch per bucket and call. B = 1 and 2 take the
+    forward and adjoint's 2-sample tiles, 3 one ragged tile of 8, 20 three
+    tiles of 8 with the last ragged."""
     eng = _tab_cloud(cuda, dim, dtype)
     c, m, _ = eng.xs.shape
     S = _rand(cuda, (bsz, c, m, 16), 2)
@@ -372,22 +374,42 @@ def test_table_kernels_match_plain(cuda, dim, dtype, bsz):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", TAB_DTYPES)
-def test_table_batched_launches_equal_per_sample(cuda, dtype):
+@pytest.mark.parametrize("bsz", [8, 2, 20])
+def test_table_batched_launches_equal_per_sample(cuda, dtype, bsz):
+    """One launch of B samples equals B launches of one, bit for bit: 2
+    samples in one 2-sample tile, 8 in one tile of 8, 20 in three tiles of 8
+    with the last ragged."""
     eng = _tab_cloud(cuda, 3, dtype)
     c, m, _ = eng.xs.shape
-    S = _rand(cuda, (8, c, m, 16), 5)
-    G = _rand(cuda, (8, c, m, 48), 6)
-    X = _rand(cuda, (8, c, m, 4), 7)
+    S = _rand(cuda, (bsz, c, m, 16), 5)
+    G = _rand(cuda, (bsz, c, m, 48), 6)
+    X = _rand(cuda, (bsz, c, m, 4), 7)
     ga, sm = PK.fused_perception(eng, S, d_major=True)
     mk = PK.mask_blur(eng, S)
     da = PK.gradient_adjoint_dmajor(eng, G)
     bl = PK.blur_cells(eng, X)
-    for b in range(8):
+    for b in range(bsz):
         ga1, sm1 = PK.fused_perception(eng, S[b], d_major=True)
         assert torch.equal(ga[b], ga1) and torch.equal(sm[b], sm1)
         assert torch.equal(mk[b], PK.mask_blur(eng, S[b]))
         assert torch.equal(da[b], PK.gradient_adjoint_dmajor(eng, G[b]))
         assert torch.equal(bl[b], PK.blur_cells(eng, X[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+def test_table_forward_cancels_a_constant_field(cuda, dtype):
+    """The forward kernel's split TF32 products keep f32 accuracy: a
+    constant state cancels against the quantized gsum to |gA| < 1e-4, the
+    CPU test's bound (one TF32 product would not:
+    tests/test_torch_tf32_split.py)."""
+    eng = _tab_cloud(cuda, 3, dtype)
+    S = eng.scatter(torch.full((eng.num_particles, 16), 1.7, device=cuda))
+    count = PK.fwd_tab_bucket.launches
+    ga, _ = PK.fused_perception(eng, S, d_major=True)
+    torch.cuda.synchronize()
+    assert PK.fwd_tab_bucket.launches == count + 2
+    assert float(eng.gather_back(ga).abs().max()) < 1e-4
 
 
 @pytest.mark.cuda
