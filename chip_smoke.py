@@ -189,11 +189,21 @@ MLP_FLIP_SHARE = 0.005
 # the batched gecko's alive share against the unbatched CLI's: other fire
 # draws and bfloat16 arithmetic, the same grown shape
 ALIVE_ATOL = 0.03
+# the update-MLP kernel's ragged and edge shapes: item counts that are not a
+# multiple of its 32-item tiles (one below a tile, and the training shapes'
+# 161,792 items plus 37), hidden widths that are not a multiple of its 64-unit
+# padding and the largest it takes
+MLP_RAGGED_N = (1, 37, 161_792 + 37)
+MLP_RAGGED_HID = (100, 256, 512)
+# the mask table kernel's sample tiles besides B = 1 and 8: one ragged tile
+# of 8, and a full tile and a ragged one
+MASK_RAGGED_B = (3, 11)
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, dense bf16 products with fp32 sums on the tensor cores, and HBM3
-# bandwidth. All assume the full 700 W power limit.
+# cores, dense TF32 and bf16 products with fp32 sums on the tensor cores, and
+# HBM3 bandwidth. All assume the full 700 W power limit.
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
@@ -463,9 +473,9 @@ def run_train_cli(out_dir: str, extra) -> list:
 
 
 def device_breakdown(prof, wall_us: float, per: float, unit: str) -> None:
-    """Print device time by kernel from a profiler run, per ``unit``, and
-    the device's busy share of the traced wall time (the profiler's own
-    overhead included)."""
+    """Print device time by kernel from a profiler run, per ``unit`` (the
+    12 largest and every kernel of the port), and the device's busy share of
+    the traced wall time (the profiler's own overhead included)."""
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -476,7 +486,9 @@ def device_breakdown(prof, wall_us: float, per: float, unit: str) -> None:
         print("  profile: no device time recorded", flush=True)
         return
     total = sum(r[0] for r in rows)
-    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
+    for i, (dev_us, count, key) in enumerate(sorted(rows, reverse=True)):
+        if i >= 12 and "sph_" not in key:
+            continue
         print(f"  {dev_us / per:9.2f} us/{unit} {100 * dev_us / total:5.1f}% "
               f"{count / per:6.1f} launches/{unit}  {key[:70]}", flush=True)
     print(f"  device busy {total / per:.2f} us/{unit} of {wall_us / per:.2f}"
@@ -676,7 +688,7 @@ def work_mlp(n: int, hid: int, k: int, in_bytes: int):
     """Bytes and operations of one update-MLP launch over n items: each
     input read once (S, the 32 perception features the MLP reads, the
     weights, the biases), each output written once; a multiply-add is two
-    operations."""
+    operations (the function's, before the route's: 3xTF32 triples them)."""
     out_per_item = 2 * 16 + 1 if k == 2 * 16 + 1 else 16
     nbytes = (n * (16 + 32) * in_bytes + (48 * hid + hid * k) * in_bytes
               + 4 * (hid + k) + 4 * n * out_per_item)
@@ -689,10 +701,11 @@ def normal_cuda(rng, shape, dev):
 
 def check_tab_kernels(eng, rng, dev) -> dict:
     """Each table kernel against its plain version on ``eng``: fwd, bwd and
-    mask at B = 1 and B = SURF_B, the blur (F = 4) at B = 1, use_alpha on and
-    off; each output within TAB_RTOL of the plain version's largest |value|
-    over all rows; one B = SURF_B launch equal to SURF_B B = 1 launches; pad
-    rows exactly 0. Returns the largest absolute error per kernel."""
+    mask at B = 1 and B = SURF_B, the mask also at MASK_RAGGED_B, the blur
+    (F = 4) at B = 1, use_alpha on and off; each output within TAB_RTOL of
+    the plain version's largest |value| over all rows; one launch of B > 1
+    samples equal to B launches of one; pad rows exactly 0. Returns the
+    largest absolute error per kernel."""
     c, m, d = eng.xs.shape
     scal = PK.scal_vec(eng)
     real = (eng.vs > 0).reshape(-1, 64)
@@ -760,10 +773,27 @@ def check_tab_kernels(eng, rng, dev) -> dict:
                              and torch.equal(dk1, dk[b]))
     if not same:
         fail(f"a B = {SURF_B} table launch differs from B = 1 launches")
+    # the mask's other sample tiles: a ragged tile of 8, a full and a ragged
+    SM = normal_cuda(rng, (max(MASK_RAGGED_B), c, m, 16), dev)
+    for lo, hi, wc, vw, _, w6 in tab_buckets(eng):
+        for bsz in MASK_RAGGED_B:
+            for use_alpha in (False, True):
+                margs = (scal, vw, SM[:bsz], wc, w6)
+                mk = PK.mask_tab_bucket(*margs, use_alpha=use_alpha)
+                hold("sph_mask_tab_kernel", mk,
+                     PK.mask_tab_bucket_plain(*margs, use_alpha=use_alpha),
+                     real[lo:hi])
+                for b in range(bsz):
+                    same &= bool(torch.equal(mk[b], PK.mask_tab_bucket(
+                        scal, vw, SM[b], wc, w6, use_alpha=use_alpha)))
+    if not same:
+        fail(f"a B in {MASK_RAGGED_B} mask launch differs from B = 1 "
+             "launches")
     const_field(eng, dev)
     print("  " + ", ".join(f"{n} max abs {errs[n]:.3e} (rel to max "
                            f"{worst[n]:.3e})" for n in TAB_KERNELS)
-          + f"; B = {SURF_B} launch == {SURF_B} B = 1 launches: {same}; "
+          + f"; B = {SURF_B} launch == {SURF_B} B = 1 launches (the mask "
+          f"also at B = {' and '.join(map(str, MASK_RAGGED_B))}): {same}; "
           "pad rows exactly 0", flush=True)
     return errs
 
@@ -1050,6 +1080,39 @@ def mlp_phases(dev, shapes: dict) -> dict:
                          f"(limit {MLP_RTOL[dtype]}), {share:.3e} of outputs "
                          f"past 1e-5 of max (limit {MLP_FLIP_SHARE}) "
                          f"({label}, {dtype}, K={k})")
+    # ragged and edge shapes, each against mlp_ref within MLP_RTOL (the
+    # share of outputs past 1e-5 of max is held at the large n only: one
+    # flipped bf16 hidden unit moves several of the few outputs of n <= 37)
+    ragged = {}
+    for n in MLP_RAGGED_N:
+        for hid in MLP_RAGGED_HID:
+            for dtype in (torch.float32, torch.bfloat16):
+                for k in (33, 16):
+                    args = mlp_inputs(dev, dtype, k, (n,), seed=n + hid + k,
+                                      hid=hid)
+                    got = MK.mlp_forward(*args)
+                    want = MK.mlp_ref(*args)
+                    torch.cuda.synchronize()
+                    diff = torch.cat([(g - w).abs().reshape(-1)
+                                      for g, w in zip(got, want)
+                                      if w is not None])
+                    top = max(float(w.abs().max())
+                              for w in want if w is not None)
+                    rel = float(diff.max()) / max(top, 1e-30)
+                    share = float((diff > 1e-5 * top).float().mean())
+                    ok = (bool(torch.isfinite(diff).all())
+                          and rel <= MLP_RTOL[dtype]
+                          and (n < 1000 or share <= MLP_FLIP_SHARE))
+                    if not ok:
+                        fail(f"sph_mlp_kernel vs mlp_ref at n={n} hid={hid}"
+                             f" {dtype} K={k}: {rel:.3e} of max, {share:.3e}"
+                             " of outputs past 1e-5 of max")
+                    key = str(dtype)[6:]
+                    ragged[key] = max(ragged.get(key, 0.0), rel)
+    print(f"  ragged and edge shapes n in {MLP_RAGGED_N}, hid in "
+          f"{MLP_RAGGED_HID}, K 33 and 16: largest error rel to max "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ragged.items()),
+          flush=True)
     S, ga, w1k, b1, w2, b2 = mlp_inputs(dev, torch.float32, 33, (64,), 0)
     refused = 0
     for bad in ([S.double(), ga.double(), w1k.double(), b1, w2.double(), b2],
@@ -1067,10 +1130,10 @@ def mlp_phases(dev, shapes: dict) -> dict:
         fail(f"sph_mlp_kernel's wrapper took {5 - refused} bad argument sets")
     phase("mlp", t0, "sph_mlp_kernel == mlp_ref at " + ", ".join(
         f"{label} {tuple(lead)}" for label, lead in shapes.items())
-        + f", gated and orig, float32 / bfloat16 within {MLP_RTOL[torch.float32]}"
-        f" / {MLP_RTOL[torch.bfloat16]} of max, all but {MLP_FLIP_SHARE} of "
-        "the outputs within 1e-5 of max; float64, mixed dtypes, F = 8,"
-        " hid = 600 and a CPU tensor refused")
+        + f" and the ragged shapes, gated and orig, float32 / bfloat16 within "
+        f"{MLP_RTOL[torch.float32]} / {MLP_RTOL[torch.bfloat16]} of max, all "
+        f"but {MLP_FLIP_SHARE} of the outputs within 1e-5 of max; float64, "
+        "mixed dtypes, F = 8, hid = 600 and a CPU tensor refused")
 
     t0 = time.time()
     lead = shapes["train"]
@@ -1761,15 +1824,21 @@ def main() -> int:
         lib_ms = device_ms(library)
         n = X.shape[0]
         nbytes, ops = work_mlp(n, w1k.shape[1], 33, S_m.element_size())
-        bound_ms, bound_by = bound(
-            nbytes, ops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        # the route the kernel takes: on the tensor cores, 3 TF32 products
+        # for float32 inputs, one bf16 product for bfloat16
+        tc_ops, peak = ((ops, BF16_FLOPS) if dtype == torch.bfloat16
+                        else (3 * ops, TF32_FLOPS))
+        bound_ms, bound_by = bound(nbytes, tc_ops, peak)
+        core_ms, _ = bound(nbytes, ops, FP32_FLOPS)
         print(f"  sph_mlp_kernel at the {label} shapes ({n} items, "
               f"{str(dtype)[6:]} inputs, gated, hid {w1k.shape[1]}): "
               f"{ms:.4f} ms device time, plain {plain_ms:.4f} ms, library "
               f"chain {lib_ms:.4f} ms (max abs {lib_err:.3e} from mlp_ref), "
-              f"bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations)",
-              flush=True)
+              f"bound {bound_ms:.4f} ms by {bound_by} on the tensor cores "
+              f"({100 * bound_ms / ms:.1f}% of it; {nbytes / 1e6:.2f} MB, "
+              f"{tc_ops / 1e9:.3f} G operations at {peak / 1e12:.0f} "
+              f"TFLOP/s; {core_ms:.4f} ms counting {ops / 1e9:.3f} G fp32 "
+              "operations on the CUDA cores)", flush=True)
         mlp_rows[label] = {
             "shapes": f"{label} {tuple(lead)} {str(dtype)[6:]} inputs",
             "launches": launches,

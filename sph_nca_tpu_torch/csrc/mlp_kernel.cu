@@ -12,10 +12,9 @@
 // orig: dA = O. The perception scale h k is already folded into the gA rows
 // of W1k by the caller (models/cell_step.py), as the JAX step folds it
 // (cell_step.py:480-484). T is float or __nv_bfloat16 for the inputs and the
-// two weight matrices; the biases are f32, every product and sum is f32 (a
-// product of two bf16 values is exact in f32), H is rounded to T before the
-// second product as the TPU kernel rounds it (mlp_kernel.py:57), and the
-// outputs are f32. No TF32, no fast-math.
+// two weight matrices; the biases and outputs are f32, every sum is f32, and
+// H is rounded to T before the second product, as the TPU kernel rounds it
+// (mlp_kernel.py:57).
 //
 // Layout. S is [n, F] with row stride ld_s; ga is [n, >= 2F] with row stride
 // ld_ga, gx its first F columns and gy the next F (the per-sample d-major
@@ -24,23 +23,56 @@
 // [n, F], [n, F] and [n].
 //
 // Bound on this card. At the training shapes (C * M = 20,224 slots, B = 8:
-// 161,792 items) a launch does 2 (48 * 256 + 256 * 33) = 41,472 FLOP an item,
-// 6.71 GFLOP, 0.100 ms at 67 TFLOP/s fp32, and moves ~52 MB, 0.016 ms at
-// 3.35 TB/s: bound by OPERATIONS.
+// 161,792 items, hid = 256, K = 33) a launch needs 2 (48 * 256 + 256 * 33) =
+// 41,472 FLOP an item, 6.71 GFLOP, and moves ~52 MB (0.016 ms at 3.35 TB/s).
+// On the tensor cores with f32 inputs the products are 3 TF32 products
+// (below): 20.1 GFLOP, 0.041 ms at 495 TFLOP/s, so bound by OPERATIONS; with
+// bf16 inputs (the batched gecko, 148,480 items) one bf16 product, 6.2 GFLOP
+// (0.006 ms at 989 TFLOP/s) against ~34 MB (0.010 ms): bound by BYTES.
 //
-// Design, simple first: one thread per item, X in 48 registers and the K
-// outputs in K registers, accumulated over the hidden units. The weights sit
-// in shared memory as f32, W1k transposed ([hid, 48], so hidden unit j's
-// column is one contiguous row) and W2 with rows padded to a multiple of 4;
-// every thread of a warp reads the same address, so each 16-byte shared load
-// is a broadcast that feeds 4 FMAs. Layer 1 sums each hidden unit in 4
-// interleaved partial sums (independent FMA chains). In f32 at hid = 256 the
-// weights take 48 KB + 36 KB, over the 48 KB default, so the launcher raises
-// the block's dynamic shared memory limit. Blocks stride over the items, so
-// each block stages the weights once. The Pallas BlockSpec restack of the
-// TPU kernel (16-lane sample blocks of a 128-lane row) has no counterpart:
-// here a sample's 16 features are simply 64 contiguous bytes.
-// Left for later: tensor cores (wgmma over 64-item tiles), TMA.
+// Design. Persistent thread blocks of up to 8 warps stage the weights once
+// in shared memory and stride over item tiles; each warp owns its tiles of
+// ITEMS = 32 items (two m16 tiles) and double-buffers their X rows in shared
+// memory with cp.async (16 bytes a request, from S and ga at their row
+// strides; rows past n are zero-filled and never stored, so any n is taken).
+// For each chunk of HC hidden units (32 f32, 64 bf16) a warp runs
+//   layer 1: Z = X @ W1k[:, chunk] on mma.sync tiles (m16 x n8), the 2 x
+//            HC / 8 tiles' sums in registers; then bias, relu and (bf16) the
+//            rounding to T, in registers;
+//   layer 2: O += H_chunk @ W2[chunk, :], with H fed straight from the
+//            layer-1 accumulators as the A operand (FlashAttention-2's P V
+//            trick): an m16n8 accumulator holds columns 2t, 2t+1 of row g,
+//            the TF32 k8 A fragment wants t, t+4, so W2's rows are permuted
+//            within each group of 8 at staging (k position t <- hidden 2t,
+//            t + 4 <- 2t + 1); bf16's k16 fragment takes the accumulators'
+//            pairs as they are.
+// The [32 items, K] output sums (K = 33 padded to 40 columns, 5 n8 tiles)
+// stay in registers across the chunks; H never leaves the registers. hid is
+// padded with zero hidden units to a multiple of 64 (they add exact zeros).
+//
+// Arithmetic. f32 inputs: 3xTF32, x = big + small (mma_util.cuh), X and H
+// split in registers as their fragments are made, the weights split in
+// registers as their B fragments are read (the f32 weights are stored once,
+// unsplit: split, they would take 176 KB at hid = 256 and 352 KB at hid =
+// 512, which does not fit); acc += A_small B_big + A_big B_small + A_big B_big.
+// bf16 inputs: one bf16 product (a product of two bf16 values is exact in
+// f32). Either way, the tensor core truncates its f32 sums, so each k step's
+// products start from zero and are added to the running sums in
+// round-to-nearest f32 (the small terms, then the big one), as in the table
+// kernels; tests/test_torch_mlp_split.py emulates the scheme on the CPU.
+//
+// mma.sync rather than wgmma: both layers take their A operand from
+// registers (X's split fragments, H from the accumulators), every k step's
+// products go into fresh sums that are added in round-to-nearest f32, and
+// the f32 weights are split as they are read; wgmma reads TF32 B operands
+// from shared memory only, K-major, so the split weights would have to be
+// staged twice, and 64-item M tiles per warpgroup would double the
+// accumulators the RN sums keep. The weights' shared-memory rows are padded
+// (W1k^T and W2^T rows of 52 / 56 elements and hid + 4 / hid + 8) so that
+// every fragment read is free of bank conflicts. ptxas (sm_90a, CUDA 12.8):
+// f32 159 (K = 16) and 255 (K = 33) registers, bf16 153 and 180, none
+// spilled (one block of 8 warps an SM: __launch_bounds__(256, 1));
+// chip_smoke.py prints the counts of the build it runs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,66 +80,233 @@
 
 #include <map>
 #include <mutex>
-#include <utility>
+#include <tuple>
+
+#include "mma_util.cuh"
 
 namespace {
 
 constexpr int F = 16;          // channels
 constexpr int IN = 3 * F;      // MLP inputs
-constexpr int THREADS = 256;
-constexpr int HID_MAX = 512;   // 512 * (48 + 36 + 1) floats = 170 KB shared
+constexpr int HID_MAX = 512;
+constexpr int HPAD = 64;       // hid is padded to a multiple of this
+constexpr int MT = 2;          // m16 tiles a warp
+constexpr int ITEMS = 16 * MT; // items a warp tile
+constexpr int NW_MAX = 8;      // warps a thread block
 
-__device__ __forceinline__ void load16(const float* p, float* x)
+// Per input type: k of one product, the hidden units of a chunk (f32 keeps
+// half as many layer-1 sums as bf16 in registers: at 64, ptxas spilled), the
+// row stride (elements) of X and of W1k^T in shared memory, and the padding
+// of W2^T's rows.
+template <typename T> struct Mlp;
+template <> struct Mlp<float> {
+    static constexpr int KS = 8;
+    static constexpr int HC = 32;
+    static constexpr int XS = IN + 4;   // 208 B: conflict-free fragments
+    static constexpr int W2PAD = 4;
+};
+template <> struct Mlp<__nv_bfloat16> {
+    static constexpr int KS = 16;
+    static constexpr int HC = 64;
+    static constexpr int XS = IN + 8;   // 112 B
+    static constexpr int W2PAD = 8;
+};
+
+// Shared-memory layout (bytes) for hid hidden units and K outputs: W1k^T
+// [hidP][XS], W2^T [NO8][hidP + W2PAD] (f32: hidden rows permuted in groups
+// of 8), b1 [hidP], b2 [NO8], then each warp's two X buffers [ITEMS][XS].
+template <typename T, int K>
+struct Layout {
+    static constexpr int NO8 = (K + 7) / 8 * 8;
+    int hidP, w2, b1, b2, x;
+    __host__ __device__ explicit Layout(int hid)
+        : hidP((hid + HPAD - 1) / HPAD * HPAD) {
+        w2 = hidP * Mlp<T>::XS * (int)sizeof(T);
+        b1 = w2 + NO8 * (hidP + Mlp<T>::W2PAD) * (int)sizeof(T);
+        b2 = b1 + hidP * 4;
+        x = b2 + NO8 * 4;
+    }
+    __host__ __device__ static constexpr int per_warp() {
+        return 2 * ITEMS * Mlp<T>::XS * (int)sizeof(T);
+    }
+    __host__ __device__ int bytes(int nw) const { return x + nw * per_warp(); }
+};
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>()
 {
-    const float4* q = reinterpret_cast<const float4*>(p);
+    return __float2bfloat16_rn(0.0f);
+}
+
+__device__ __forceinline__ uint32_t word(const __nv_bfloat16* p)
+{
+    return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src),
+                    "r"(bytes)
+                 : "memory");
+}
+
+// The X rows of item tile `tile` into dst [ITEMS][XS]: per row its S (F
+// values) and the first 2F values of ga, 16 bytes a request; rows past n
+// are filled with zeros.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, long long tile,
+                                          const T* __restrict__ S,
+                                          long long ld_s,
+                                          const T* __restrict__ ga,
+                                          long long ld_ga, long long n,
+                                          int lane)
+{
+    constexpr int E = 16 / (int)sizeof(T);  // values a request
+    constexpr int CS = F / E;               // requests of S a row
+    constexpr int CR = IN / E;              // requests a row
+    static_assert(ITEMS * CR % 32 == 0, "whole requests a lane");
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float4 v = q[i];
-        x[4 * i] = v.x; x[4 * i + 1] = v.y; x[4 * i + 2] = v.z;
-        x[4 * i + 3] = v.w;
+    for (int u = 0; u < ITEMS * CR / 32; ++u) {
+        const int i = u * 32 + lane;
+        const int r = i / CR, c = i - r * CR;
+        const long long item = tile * ITEMS + r;
+        const long long src = item < n ? item : 0;
+        const T* p = c < CS ? S + src * ld_s + c * E
+                            : ga + src * ld_ga + (c - CS) * E;
+        cp_async16(dst + r * Mlp<T>::XS + c * E, p, item < n ? 16 : 0);
     }
 }
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* x)
+// store(i, load(i)) for i < n over the block's threads, with SU loads in
+// flight a thread before their stores (the weights are staged once a block:
+// one load at a time, each an L2 round trip, took a large part of a launch)
+constexpr int SU = 16;
+
+template <typename V, typename Load, typename Store>
+__device__ __forceinline__ void stage(int n, Load load, Store store)
 {
-    const uint4* q = reinterpret_cast<const uint4*>(p);
+    for (int i0 = threadIdx.x; i0 < n; i0 += SU * blockDim.x) {
+        V v[SU];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        uint4 v = q[i];
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+        for (int u = 0; u < SU; ++u) {
+            const int i = i0 + u * blockDim.x;
+            if (i < n) v[u] = load(i);
+        }
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            float2 f = __bfloat1622float2(h[k]);
-            x[8 * i + 2 * k] = f.x;
-            x[8 * i + 2 * k + 1] = f.y;
+        for (int u = 0; u < SU; ++u) {
+            const int i = i0 + u * blockDim.x;
+            if (i < n) store(i, v[u]);
         }
     }
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v)
+// ---- fragments and the products of one k step ----------------------------
+
+// f32: A fragment (rows r0 + g, r0 + g + 8; k columns t, t + 4) of X from a
+// row-major [.., XS] tile at column k0, split into big and small
+struct AF32 {
+    uint32_t big[4], small[4];
+    __device__ __forceinline__ void set(float a0, float a1, float a2,
+                                        float a3) {
+        split(a0, big[0], small[0]);
+        split(a1, big[1], small[1]);
+        split(a2, big[2], small[2]);
+        split(a3, big[3], small[3]);
+    }
+};
+struct BF32 {
+    uint32_t big[2], small[2];
+    // row p: k-contiguous weights of output column g at the step's k0
+    __device__ __forceinline__ void load(const float* p, int t) {
+        split(p[t], big[0], small[0]);
+        split(p[t + 4], big[1], small[1]);
+    }
+};
+
+__device__ __forceinline__ void step(float* acc, const AF32& a,
+                                     const BF32& b)
 {
-    return __bfloat162float(v);
+    float c[4];
+    mma_tf32(c, a.small, b.big[0], b.big[1]);
+    mma_tf32_acc(c, a.big, b.small[0], b.small[1]);
+    add4(acc, c);
+    mma_tf32(c, a.big, b.big[0], b.big[1]);
+    add4(acc, c);
 }
 
-// round an f32 value to T and back
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v)
+// bf16: A fragment (rows g, g + 8; k pairs 2t, 2t + 8), two values a register
+struct ABF {
+    uint32_t r[4];
+};
+struct BBF {
+    uint32_t r[2];
+    __device__ __forceinline__ void load(const __nv_bfloat16* p, int t) {
+        r[0] = word(p + 2 * t);
+        r[1] = word(p + 2 * t + 8);
+    }
+};
+
+__device__ __forceinline__ void step(float* acc, const ABF& a, const BBF& b)
 {
-    return v;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v)
-{
-    return __bfloat162float(__float2bfloat16_rn(v));
+    float c[4];
+    mma_bf16(c, a.r, b.r[0], b.r[1]);
+    add4(acc, c);
 }
 
-template <int K> struct Pad { static constexpr int KP = (K + 3) / 4 * 4; };
-
-template <int K>
-constexpr int smem_floats(int hid) { return hid * (IN + Pad<K>::KP + 1); }
+template <typename T> struct Frag;
+template <> struct Frag<float> {
+    using A = AF32;
+    using B = BF32;
+    // X rows x0 (row g) and x8 (row g + 8), at the step's k0
+    static __device__ __forceinline__ A from_x(const float* x0,
+                                               const float* x8, int t) {
+        A a;
+        a.set(x0[t], x8[t], x0[t + 4], x8[t + 4]);
+        return a;
+    }
+    // H of layer-1 tile j (hidden 8j .. 8j + 7 of the chunk): c0 (g, 2t),
+    // c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1) at k positions t,
+    // t + 4, t, t + 4 (W2^T's rows are permuted to match)
+    static __device__ __forceinline__ A from_h(const float (*h)[4], int kk) {
+        A a;
+        a.set(h[kk][0], h[kk][2], h[kk][1], h[kk][3]);
+        return a;
+    }
+};
+template <> struct Frag<__nv_bfloat16> {
+    using A = ABF;
+    using B = BBF;
+    static __device__ __forceinline__ A from_x(const __nv_bfloat16* x0,
+                                               const __nv_bfloat16* x8,
+                                               int t) {
+        A a;
+        a.r[0] = word(x0 + 2 * t);
+        a.r[1] = word(x8 + 2 * t);
+        a.r[2] = word(x0 + 2 * t + 8);
+        a.r[3] = word(x8 + 2 * t + 8);
+        return a;
+    }
+    // H of layer-1 tiles 2kk and 2kk + 1 (hidden 16kk .. 16kk + 15 of the
+    // chunk), rounded to bf16 here
+    static __device__ __forceinline__ A from_h(const float (*h)[4], int kk) {
+        A a;
+        a.r[0] = pack(h[2 * kk][0], h[2 * kk][1]);
+        a.r[1] = pack(h[2 * kk][2], h[2 * kk][3]);
+        a.r[2] = pack(h[2 * kk + 1][0], h[2 * kk + 1][1]);
+        a.r[3] = pack(h[2 * kk + 1][2], h[2 * kk + 1][3]);
+        return a;
+    }
+    static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+        const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+        return *reinterpret_cast<const uint32_t*>(&v);
+    }
+};
 
 template <typename T, int K>
-__global__ void __launch_bounds__(THREADS, 2) sph_mlp_kernel(
+__global__ void __launch_bounds__(NW_MAX * 32, 1) sph_mlp_kernel(
     const T* __restrict__ S, long long ld_s,
     const T* __restrict__ ga, long long ld_ga,
     const T* __restrict__ w1k,  // [IN, hid]
@@ -118,104 +317,203 @@ __global__ void __launch_bounds__(THREADS, 2) sph_mlp_kernel(
     float* __restrict__ gate, float* __restrict__ delta,
     float* __restrict__ mult)
 {
-    constexpr int KP = Pad<K>::KP;
-    extern __shared__ float4 smem4[];
-    float* w1s = reinterpret_cast<float*>(smem4);  // [hid, IN]
-    float* w2s = w1s + hid * IN;                   // [hid, KP]
-    float* b1s = w2s + hid * KP;                   // [hid]
+    using C = Mlp<T>;
+    using Fr = Frag<T>;
+    constexpr int KS = C::KS;
+    constexpr int XS = C::XS;
+    constexpr int NO = (K + 7) / 8;     // n8 output tiles
+    constexpr int HC = C::HC;
+    constexpr int NJ = HC / 8;          // n8 tiles of a chunk
+    const Layout<T, K> lay(hid);
+    const int hidP = lay.hidP;
+    const int w2s_ld = hidP + C::W2PAD;
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* w1s = reinterpret_cast<T*>(smem);
+    T* w2s = reinterpret_cast<T*>(smem + lay.w2);
+    float* b1s = reinterpret_cast<float*>(smem + lay.b1);
+    float* b2s = reinterpret_cast<float*>(smem + lay.b2);
 
-    for (int i = threadIdx.x; i < IN * hid; i += THREADS) {
-        const int k = i / hid, j = i - k * hid;  // coalesced over j
-        w1s[j * IN + k] = to_f32(w1k[i]);
-    }
-    for (int i = threadIdx.x; i < hid * KP; i += THREADS) {
-        const int j = i / KP, o = i - j * KP;
-        w2s[i] = o < K ? to_f32(w2[j * K + o]) : 0.0f;
-    }
-    for (int j = threadIdx.x; j < hid; j += THREADS) b1s[j] = b1[j];
+    // ---- the weights, once: W1k^T, W2^T (f32: rows permuted), b1, b2 ----
+    stage<T>(IN * hidP, [&](int i) {
+        const int k = i / hidP, j = i - k * hidP;  // coalesced over j
+        return j < hid ? w1k[(size_t)k * hid + j] : zero<T>();
+    }, [&](int i, T v) {
+        const int k = i / hidP, j = i - k * hidP;
+        w1s[j * XS + k] = v;
+    });
+    stage<T>(NO * 8 * hidP, [&](int i) {
+        const int o = i / hidP, p = i - o * hidP, q = p & 7;
+        const int hu = sizeof(T) == 4 ? (p - q) + (q < 4 ? 2 * q : 2 * q - 7)
+                                      : p;
+        return o < K && hu < hid ? w2[(size_t)hu * K + o] : zero<T>();
+    }, [&](int i, T v) { w2s[i / hidP * w2s_ld + i % hidP] = v; });
+    stage<float>(hidP, [&](int j) { return j < hid ? b1[j] : 0.0f; },
+                 [&](int j, float v) { b1s[j] = v; });
+    stage<float>(NO * 8, [&](int o) { return o < K ? b2[o] : 0.0f; },
+                 [&](int o, float v) { b2s[o] = v; });
     __syncthreads();
 
-    const long long stride = (long long)gridDim.x * THREADS;
-    for (long long item = (long long)blockIdx.x * THREADS + threadIdx.x;
-         item < n; item += stride) {
-        float x[IN];
-        load16(S + item * ld_s, x);
-        load16(ga + item * ld_ga, x + F);
-        load16(ga + item * ld_ga + F, x + 2 * F);
-        float o[KP];  // the pad columns stay unused
-#pragma unroll
-        for (int k = 0; k < KP; ++k) o[k] = k < K ? b2[k] : 0.0f;
+    const int nw = blockDim.x / 32;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    T* xw = reinterpret_cast<T*>(smem + lay.x) + (size_t)warp * 2 * ITEMS * XS;
+    const long long ntiles = (n + ITEMS - 1) / ITEMS;
+    const long long stride = (long long)gridDim.x * nw;
+    long long tile = (long long)blockIdx.x * nw + warp;
+    if (tile < ntiles) load_tile(xw, tile, S, ld_s, ga, ld_ga, n, lane);
+    asm volatile("cp.async.commit_group;" ::: "memory");
 
-        for (int j = 0; j < hid; ++j) {
-            const float4* w = reinterpret_cast<const float4*>(w1s + j * IN);
-            float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+    for (int it = 0; tile < ntiles; tile += stride, ++it) {
+        const T* xt = xw + (it & 1) * ITEMS * XS;
+        if (tile + stride < ntiles)
+            load_tile(xw + ((it + 1) & 1) * ITEMS * XS, tile + stride, S,
+                      ld_s, ga, ld_ga, n, lane);
+        asm volatile("cp.async.commit_group;" ::: "memory");
+        asm volatile("cp.async.wait_group 1;" ::: "memory");
+        __syncwarp();
+
+        float o[MT][NO][4];
 #pragma unroll
-            for (int q = 0; q < IN / 4; ++q) {
-                const float4 v = w[q];
-                a0 = fmaf(x[4 * q], v.x, a0);
-                a1 = fmaf(x[4 * q + 1], v.y, a1);
-                a2 = fmaf(x[4 * q + 2], v.z, a2);
-                a3 = fmaf(x[4 * q + 3], v.w, a3);
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int j = 0; j < NO; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[m][j][e] = 0.0f;
+
+        for (int h0 = 0; h0 < hidP; h0 += HC) {
+            // ---- layer 1: Z = X @ W1k[:, h0 .. h0 + HC) ----
+            float z[MT][NJ][4];
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+#pragma unroll
+                for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) z[m][j][e] = 0.0f;
+#pragma unroll
+            for (int k0 = 0; k0 < IN; k0 += KS) {
+                // each step's shared-memory reads stay in it: hoisting them
+                // across steps took 255 registers and spilled (f32, K = 33)
+                asm volatile("" ::: "memory");
+                typename Fr::A a[MT];
+#pragma unroll
+                for (int m = 0; m < MT; ++m)
+                    a[m] = Fr::from_x(xt + (m * 16 + g) * XS + k0,
+                                      xt + (m * 16 + g + 8) * XS + k0, t);
+#pragma unroll
+                for (int j = 0; j < NJ; ++j) {
+                    typename Fr::B bw;
+                    bw.load(w1s + (h0 + 8 * j + g) * XS + k0, t);
+#pragma unroll
+                    for (int m = 0; m < MT; ++m) step(z[m][j], a[m], bw);
+                }
             }
-            const float hj =
-                round_to<T>(fmaxf((a0 + a1) + (a2 + a3) + b1s[j], 0.0f));
-            const float4* u = reinterpret_cast<const float4*>(w2s + j * KP);
+            // ---- H = relu(Z + b1), in registers ----
 #pragma unroll
-            for (int q = 0; q < KP / 4; ++q) {
-                const float4 v = u[q];
-                if (4 * q < K) o[4 * q] = fmaf(hj, v.x, o[4 * q]);
-                if (4 * q + 1 < K) o[4 * q + 1] = fmaf(hj, v.y, o[4 * q + 1]);
-                if (4 * q + 2 < K) o[4 * q + 2] = fmaf(hj, v.z, o[4 * q + 2]);
-                if (4 * q + 3 < K) o[4 * q + 3] = fmaf(hj, v.w, o[4 * q + 3]);
+            for (int j = 0; j < NJ; ++j) {
+                const float2 bb = *reinterpret_cast<const float2*>(
+                    b1s + h0 + 8 * j + 2 * t);
+#pragma unroll
+                for (int m = 0; m < MT; ++m) {
+                    z[m][j][0] = fmaxf(z[m][j][0] + bb.x, 0.0f);
+                    z[m][j][1] = fmaxf(z[m][j][1] + bb.y, 0.0f);
+                    z[m][j][2] = fmaxf(z[m][j][2] + bb.x, 0.0f);
+                    z[m][j][3] = fmaxf(z[m][j][3] + bb.y, 0.0f);
+                }
+            }
+            // ---- layer 2: O += H @ W2[h0 .. h0 + HC, :] ----
+#pragma unroll
+            for (int kk = 0; kk < HC / KS; ++kk) {
+                asm volatile("" ::: "memory");
+                typename Fr::A a[MT];
+#pragma unroll
+                for (int m = 0; m < MT; ++m) a[m] = Fr::from_h(z[m], kk);
+#pragma unroll
+                for (int j = 0; j < NO; ++j) {
+                    typename Fr::B bw;
+                    bw.load(w2s + (j * 8 + g) * w2s_ld + h0 + kk * KS, t);
+#pragma unroll
+                    for (int m = 0; m < MT; ++m) step(o[m][j], a[m], bw);
+                }
             }
         }
+        __syncwarp();  // the tile's X rows are read: its buffer may refill
 
-        float4* g = reinterpret_cast<float4*>(gate + item * F);
+        // ---- O + b2 -> gate | delta | mult ----
 #pragma unroll
-        for (int q = 0; q < F / 4; ++q)
-            g[q] = make_float4(o[4 * q], o[4 * q + 1], o[4 * q + 2],
-                               o[4 * q + 3]);
-        if constexpr (K == 2 * F + 1) {
-            float4* d = reinterpret_cast<float4*>(delta + item * F);
+        for (int m = 0; m < MT; ++m) {
 #pragma unroll
-            for (int q = 0; q < F / 4; ++q)
-                d[q] = make_float4(o[F + 4 * q], o[F + 4 * q + 1],
-                                   o[F + 4 * q + 2], o[F + 4 * q + 3]);
-            mult[item] = o[2 * F];
+            for (int up = 0; up < 2; ++up) {
+                const long long item = tile * ITEMS + m * 16 + g + 8 * up;
+                if (item >= n) continue;
+#pragma unroll
+                for (int j = 0; j < NO; ++j) {
+                    const int col = j * 8 + 2 * t;
+                    const float v0 = o[m][j][2 * up] + b2s[col];
+                    const float v1 = o[m][j][2 * up + 1] + b2s[col + 1];
+                    if (col < F) {
+                        *reinterpret_cast<float2*>(gate + item * F + col) =
+                            make_float2(v0, v1);
+                    } else if (col < 2 * F) {
+                        *reinterpret_cast<float2*>(
+                            delta + item * F + col - F) = make_float2(v0, v1);
+                    } else if (col == 2 * F) {
+                        mult[item] = v0;
+                    }
+                }
+            }
         }
     }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// The blocks that fit on the card at once for (device, hid), worked out on
-// the first launch of each pair: the dynamic shared memory limit is raised to
-// what HID_MAX needs (so one setting serves every hid) and the occupancy
-// calculator gives the blocks per SM. Later launches read the cache and skip
-// those runtime calls.
+// The launch shape for (device, hid) of one instantiation, worked out on its
+// first launch: the warps a block (up to NW_MAX, as many as the weights leave
+// shared memory for), the dynamic shared memory, and the blocks that fit on
+// the card at once (the occupancy calculator). Later launches read the cache.
+struct Shape {
+    int nw, smem;
+    long long most;
+};
+
 template <typename T, int K>
-cudaError_t resident_blocks(int dev, int hid, size_t smem, long long* most)
+cudaError_t launch_shape(int dev, int hid, Shape* out)
 {
     static std::mutex mu;
-    static std::map<std::pair<int, int>, long long> cache;
+    static std::map<std::pair<int, int>, Shape> cache;
     std::lock_guard<std::mutex> lock(mu);
     const auto it = cache.find({dev, hid});
     if (it != cache.end()) {
-        *most = it->second;
+        *out = it->second;
         return cudaSuccess;
     }
     auto kern = sph_mlp_kernel<T, K>;
-    int sms = 0, per_sm = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(float) * smem_floats<K>(HID_MAX)));
+    cudaFuncAttributes fa;
+    int optin = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncGetAttributes(&fa, kern);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
     if (err != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-        return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kern, THREADS, smem)) != cudaSuccess)
+    const int room = optin - (int)fa.sharedSizeBytes;
+    const Layout<T, K> lay(hid);
+    int nw = NW_MAX;
+    while (nw > 1 && lay.bytes(nw) > room) --nw;
+    if (lay.bytes(nw) > room) return cudaErrorInvalidValue;
+    Shape sh{nw, lay.bytes(nw), 0};
+    if ((err = cudaFuncSetAttribute(
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, room))
+            != cudaSuccess
+        || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kern, 32 * nw, sh.smem)) != cudaSuccess)
         return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    *most = cache[{dev, hid}] = (long long)sms * per_sm;
+    sh.most = (long long)sms * per_sm;
+    *out = cache[{dev, hid}] = sh;
     return cudaSuccess;
 }
 
@@ -225,16 +523,15 @@ int mlp(const void* S, long long ld_s, const void* ga, long long ld_ga,
         long long n, int hid, float* gate, float* delta, float* mult,
         cudaStream_t st)
 {
-    const size_t smem = sizeof(float) * smem_floats<K>(hid);
     int dev = 0;
-    long long most = 0;
+    Shape sh;
     cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = launch_shape<T, K>(dev, hid, &sh);
     if (err != cudaSuccess) return (int)err;
-    if ((err = resident_blocks<T, K>(dev, hid, smem, &most)) != cudaSuccess)
-        return (int)err;
-    const long long need = (n + THREADS - 1) / THREADS;
-    const int blocks = (int)(need < most ? need : most);
-    sph_mlp_kernel<T, K><<<blocks, THREADS, smem, st>>>(
+    const long long tiles = (n + ITEMS - 1) / ITEMS;
+    const long long need = (tiles + sh.nw - 1) / sh.nw;
+    const int blocks = (int)(need < sh.most ? need : sh.most);
+    sph_mlp_kernel<T, K><<<blocks, 32 * sh.nw, sh.smem, st>>>(
         static_cast<const T*>(S), ld_s, static_cast<const T*>(ga), ld_ga,
         static_cast<const T*>(w1k), b1, static_cast<const T*>(w2), b2, n, hid,
         gate, delta, mult);

@@ -106,14 +106,39 @@
 // the sample's place in its tile (the k order is the block's and W's only),
 // so one launch of B samples equals B launches of one, bit for bit.
 //
-// ---- sph_mask_tab_kernel and sph_blur_tab_kernel -----------------------
+// ---- sph_mask_tab_kernel ------------------------------------------------
 //
-// Matrix-vector shaped: one thread block (256 threads) per (block, sample);
-// one warp per 8 rows reads its rows 16 bytes a lane straight from device
-// memory (a 512-byte coalesced load per row and step) against a 256-slot
-// chunk of the right-hand side staged f-major in shared memory. They read
-// the table once per sample (the sample tiles above would read it once per
-// tile; ROADMAP).
+// Bound on this card. At the training shapes (f32 tables, B = 8) a call must
+// read w6 once (46.3 MB, ~0.014 ms at 3.35 TB/s); its products are 2 * 64 *
+// 180,752 * 8 = 0.19 GFLOP, ~3 us at the fp32 CUDA-core rate. Bound by
+// BYTES: the table read, once per sample tile. The tensor cores are not
+// needed: each 16-byte table read feeds 8 samples x 4 (f32) or 8 (bf16)
+// FMAs.
+//
+// The design is 2.4's: a thread block owns half a block's rows and a tile of
+// BT = 8 samples (a second instantiation takes 2 for B <= 2, the surface
+// path), so each table tile is read once per sample tile; the grid (2 nb,
+// ceil(B / BT)) gives 474 + 158 thread blocks at the training shapes (one
+// launch a bucket). A stage is the half's 32 rows x 512 bytes of w6 (128 f32
+// or 256 bf16 slots), one TMA box, unswizzled; the stages stream through a
+// ring of NS = 3 (2.4's Ring, tma_4d and table map), and three blocks an SM
+// (__launch_bounds__(256, 3)) keep up to 144 KB of table in flight on each
+// SM, where Little's law at 3.35 TB/s and ~1 us asks for ~25 KB. Stages of
+// 512-byte rows, where 2.4 takes 128, cut the ring round trips a block waits
+// on fourfold: a block's rows are only 536-1000 slots wide. The alive
+// column, a gathered channel of the state, is outside the TMA's reach; the
+// block gathers it one chunk of 256 slots ahead into shared memory (see the
+// kernel). Per thread block (f32 or bf16, B = 8): 66,560 B of dynamic
+// shared memory and the window's cells. ptxas (sm_90a, CUDA 12.8): 72
+// registers (f32, 8-sample tiles), 48 (f32, 2), 80 with 48 bytes spilled
+// (bf16, 8), 71 (bf16, 2); chip_smoke.py prints the counts of the build it
+// runs.
+//
+// ---- sph_blur_tab_kernel ---------------------------------------------------
+//
+// Matrix-vector shaped, one thread block per (block, sample), the table read
+// straight from device memory once per sample (see the kernel; the mask's
+// sample tiles would suit it too: ROADMAP).
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
 #include <cuda_runtime.h>
@@ -126,16 +151,18 @@
 #include <tuple>
 #include <utility>
 
+#include "mma_util.cuh"
+
 
 namespace {
 
 constexpr int P = 64;          // block rows
-constexpr int THREADS = 256;   // mask, blur
-constexpr int CH = THREADS;    // window slots per staged chunk (mask, blur)
+constexpr int THREADS = 256;   // blur
+constexpr int CH = THREADS;    // window slots per staged chunk (blur)
 constexpr int WARPS = THREADS / 32;
-constexpr int RPW = P / WARPS; // rows per warp (mask, blur)
+constexpr int RPW = P / WARPS; // rows per warp (blur)
 
-// fwd / bwd
+// fwd / bwd / mask
 constexpr int FF = 16;         // features
 constexpr int BT = 8;          // samples per tile (and an n8 tile's)
 constexpr int HALF = P / 2;    // rows of a block per thread block
@@ -233,7 +260,7 @@ __device__ __forceinline__ float tab_ld(const unsigned char* p) {
     }
 }
 
-// ---- PTX: mbarriers, bulk and tensor copies, TF32 mma --------------------
+// ---- PTX: mbarriers, bulk and tensor copies ------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
@@ -300,42 +327,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
         : "memory");
 }
 
-// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero, as
-// cvt.rna.tf32.f32) by integer arithmetic on the full-rate ALUs
-__device__ __forceinline__ uint32_t rna_tf32(float x) {
-    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = big + small in TF32: big = rna(x), small = rna(x - big), to ~2^-22 of x
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-    big = rna_tf32(x);
-    small = rna_tf32(x - __uint_as_float(big));
-}
-
-// c += a b
-__device__ __forceinline__ void mma_tf32_acc(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = a b: a the m16 x k8 A fragment (a0 (g, t), a1 (g+8, t), a2 (g, t+4),
-// a3 (g+8, t+4)), b the k8 x n8 B fragment (b0 (t, g), b1 (t+4, g)), c the
-// m16 x n8 sums (c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)),
-// g = lane / 4, t = lane % 4
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-    asm(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-          "f"(0.0f));
-}
-
 // The A fragment of the m16 tile at rows r0.. (a multiple of 16) and the k8
 // step at k0 of a table tile. load() reads it (into big, as f32 bits) and
 // tells, warp-wide, whether any entry is nonzero: most 16 x 8 tiles of a
@@ -392,11 +383,6 @@ __device__ __forceinline__ void product(int pass, float* c,
     } else {
         mma_tf32(c, a.big, bs[0], bs[1]);
     }
-}
-
-__device__ __forceinline__ void add4(float* acc, const float* c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[e] += c[e];
 }
 
 // Stage ring: the dynamic shared memory, 1024-byte aligned (NS stages of
@@ -787,19 +773,192 @@ __global__ void __launch_bounds__(TAB_THREADS, 2) sph_bwd_tab_kernel(
     }
 }
 
-// The body of the mask and blur kernels:
-// out[p, :] = scale * sum_w w6[p, w] rhs[w, :], with rhs[w, :] built from the
-// window: MASK: rhs = sig_w v_w alive_w (F = 1, alive from channel 3 of the
-// FX-channel state X, or v_w > 0), scale 1; else rhs = v_w X_w (FX = F),
-// scale sig_w.
-template <typename T, int F, bool MASK>
-__device__ __forceinline__ void rows_tab_body(
+// sph_mask_tab_kernel: sm[y, b, p] = sum_w w6[b, p, w] col[y, w], col[y, w] =
+// sig_w v_w alive_w (alive from channel 3 of the F-channel state S, or v_w >
+// 0). A thread block owns one half of a block's rows and a tile of BTC
+// samples (8, or 2 for B <= 2); the grid is (2 nb, ceil(B / BTC)). A stage is
+// the half's 32 rows x SEG = 512 bytes of w6 (TW = 128 f32 / 256 bf16 slots),
+// one TMA box, unswizzled; stages stream through the ring (Ring above; the
+// warp that leaves a stage last refills it). The column is not in the TMA's
+// reach (a gathered channel of the state): the block's threads gather it,
+// one chunk of CHUNK slots ahead, for the tile's samples into a double
+// buffer [2][BTC][CHUNK]: a thread loads slot w's volume and the samples'
+// channel 3 at the start of a chunk, keeps them in registers while the
+// chunk's stages are summed, and writes the column at its end (one
+// __syncthreads a chunk). Warp w sums rows 4w .. 4w + 3, lane q the 16-byte
+// piece q of each (a warp reads 512 contiguous bytes a row: no bank
+// conflicts), against the samples' columns: each table read feeds BTC x 4
+// (f32) or BTC x 8 (bf16) FMAs, each column read 4 rows. The 32 pieces of a
+// row are added by a butterfly of shuffles. Every sum of a sample is taken in
+// the same order whatever B and the sample's place in its tile, so one
+// launch of B samples equals B launches of one, bit for bit.
+template <typename T, int BTC>
+struct MaskStage {
+    static constexpr int SEG = 512;                   // bytes of a row
+    static constexpr int TW = SEG / (int)sizeof(T);   // slots of a stage
+    static constexpr int BYTES = HALF * SEG;          // one w6 box
+    static constexpr int NS = 3;
+    static constexpr int CHUNK = TAB_THREADS;         // column slots a chunk
+    static constexpr int COL = CHUNK * BTC * 4;       // one column buffer
+    static constexpr int RPW = HALF / WARPS_T;        // rows a warp
+    __host__ __device__ static constexpr int cells(int Wu) {
+        return (Wu * 4 + 15) / 16 * 16;
+    }
+    // dynamic shared memory of a launch: 1024 bytes of alignment slack, the
+    // stages, the window's Wu cell indices and the two column buffers
+    static constexpr int smem(int Wu) {
+        return 1024 + NS * BYTES + cells(Wu) + 2 * COL;
+    }
+    static_assert(CHUNK % TW == 0, "a chunk holds whole stages");
+};
+
+template <typename T, int BTC>
+__global__ void __launch_bounds__(TAB_THREADS, 3) sph_mask_tab_kernel(
+    const __grid_constant__ CUtensorMap w6_map,  // w6 as [nb, 2, 32, W]
+    const float* __restrict__ S,       // [B][C*M, F]
+    long long s_bs, int F,
+    const float* __restrict__ vw_b,    // [nb, W]
+    const int* __restrict__ win,       // [nb, Wu] window cells
+    int B, int M, int W, int Wu, float sig_w, float thr, int use_alpha,
+    float* __restrict__ sm)            // [B, nb, P]
+{
+    using L = MaskStage<T, BTC>;
+    constexpr int TW = L::TW;
+    constexpr int NS = L::NS;
+    constexpr int CHUNK = L::CHUNK;
+    constexpr int SPC = CHUNK / TW;    // stages a chunk
+    constexpr int RPW = L::RPW;
+    constexpr int V = Vec<T>::N;       // slots of a 16-byte piece
+    extern __shared__ unsigned char dyn[];
+    __shared__ uint64_t bars[NS];
+    __shared__ int counts[NS];
+    Ring<NS> ring;
+    const int b = blockIdx.x / 2;
+    const int hh = blockIdx.x % 2;        // rows hh*32 .. hh*32+31
+    ring.init(dyn, L::BYTES, bars, counts, win + (size_t)b * Wu, Wu);
+    float* col = reinterpret_cast<float*>(ring.base + NS * L::BYTES
+                                          + L::cells(Wu));
+
+    const int nb = gridDim.x / 2;
+    const int y0 = blockIdx.y * BTC;      // first sample of the tile
+    const int nbt = min(BTC, B - y0);     // samples of this tile
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int nt = (W + TW - 1) / TW;
+    const int nc = (W + CHUNK - 1) / CHUNK;
+
+    const uint64_t pol = evict_first_policy();
+    auto issue = [&](int k) {  // one thread: the w6 box of stage k
+        const int s = k % NS;
+        bar_expect(&ring.full[s], L::BYTES);
+        tma_4d(ring.base + s * L::BYTES, &w6_map, k * TW, 0, hh, b,
+               &ring.full[s], pol);
+    };
+    if (threadIdx.x == 0)
+        for (int k = 0; k < min(NS, nt); ++k) issue(k);
+
+    // ---- the column: slot w = j CHUNK + thread of chunk j ----
+    float vol = 0.0f, alpha[BTC];
+    auto gather = [&](int j) {  // the loads, left in flight
+        const int w = j * CHUNK + threadIdx.x;
+        vol = w < W ? vw_b[(size_t)b * W + w] : 0.0f;
+        const size_t row = use_alpha && w < W
+            ? (size_t)ring.cells[w / M] * M + w % M : 0;
+#pragma unroll
+        for (int s = 0; s < BTC; ++s)
+            alpha[s] = use_alpha && w < W && s < nbt
+                ? S[(size_t)(y0 + s) * s_bs + row * F + 3] : 0.0f;
+    };
+    auto store = [&](int j) {
+        float* cb = col + (j & 1) * BTC * CHUNK + threadIdx.x;
+#pragma unroll
+        for (int s = 0; s < BTC; ++s) {
+            const bool alive = use_alpha ? alpha[s] > thr : vol > 0.0f;
+            cb[s * CHUNK] = alive && s < nbt ? sig_w * vol : 0.0f;
+        }
+    };
+    gather(0);
+    store(0);
+    __syncthreads();
+
+    // ---- products: warp rows RPW * warp .., lane the 16-byte piece ----
+    float acc[RPW][BTC];
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+        for (int s = 0; s < BTC; ++s) acc[i][s] = 0.0f;
+
+    for (int it = 0; it < nt; ++it) {
+        const int j = it / SPC;
+        if (it % SPC == 0 && j + 1 < nc) gather(j + 1);
+        const int s = it % NS;
+        bar_wait(&ring.full[s], (it / NS) & 1);
+        const unsigned char* rows = ring.base + s * L::BYTES
+            + warp * RPW * L::SEG + lane * 16;
+        float tv[RPW][V];
+#pragma unroll
+        for (int i = 0; i < RPW; ++i)
+            unpack16(*reinterpret_cast<const uint4*>(rows + i * L::SEG),
+                     tv[i], T());
+        const float* cb = col + (j & 1) * BTC * CHUNK + (it % SPC) * TW
+            + lane * V;
+#pragma unroll
+        for (int smp = 0; smp < BTC; ++smp) {
+            if (smp >= nbt) break;
+#pragma unroll
+            for (int e = 0; e < V; e += 4) {
+                const float4 c4 =
+                    *reinterpret_cast<const float4*>(cb + smp * CHUNK + e);
+#pragma unroll
+                for (int i = 0; i < RPW; ++i) {
+                    acc[i][smp] = fmaf(tv[i][e], c4.x, acc[i][smp]);
+                    acc[i][smp] = fmaf(tv[i][e + 1], c4.y, acc[i][smp]);
+                    acc[i][smp] = fmaf(tv[i][e + 2], c4.z, acc[i][smp]);
+                    acc[i][smp] = fmaf(tv[i][e + 3], c4.w, acc[i][smp]);
+                }
+            }
+        }
+        if (ring.leave(s, lane) && lane == 0 && it + NS < nt) issue(it + NS);
+        if (it % SPC == SPC - 1 || it == nt - 1) {  // the chunk's last stage
+            if (j + 1 < nc) store(j + 1);
+            __syncthreads();
+        }
+    }
+
+    // ---- the 32 pieces of a row, added by a butterfly (the same sum in
+    // every lane); lane i * BTC + s stores (row i, sample s) ----
+    float out = 0.0f;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i)
+#pragma unroll
+        for (int smp = 0; smp < BTC; ++smp) {
+            float v = acc[i][smp];
+#pragma unroll
+            for (int off = 1; off < 32; off *= 2)
+                v += __shfl_xor_sync(0xffffffffu, v, off);
+            if (lane == i * BTC + smp) out = v;
+        }
+    const int i = lane / BTC, smp = lane % BTC;
+    if (i < RPW && smp < nbt)
+        sm[((size_t)(y0 + smp) * nb + b) * P + hh * HALF + warp * RPW + i] =
+            out;
+}
+
+// sph_blur_tab_kernel: out[p, :] = sig_w sum_w w6[p, w] (v_w X_w)[:], F
+// features. Matrix-vector shaped: one thread block (256 threads) per (block,
+// sample); one warp per 8 rows reads its rows 16 bytes a lane straight from
+// device memory (a 512-byte coalesced load per row and step) against a
+// 256-slot chunk of the right-hand side staged f-major in shared memory. It
+// reads the table once per sample (the mask's sample tiles would read it
+// once per tile; ROADMAP).
+template <typename T, int F>
+__global__ void __launch_bounds__(THREADS) sph_blur_tab_kernel(
     const T* __restrict__ w6,          // [nb, P, W]
-    const float* __restrict__ X,       // [B][C*M, FX]
-    long long x_bs, int FX,
+    const float* __restrict__ X,       // [B][C*M, F]
+    long long x_bs,
     const float* __restrict__ vw_b,    // [nb, W]
     const int* __restrict__ win,       // [nb, Wu]
-    int M, int W, int Wu, float sig_w, float thr, int use_alpha,
+    int M, int W, int Wu, float sig_w,
     float* __restrict__ out)           // [B, nb, P, F]
 {
     constexpr int V = Vec<T>::N;
@@ -825,22 +984,11 @@ __device__ __forceinline__ void rows_tab_body(
     for (int c0 = 0; c0 < W; c0 += CH) {
         __syncthreads();
         const int w = c0 + tid;
-        if (MASK) {
-            float c = 0.0f;
-            if (w < W) {
-                const float v = vw[w];
-                const bool alive = use_alpha
-                    ? Xy[win_row(wc, w, M) * FX + 3] > thr : v > 0.0f;
-                c = alive ? sig_w * v : 0.0f;
-            }
-            s_rhs[0][tid] = c;
-        } else {
-            const size_t src = w < W ? win_row(wc, w, M) * FX : 0;
-            const float v = w < W ? vw[w] : 0.0f;
+        const size_t src = w < W ? win_row(wc, w, M) * F : 0;
+        const float v = w < W ? vw[w] : 0.0f;
 #pragma unroll
-            for (int f = 0; f < F; ++f)
-                s_rhs[f][tid] = w < W ? v * Xy[src + f] : 0.0f;
-        }
+        for (int f = 0; f < F; ++f)
+            s_rhs[f][tid] = w < W ? v * Xy[src + f] : 0.0f;
         __syncthreads();
 
         const int n = min(CH, W - c0);  // a multiple of 8
@@ -881,30 +1029,9 @@ __device__ __forceinline__ void rows_tab_body(
             for (int off = 16; off > 0; off /= 2)
                 v += __shfl_xor_sync(0xffffffffu, v, off);
             if (lane == 0)
-                out[(blk * P + warp * RPW + r) * F + f] = MASK ? v : sig_w * v;
+                out[(blk * P + warp * RPW + r) * F + f] = sig_w * v;
         }
     }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS) sph_mask_tab_kernel(
-    const T* __restrict__ w6, const float* __restrict__ S, long long s_bs,
-    int F, const float* __restrict__ vw_b, const int* __restrict__ win,
-    int M, int W, int Wu, float sig_w, float thr, int use_alpha,
-    float* __restrict__ sm)
-{
-    rows_tab_body<T, 1, true>(w6, S, s_bs, F, vw_b, win, M, W, Wu, sig_w, thr,
-                              use_alpha, sm);
-}
-
-template <typename T, int F>
-__global__ void __launch_bounds__(THREADS) sph_blur_tab_kernel(
-    const T* __restrict__ w6, const float* __restrict__ X, long long x_bs,
-    const float* __restrict__ vw_b, const int* __restrict__ win,
-    int M, int W, int Wu, float sig_w, float* __restrict__ out)
-{
-    rows_tab_body<T, F, false>(w6, X, x_bs, F, vw_b, win, M, W, Wu, sig_w,
-                               0.0f, 0, out);
 }
 
 bool bad_grid(int P_, int nb, int B, int W, int M) {
@@ -966,7 +1093,8 @@ cudaError_t table_map(CUtensorMap* map, const void* table, int nb, int groups,
     cudaError_t err = encode_tiled(&enc);
     if (err != cudaSuccess) return err;
     constexpr int ROWB = TW * (int)sizeof(T);
-    const CUtensorMapSwizzle sw = ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+    const CUtensorMapSwizzle sw = ROWB > 128 ? CU_TENSOR_MAP_SWIZZLE_NONE
+        : ROWB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
         : ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
     const CUtensorMapDataType dt = sizeof(T) == 4
         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -1107,15 +1235,32 @@ int bwd_tab_d(int D, const void* md, const float* vs, const float* gsum,
              st);
 }
 
-template <typename T>
+template <typename T, int BTC>
 int mask_tab(const void* w6, const float* S, long long s_bs, int F,
              const float* vw, const int* win, int B, int nb, int M, int W,
              int Wu, float sig_w, float thr, int use_alpha, float* sm,
              cudaStream_t st) {
-    sph_mask_tab_kernel<T><<<dim3(nb, B), THREADS, 0, st>>>(
-        static_cast<const T*>(w6), S, s_bs, F, vw, win, M, W, Wu, sig_w, thr,
-        use_alpha, sm);
+    using L = MaskStage<T, BTC>;
+    CUtensorMap w6_map;
+    cudaError_t err = table_map<T, L::TW>(&w6_map, w6, nb, 1, W);
+    if (err == cudaSuccess)
+        err = allow_smem((const void*)sph_mask_tab_kernel<T, BTC>);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(2 * nb, (B + BTC - 1) / BTC);
+    sph_mask_tab_kernel<T, BTC><<<grid, TAB_THREADS, L::smem(Wu), st>>>(
+        w6_map, S, s_bs, F, vw, win, B, M, W, Wu, sig_w, thr, use_alpha, sm);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int mask_tab_b(const void* w6, const float* S, long long s_bs, int F,
+               const float* vw, const int* win, int B, int nb, int M, int W,
+               int Wu, float sig_w, float thr, int use_alpha, float* sm,
+               cudaStream_t st) {
+    // tiles of 2 samples for B <= 2 (see MaskStage), else of 8
+    auto f = B <= 2 ? mask_tab<T, 2> : mask_tab<T, BT>;
+    return f(w6, S, s_bs, F, vw, win, B, nb, M, W, Wu, sig_w, thr, use_alpha,
+             sm, st);
 }
 
 template <typename T>
@@ -1132,10 +1277,11 @@ int blur_tab(const void* w6, const float* X, long long x_bs, int F,
 
 // Plain C launchers for ctypes: raw device pointers, sizes, sample strides,
 // the table type (0 = float32, 1 = bfloat16) and the caller's stream. The
-// forward and adjoint run on a grid of (2 nb row halves, ceil(B / 8) sample
-// tiles) and take M = 8 slots a cell and 16-byte aligned tables, state,
-// cotangents and volumes; mask and blur on (nb blocks, B samples). Each
-// returns the CUDA error code of its set-up or launch (0 = ok).
+// forward, adjoint and mask run on a grid of (2 nb row halves, tiles of 8
+// samples, or one of 2 for B <= 2) and take 16-byte aligned tables (the
+// forward and adjoint also M = 8 slots a cell and 16-byte aligned state,
+// cotangents and volumes); the blur on (nb blocks, B samples). Each returns
+// the CUDA error code of its set-up or launch (0 = ok).
 
 extern "C" int sph_fwd_tab_launch(
     int bf16, const void* md, const void* w6, const float* gsum,
@@ -1180,10 +1326,10 @@ extern "C" int sph_mask_tab_launch(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (bad_grid(P_, nb, B, W, M) || F < 4) return (int)cudaErrorInvalidValue;
     return bf16
-        ? mask_tab<__nv_bfloat16>(w6, S, s_bs, F, vw, win, B, nb, M, W, Wu,
-                                  sig_w, thr, use_alpha, sm, st)
-        : mask_tab<float>(w6, S, s_bs, F, vw, win, B, nb, M, W, Wu, sig_w,
-                          thr, use_alpha, sm, st);
+        ? mask_tab_b<__nv_bfloat16>(w6, S, s_bs, F, vw, win, B, nb, M, W,
+                                    Wu, sig_w, thr, use_alpha, sm, st)
+        : mask_tab_b<float>(w6, S, s_bs, F, vw, win, B, nb, M, W, Wu, sig_w,
+                            thr, use_alpha, sm, st);
 }
 
 extern "C" int sph_blur_tab_launch(

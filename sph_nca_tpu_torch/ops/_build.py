@@ -4,8 +4,8 @@ One ``nvcc`` process per source in ``sph_nca_tpu_torch/csrc/*.cu``, all started
 together, compiles it for ``sm_90a``; one more links the objects into a shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds). The library lands in ``sph_nca_tpu_torch/_build/`` under a name
-carrying the hash of the sources and flags: it is built at first use and again
-only when a source changes.
+carrying the hash of the sources, their headers (``csrc/*.cuh``) and the flags:
+it is built at first use and again only when one of them changes.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -47,7 +51,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives."""
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

@@ -12,6 +12,8 @@ other orders (the kernel in 4 interleaved partial sums), so gA agrees to
 to 1e-4 absolute (|A| <~ 1).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -323,13 +325,13 @@ def _rand(device, shape, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("dtype", TAB_DTYPES)
-@pytest.mark.parametrize("bsz", [1, 3, 2, 20])
+@pytest.mark.parametrize("bsz", [1, 3, 2, 20, 11])
 def test_table_kernels_match_plain(cuda, dim, dtype, bsz):
     """Each table kernel against its plain version (1e-5 of max: both sum
     the same f32 products of the same upcast table, in other orders), pad
     rows exactly 0, one launch per bucket and call. B = 1 and 2 take the
-    forward and adjoint's 2-sample tiles, 3 one ragged tile of 8, 20 three
-    tiles of 8 with the last ragged."""
+    forward, adjoint and mask's 2-sample tiles, 3 one ragged tile of 8, 20
+    three tiles of 8 with the last ragged, 11 a full tile and a ragged one."""
     eng = _tab_cloud(cuda, dim, dtype)
     c, m, _ = eng.xs.shape
     S = _rand(cuda, (bsz, c, m, 16), 2)
@@ -374,11 +376,11 @@ def test_table_kernels_match_plain(cuda, dim, dtype, bsz):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", TAB_DTYPES)
-@pytest.mark.parametrize("bsz", [8, 2, 20])
+@pytest.mark.parametrize("bsz", [8, 2, 20, 11])
 def test_table_batched_launches_equal_per_sample(cuda, dtype, bsz):
     """One launch of B samples equals B launches of one, bit for bit: 2
     samples in one 2-sample tile, 8 in one tile of 8, 20 in three tiles of 8
-    with the last ragged."""
+    with the last ragged, 11 in a full tile and a ragged one."""
     eng = _tab_cloud(cuda, 3, dtype)
     c, m, _ = eng.xs.shape
     S = _rand(cuda, (bsz, c, m, 16), 5)
@@ -394,6 +396,35 @@ def test_table_batched_launches_equal_per_sample(cuda, dtype, bsz):
         assert torch.equal(mk[b], PK.mask_blur(eng, S[b]))
         assert torch.equal(da[b], PK.gradient_adjoint_dmajor(eng, G[b]))
         assert torch.equal(bl[b], PK.blur_cells(eng, X[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+@pytest.mark.parametrize("bsz", [1, 3, 11])
+def test_mask_kernel_takes_other_channel_counts(cuda, dtype, bsz):
+    """The mask table kernel reads channel 3 of states of any F >= 4 (here
+    5): within 1e-5 of max of its plain version with use_alpha on and off,
+    pad rows exactly 0, one launch a bucket, and one launch of B samples
+    equal to B launches of one, bit for bit."""
+    eng = _tab_cloud(cuda, 3, dtype)
+    c, m, _ = eng.xs.shape
+    S = _rand(cuda, (bsz, c, m, 5), 10)
+    scal = PK.scal_vec(eng)
+    real = (eng.vs > 0).reshape(-1, 64)
+    for lo, hi, win, vw, _, w6 in _tab_buckets(eng):
+        rr = real[lo:hi]
+        for use_alpha in (True, False):
+            n0 = PK.mask_tab_bucket.launches
+            mk = PK.mask_tab_bucket(scal, vw, S, win, w6, use_alpha=use_alpha)
+            assert PK.mask_tab_bucket.launches == n0 + 1
+            mp = PK.mask_tab_bucket_plain(scal, vw, S, win, w6,
+                                          use_alpha=use_alpha)
+            torch.cuda.synchronize()
+            _close(mk, mp, rr.expand(bsz, -1, -1), SM_RTOL)
+            assert torch.all(mk[:, ~rr] == 0)
+            for b in range(bsz):
+                assert torch.equal(mk[b], PK.mask_tab_bucket(
+                    scal, vw, S[b], win, w6, use_alpha=use_alpha))
 
 
 @pytest.mark.cuda
@@ -542,10 +573,20 @@ def _mlp_args(device, dtype, k, hid=256, lead=(3, 40, 8), seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k", [33, 16])
-def test_mlp_kernel_matches_plain(cuda, dtype, k):
+@pytest.mark.parametrize("lead,hid", [
+    ((3, 40, 8), 256),
+    *(((n,), hid) for n in (1, 37, 161_792 + 37) for hid in (100, 256, 512)),
+])
+def test_mlp_kernel_matches_plain(cuda, dtype, k, lead, hid):
+    """The kernel against its plain version, also where n is not a multiple
+    of its 32-item tiles (and below one) and hid not a multiple of its
+    64-unit padding or at the largest it takes. The share of outputs past
+    1e-5 of max is held where there are enough of them: one flipped bf16
+    hidden unit of one item moves several of the few outputs of n <= 37."""
     from sph_nca_tpu_torch.ops import mlp_kernel as MK
 
-    args = _mlp_args(cuda, dtype, k)
+    args = _mlp_args(cuda, dtype, k, hid=hid, lead=lead,
+                     seed=0 if lead == (3, 40, 8) else lead[0] + hid + k)
     n0 = MK.mlp_forward.launches
     got = MK.mlp_forward(*args)
     want = MK.mlp_ref(*args)
@@ -560,7 +601,8 @@ def test_mlp_kernel_matches_plain(cuda, dtype, k):
         scale = float(w.abs().max())
         assert float((g - w).abs().max()) <= MLP_RTOL[dtype] * scale
         past.append(((g - w).abs() > 1e-5 * scale).reshape(-1))
-    assert float(torch.cat(past).float().mean()) <= MLP_FLIP_SHARE
+    share = float(torch.cat(past).float().mean())
+    assert math.prod(lead) < 100 or share <= MLP_FLIP_SHARE
 
 
 @pytest.mark.cuda
