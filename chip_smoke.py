@@ -34,7 +34,8 @@ Phases, each printing one line with its wall time:
                  spills of every kernel instantiation)
   kernels        the recompute forward and mask kernels against their plain
                  PyTorch versions at the gecko 128x128 bucket shapes, both
-                 buckets, use_alpha on and off
+                 buckets, use_alpha on and off; a constant state cancelling
+                 through the recompute forward (|gA| < 1e-4)
   rollout        the inference CLI's 128-step rollout; then 16 steps at
                  fire_rate 1.0 with the kernels and with the plain versions
   batched        the batched gecko: launch counts (fwd_tab, mask_tab and the
@@ -46,7 +47,8 @@ Phases, each printing one line with its wall time:
                  8 unbatched rollout_cells runs
   adjoint        at the training shapes (B = 8): the recompute adjoint kernel
                  against its plain version, and the batched forward and mask
-                 kernels against their plain versions and B = 1 launches
+                 kernels against their plain versions and B = 1 launches; a
+                 constant state cancelling through the recompute forward
   grad           the perception's autograd gradient through the kernels
                  against autograd through the plain forward
   mlp            the update-MLP kernel against its plain version at the
@@ -83,7 +85,11 @@ Phases, each printing one line with its wall time:
   times          each kernel's device time (profiler kernel records) beside
                  its plain version's, its bound and, where one exists, a
                  library call's: the recompute kernels at the training and
-                 gecko inference shapes; the table kernels at the surface
+                 gecko inference shapes (forward and adjoint beside their
+                 first design's recorded times, the table kernels' times on
+                 the same engine, and their bound on their route: geometry
+                 on the CUDA cores, 3 TF32 products on the tensor cores);
+                 the table kernels at the surface
                  path's shapes and (forward, adjoint, mask) at the training
                  shapes beside one torch.bmm a bucket (forward and adjoint
                  beside their first design's recorded times), the forward also at
@@ -172,6 +178,15 @@ CONST_ATOL = 1e-4
 # here (the first design's code is gone) and not in the kernels JSON line
 TAB_RECORDED_MS = {"sph_fwd_tab_kernel": 0.8850,
                    "sph_bwd_tab_kernel": 0.8543}
+# the first design of the recompute forward and adjoint kernels (one thread
+# block a block and sample, the geometry recomputed per sample, fp32 FMAs),
+# as recorded in PERF.md: device ms at the training shapes (B = 8) and, for
+# the forward, the gecko inference shapes (B = 1), on an H100 80GB HBM3 at
+# 700 W. Printed as a record beside the redesigned kernels' times, never
+# measured here (that code is gone) and not in the kernels JSON line
+RC_RECORDED_MS = {("sph_fwd_kernel", "train"): 0.5236,
+                  ("sph_fwd_kernel", "inference"): 0.1184,
+                  ("sph_bwd_kernel", "train"): 0.4673}
 # the batched-lane path at inference: the gecko on bfloat16 pair tables, B = 8
 # rollouts at once with a bfloat16 update MLP (the JAX package's recipe)
 BATCH_B = 8
@@ -375,7 +390,16 @@ def work(eng, bsz: int, f: int = 16):
     bwd_bytes = geo + 4 * (rows + rows * d) + 4 * bsz * (rows * d * f
                                                          + rows * f)
     every = n_all * GEO_EVERY_PAIR
+    fwd_core = every + n_in * GEO_FWD_IN_SUPPORT + bsz * rows * SAMPLE_FWD_ROW
+    bwd_core = (every + n_in * GEO_BWD_IN_SUPPORT + rows * GEO_BWD_ROW
+                + bsz * rows * SAMPLE_BWD_ROW)
     return {"pairs": n_all, "pairs_in_support": n_in,
+            # (bytes, CUDA-core operations, tensor-core products) of the
+            # route the forward and adjoint kernels take (route_bound)
+            "route": {"sph_fwd_kernel": (fwd_bytes, fwd_core,
+                                         bsz * n_in * SAMPLE_FWD_IN_SUPPORT),
+                      "sph_bwd_kernel": (bwd_bytes, bwd_core,
+                                         bsz * n_in * SAMPLE_BWD_IN_SUPPORT)},
             "sph_fwd_kernel": (fwd_bytes, every
                                + n_in * GEO_FWD_IN_SUPPORT
                                + bsz * (n_in * SAMPLE_FWD_IN_SUPPORT
@@ -388,6 +412,16 @@ def work(eng, bsz: int, f: int = 16):
                                + rows * GEO_BWD_ROW
                                + bsz * (n_in * SAMPLE_BWD_IN_SUPPORT
                                         + rows * SAMPLE_BWD_ROW))}
+
+
+def route_bound(nbytes, core_ops, tc_ops):
+    """The least time of a recompute forward or adjoint launch on its route:
+    the bytes over HBM bandwidth against the geometry's and the epilogue's
+    operations on the fp32 CUDA cores plus the products of the pairs within
+    h as 3 TF32 products on the tensor cores (the two times added)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (core_ops / FP32_FLOPS + 3 * tc_ops / TF32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bound(nbytes, ops, peak=FP32_FLOPS):
@@ -799,21 +833,27 @@ def check_tab_kernels(eng, rng, dev) -> dict:
 
 
 def const_field(eng, dev) -> None:
-    """A constant state (1.7 in every channel) through the forward table
-    kernel: |gA| must stay below CONST_ATOL, as the gsum of the quantized
-    table cancels it."""
+    """A constant state (1.7 in every channel) through the forward kernel of
+    ``eng``: |gA| must stay below CONST_ATOL. On a table engine the gsum of
+    the quantized table cancels it (sph_fwd_tab_kernel); on an engine
+    without tables the rowsum of the A tile the kernel computes
+    (sph_fwd_kernel)."""
     S = eng.scatter(torch.full((eng.num_particles, 16), 1.7, device=dev))
     got = {}
     for use_kernels in (True, False):
         ga, _ = PK.fused_perception(eng, S, d_major=True,
                                     use_kernels=use_kernels)
         got[use_kernels] = float(eng.gather_back(ga).abs().max())
-    print(f"  constant field ({str(eng.blk_md.dtype)[6:]} tables): max |gA| "
-          f"{got[True]:.3e} with the kernel, {got[False]:.3e} plain "
-          f"(bound {CONST_ATOL})", flush=True)
+    if eng.blk_md is not None:
+        what = f"{str(eng.blk_md.dtype)[6:]} tables"
+        name = "sph_fwd_tab_kernel"
+    else:
+        what, name = "no tables", "sph_fwd_kernel"
+    print(f"  constant field ({what}): max |gA| {got[True]:.3e} with "
+          f"{name}, {got[False]:.3e} plain (bound {CONST_ATOL})", flush=True)
     if not got[True] < CONST_ATOL:
         fail(f"a constant field leaves |gA| = {got[True]:.3e} >= {CONST_ATOL}"
-             " through sph_fwd_tab_kernel")
+             f" through {name}")
 
 
 def surface_rollout(params, cfg, eng, A0, nrm, t0, steps, h, *,
@@ -1344,8 +1384,9 @@ def main() -> int:
                 fail(f"kernel vs plain out of tolerance (bucket {bucket}, "
                      f"use_alpha={use_alpha}): gA {ga_rel:.3e} > {GA_RTOL} "
                      f"or sm {sm_rel:.3e} / {mk_rel:.3e} > {SM_RTOL}")
+    const_field(eng, dev)
     phase("kernels", t0, f"kernel == plain within gA {GA_RTOL} and sm "
-          f"{SM_RTOL} of max, at {shapes}")
+          f"{SM_RTOL} of max, a constant field cancels, at {shapes}")
 
     # ---- the inference path, through its CLI --------------------------
     t0 = time.time()
@@ -1475,8 +1516,10 @@ def main() -> int:
                 and mk_rel <= SM_RTOL and same):
             fail(f"batched forward/mask kernels out of tolerance or unequal "
                  f"to per-sample launches (bucket {bucket})")
+    const_field(teng, dev)
     phase("adjoint", t0, f"sph_bwd_kernel == plain within {DA_RTOL} of max "
-          f"|dA|; batched kernels == plain and == per-sample, at {tshapes}")
+          f"|dA|; batched kernels == plain and == per-sample; a constant "
+          f"field cancels, at {tshapes}")
 
     # ---- the perception's gradient through the kernels ----------------
     t0 = time.time()
@@ -1658,6 +1701,8 @@ def main() -> int:
     need = work(teng, TRAIN_B)
     ineed = work(eng, 1)
     rows = []
+    rc_ms = {}  # the recompute kernels' training-shape times, for the
+    # comparison with the table kernels on the same engine below
     for name, replaces in (
         ("sph_fwd_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:79"),
         ("sph_mask_kernel", "sph_nca_tpu/ops/pallas/pair_kernel.py:625"),
@@ -1668,13 +1713,25 @@ def main() -> int:
         event_ms = cuda_ms(kern)
         nbytes, ops = need[name]
         bound_ms, bound_by = bound(nbytes, ops)
+        route = ""
+        if name in need["route"]:
+            # the fp32 count on the CUDA cores stays on the text line
+            core_ms, core_by = bound_ms, bound_by
+            _, core, tc = need["route"][name]
+            bound_ms, bound_by = route_bound(*need["route"][name])
+            rc_ms[name, "train"] = ms
+            route = (f" on its route ({core / 1e9:.3f} G operations on the "
+                     f"CUDA cores, {3 * tc / 1e9:.3f} G TF32 products on "
+                     f"the tensor cores; {core_ms:.4f} ms by {core_by} "
+                     f"counting all {ops / 1e9:.3f} G as fp32 on the CUDA "
+                     f"cores; first design, recorded: "
+                     f"{RC_RECORDED_MS[name, 'train']:.4f} ms)")
         print(f"  {name} at the training shapes (B={TRAIN_B}, both buckets):"
               f" {ms:.4f} ms device time ({event_ms:.4f} ms by CUDA events "
               f"around the wrapper calls), plain {plain_ms:.4f} ms device "
-              f"time, bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G operations; "
-              f"{need['pairs']} pairs, {need['pairs_in_support']} within h)",
-              flush=True)
+              f"time, bound {bound_ms:.4f} ms by {bound_by}{route} "
+              f"({nbytes / 1e6:.2f} MB; {need['pairs']} pairs, "
+              f"{need['pairs_in_support']} within h)", flush=True)
         # the recompute kernels' training path is the Trainer on the engine
         # without tables (train-recompute phase)
         train = {"shapes": f"train {IMAGE}x{IMAGE} h={TRAIN_H} B={TRAIN_B} "
@@ -1692,12 +1749,22 @@ def main() -> int:
             i_ms, i_plain = device_ms(ik, name), device_ms(ip)
             inbytes, iops = ineed[name]
             i_bound, i_by = bound(inbytes, iops)
+            iroute = ""
+            if name in ineed["route"]:
+                _, icore, itc = ineed["route"][name]
+                iroute = (f" on its route ({icore / 1e9:.3f} G CUDA-core "
+                          f"operations, {3 * itc / 1e9:.3f} G TF32 products; "
+                          f"{i_bound:.4f} ms by {i_by} counting all "
+                          f"{iops / 1e9:.3f} G as fp32; first design, "
+                          f"recorded: "
+                          f"{RC_RECORDED_MS[name, 'inference']:.4f} ms)")
+                i_bound, i_by = route_bound(*ineed["route"][name])
             print(f"  {name} at the gecko inference shapes (B=1): {i_ms:.4f}"
                   f" ms device time ({cuda_ms(ik):.4f} ms by CUDA events), "
-                  f"plain {i_plain:.4f} ms, bound {i_bound:.4f} ms by {i_by} "
-                  f"({inbytes / 1e6:.2f} MB, {iops / 1e9:.3f} G operations; "
-                  f"{ineed['pairs']} pairs, {ineed['pairs_in_support']} "
-                  f"within h)", flush=True)
+                  f"plain {i_plain:.4f} ms, bound {i_bound:.4f} ms by {i_by}"
+                  f"{iroute} ({inbytes / 1e6:.2f} MB; {ineed['pairs']} "
+                  f"pairs, {ineed['pairs_in_support']} within h)",
+                  flush=True)
             row.update({"shapes": f"gecko inference {IMAGE}x{IMAGE} h={h} "
                                   f"B=1",
                         "launches": infer_launches[name],
@@ -1755,6 +1822,18 @@ def main() -> int:
             "launches_path": "train",
             "max_abs_err": ttab_errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+    # the recompute kernels beside the table kernels on the same positions
+    # (this engine with float32 tables): the same function, without the
+    # table read
+    for rc_name, tab_name in (("sph_fwd_kernel", "sph_fwd_tab_kernel"),
+                              ("sph_bwd_kernel", "sph_bwd_tab_kernel")):
+        print(f"  {rc_name} at the training shapes (B={TRAIN_B}): "
+              f"{rc_ms[rc_name, 'train']:.4f} ms device time, {tab_name} on "
+              f"the same engine with float32 tables "
+              f"{train_tab[tab_name]['ms']:.4f} ms (bound "
+              f"{train_tab[tab_name]['bound_ms']:.4f} ms, the table read); "
+              f"the first design of {rc_name}, recorded: "
+              f"{RC_RECORDED_MS[rc_name, 'train']:.4f} ms", flush=True)
     del tteng, SBt, GBt, Xt, tk, tp, tlib
 
     # the forward table kernel at the batched gecko's shapes (bfloat16

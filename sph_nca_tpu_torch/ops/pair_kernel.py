@@ -272,8 +272,9 @@ def _check_cuda(name: str, tensors: dict, win_cells: torch.Tensor) -> None:
 
 
 def _check_aligned(name: str, tensors: dict) -> None:
-    """The forward and adjoint table kernels copy these tensors with the
-    TMA, which needs 16-byte aligned addresses."""
+    """The forward and adjoint kernels (table and recompute) copy these
+    tensors with the TMA or read them 16 bytes at a time, which needs
+    16-byte aligned addresses."""
     for key, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
@@ -302,7 +303,9 @@ def fwd_bucket(scal: Scal, xs_b, ab, xw_b, vw_b, S, win_cells, *,
     xs_b [nb, D, P], ab [B, nb, P, F] (the blocks' own state rows), xw_b
     [nb, D, W], vw_b [nb, W], S [B, C, M, F], win_cells [nb, W/M] int32
     -> (ga [B, nb, P, D*F] d-major, sm [B, nb, P]). The batch axis B may be
-    left out of S and ab together, and is then left out of the outputs.
+    left out of S and ab together, and is then left out of the outputs. The
+    kernel takes P = 64, F = 16, M = 8 and D in {2, 3}, and 16-byte aligned
+    S, xw_b and vw_b.
     """
     dev = _device_of("fwd_bucket", dict(xs_b=xs_b, ab=ab, xw_b=xw_b,
                                         vw_b=vw_b, S=S, win_cells=win_cells))
@@ -321,15 +324,16 @@ def fwd_bucket(scal: Scal, xs_b, ab, xw_b, vw_b, S, win_cells, *,
     w = xw_b.shape[2]
     _check_cuda("fwd_bucket", dict(xs_b=xs_b, xw_b=xw_b, vw_b=vw_b, S=S),
                 win_cells)
-    if (p != 64 or f != 16 or ddim not in (2, 3)
+    if (p != 64 or f != 16 or m != 8 or ddim not in (2, 3)
             or ab.shape != (bsz, nb, p, f)
             or xw_b.shape != (nb, ddim, w) or vw_b.shape != (nb, w)
             or win_cells.shape != (nb, w // m) or w % m):
         raise ValueError(
             f"fwd_bucket: unsupported shapes xs_b {tuple(xs_b.shape)}, ab "
             f"{tuple(ab.shape)}, xw_b {tuple(xw_b.shape)}, S {tuple(S.shape)}"
-            " (the kernel takes P=64, F=16, D in {2, 3})"
+            " (the kernel takes P=64, F=16, M=8, D in {2, 3})"
         )
+    _check_aligned("fwd_bucket", dict(S=S, xw_b=xw_b, vw_b=vw_b))
     ab_bs = _sample_stride("fwd_bucket", "ab", ab)
     ga = torch.empty((bsz, nb, p, ddim * f), dtype=torch.float32, device=dev)
     sm = torch.empty((bsz, nb, p), dtype=torch.float32, device=dev)
@@ -407,7 +411,8 @@ def bwd_bucket(scal: Scal, xs_b, vs_b, gsum_b, gb, xw_b, gflat, win_cells):
     [nb, P, D], gb [B, nb, P, D*F] (the rows' own d-major cotangents), xw_b
     [nb, D, W], gflat [B, C, M, D*F] (the whole cotangent, read through
     win_cells), win_cells [nb, W/M] int32 -> dA [B, nb, P, F]. The batch
-    axis may be left out of gb and gflat together.
+    axis may be left out of gb and gflat together. The kernel takes P = 64,
+    F = 16, M = 8 and D in {2, 3}, and 16-byte aligned gflat and xw_b.
     """
     dev = _device_of("bwd_bucket", dict(xs_b=xs_b, vs_b=vs_b, gsum_b=gsum_b,
                                         gb=gb, xw_b=xw_b, gflat=gflat,
@@ -428,7 +433,8 @@ def bwd_bucket(scal: Scal, xs_b, vs_b, gsum_b, gb, xw_b, gflat, win_cells):
     w = xw_b.shape[2]
     _check_cuda("bwd_bucket", dict(xs_b=xs_b, vs_b=vs_b, gsum_b=gsum_b,
                                    xw_b=xw_b, gflat=gflat), win_cells)
-    if (p != 64 or f != 16 or ddim not in (2, 3) or fd != ddim * f
+    if (p != 64 or f != 16 or m != 8 or ddim not in (2, 3)
+            or fd != ddim * f
             or vs_b.shape != (nb, p) or gsum_b.shape != (nb, p, ddim)
             or gb.shape != (bsz, nb, p, fd)
             or xw_b.shape != (nb, ddim, w)
@@ -436,8 +442,10 @@ def bwd_bucket(scal: Scal, xs_b, vs_b, gsum_b, gb, xw_b, gflat, win_cells):
         raise ValueError(
             f"bwd_bucket: unsupported shapes xs_b {tuple(xs_b.shape)}, gb "
             f"{tuple(gb.shape)}, xw_b {tuple(xw_b.shape)}, gflat "
-            f"{tuple(gflat.shape)} (the kernel takes P=64, F=16, D in {{2, 3}})"
+            f"{tuple(gflat.shape)} (the kernel takes P=64, F=16, M=8, D in "
+            "{2, 3})"
         )
+    _check_aligned("bwd_bucket", dict(gflat=gflat, xw_b=xw_b))
     gb_bs = _sample_stride("bwd_bucket", "gb", gb)
     da = torch.empty((bsz, nb, p, f), dtype=torch.float32, device=dev)
     if nb and bsz:

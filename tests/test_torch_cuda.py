@@ -45,6 +45,21 @@ def _cloud(device, dim=3):
     return eng, S
 
 
+def _rand(device, shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32)).to(device)
+
+
+def _misaligned(x):
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
 def _close(got, want, real, rtol):
     got, want, real = got.cpu(), want.cpu(), real.cpu()
     scale = max(float(want.abs()[real].max()), 1e-30)
@@ -52,21 +67,31 @@ def _close(got, want, real, rtol):
     assert err <= rtol * scale, (err, scale)
 
 
+# Batch sizes of the recompute forward and adjoint: None the unbatched call;
+# 1 and 2 one 2-sample tile, 3 one ragged tile of 8, 8 one full tile, 11 a
+# full tile and a ragged one, 20 three tiles of 8 with the last ragged.
+RC_BATCHES = [None, 1, 2, 3, 8, 11, 20]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [2, 3])
 @pytest.mark.parametrize("use_alpha", [True, False])
-def test_bucket_kernels_match_plain(cuda, dim, use_alpha):
+@pytest.mark.parametrize("bsz", RC_BATCHES)
+def test_bucket_kernels_match_plain(cuda, dim, use_alpha, bsz):
     eng, S = _cloud(cuda, dim)
+    if bsz is not None:
+        S = _rand(cuda, (bsz,) + tuple(S.shape), 12)
+    lead = () if bsz is None else (bsz,)
     scal = PK.scal_vec(eng)
     nb1 = eng.blk_xs.shape[0]
     real = (eng.vs > 0).reshape(-1, 64)
-    rows = S.reshape(-1, 64, 16)
+    rows = S.reshape(*lead, -1, 64, 16)
     n_fwd, n_mask = PK.fwd_bucket.launches, PK.mask_bucket.launches
     for xs_b, xw_b, vw_b, win, ab, rr in (
-        (eng.blk_xs, eng.blk_xw, eng.blk_vw, eng.blk_win_cells, rows[:nb1],
-         real[:nb1]),
+        (eng.blk_xs, eng.blk_xw, eng.blk_vw, eng.blk_win_cells,
+         rows[..., :nb1, :, :], real[:nb1].expand(*lead, -1, -1)),
         (eng.blk2_xs, eng.blk2_xw, eng.blk2_vw, eng.blk2_win_cells,
-         rows[nb1:], real[nb1:]),
+         rows[..., nb1:, :, :], real[nb1:].expand(*lead, -1, -1)),
     ):
         args = (scal, xs_b, ab, xw_b, vw_b, S, win)
         ga_k, sm_k = PK.fwd_bucket(*args, use_alpha=use_alpha)
@@ -111,6 +136,23 @@ def test_wrappers_reject_what_the_kernel_does_not_take(cuda):
         PK.fwd_bucket(*args[:-1], eng.blk_win_cells.long(), use_alpha=True)
     with pytest.raises(ValueError):  # state on the CPU, geometry on the card
         PK.fwd_bucket(*args[:5], S.cpu(), args[6], use_alpha=True)
+    # the TMA and its bulk copies take 16-byte aligned sources
+    S_off = _misaligned(S)
+    with pytest.raises(ValueError):
+        PK.fwd_bucket(*args[:5], S_off, args[6], use_alpha=True)
+    with pytest.raises(ValueError):
+        PK.fwd_bucket(scal, eng.blk_xs, ab, _misaligned(eng.blk_xw),
+                      eng.blk_vw, S, eng.blk_win_cells, use_alpha=True)
+    with pytest.raises(ValueError):
+        PK.fwd_bucket(scal, eng.blk_xs, ab, eng.blk_xw,
+                      _misaligned(eng.blk_vw), S, eng.blk_win_cells,
+                      use_alpha=True)
+    with pytest.raises(ValueError):  # M = 4 slots a cell: the kernel takes 8
+        c, m = S.shape[:2]
+        PK.fwd_bucket(scal, eng.blk_xs, ab, eng.blk_xw, eng.blk_vw,
+                      S.reshape(2 * c, m // 2, 16),
+                      eng.blk_win_cells.repeat_interleave(2, 1).contiguous(),
+                      use_alpha=True)
 
 
 @pytest.mark.cuda
@@ -169,13 +211,15 @@ def _bucket_rows(eng, X, bucket):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [2, 3])
-def test_bwd_kernel_matches_plain(cuda, dim):
+@pytest.mark.parametrize("bsz", RC_BATCHES)
+def test_bwd_kernel_matches_plain(cuda, dim, bsz):
     eng, _ = _cloud(cuda, dim)
+    lead = () if bsz is None else (bsz,)
     G = torch.from_numpy(np.random.default_rng(5).normal(
-        size=tuple(eng.xs.shape[:2]) + (dim * 16,)).astype(np.float32)
+        size=lead + tuple(eng.xs.shape[:2]) + (dim * 16,)).astype(np.float32)
     ).to(cuda)
     scal = PK.scal_vec(eng)
-    real = (eng.vs > 0).reshape(-1, 64)
+    real = (eng.vs > 0).reshape(-1, 64).expand(*lead, -1, -1)
     vs = eng.vs.reshape(-1, 64)
     gs = eng.gsum.reshape(-1, 64, dim)
     n_bwd = PK.bwd_bucket.launches
@@ -188,24 +232,27 @@ def test_bwd_kernel_matches_plain(cuda, dim):
         dk = PK.bwd_bucket(*args)
         dp = PK.bwd_bucket_plain(*args)
         torch.cuda.synchronize()
-        _close(dk, dp, real[lo:hi], DA_RTOL)
-        assert torch.all(dk[~real[lo:hi]] == 0)  # pad rows: exactly 0
+        rr = real[..., lo:hi, :]
+        _close(dk, dp, rr, DA_RTOL)
+        assert torch.all(dk[~rr] == 0)  # pad rows: exactly 0
     assert PK.bwd_bucket.launches == n_bwd + 2
     _close(PK.gradient_adjoint_dmajor(eng, G),
            PK.gradient_adjoint_dmajor(eng, G, use_kernels=False),
-           eng.vs > 0, DA_RTOL)
+           (eng.vs > 0).expand(*lead, -1, -1), DA_RTOL)
 
 
 @pytest.mark.cuda
-def test_batched_launches_equal_per_sample(cuda):
-    """One launch for a batch of 8 gives each sample what a launch of its
-    own gives, for all three kernels."""
+@pytest.mark.parametrize("bsz", [8, 2, 11, 20])
+def test_batched_launches_equal_per_sample(cuda, bsz):
+    """One launch for a batch of B gives each sample what a launch of its
+    own gives, for all three kernels: 8 in one tile of 8, 2 in one 2-sample
+    tile, 11 in a full tile and a ragged one, 20 in three tiles of 8."""
     eng, _ = _cloud(cuda)
     rng = np.random.default_rng(6)
     c, m = eng.xs.shape[:2]
-    S = torch.from_numpy(rng.normal(size=(8, c, m, 16)).astype(
+    S = torch.from_numpy(rng.normal(size=(bsz, c, m, 16)).astype(
         np.float32)).to(cuda)
-    G = torch.from_numpy(rng.normal(size=(8, c, m, 48)).astype(
+    G = torch.from_numpy(rng.normal(size=(bsz, c, m, 48)).astype(
         np.float32)).to(cuda)
     counts = (PK.fwd_bucket.launches, PK.mask_bucket.launches,
               PK.bwd_bucket.launches)
@@ -214,11 +261,29 @@ def test_batched_launches_equal_per_sample(cuda):
     da = PK.gradient_adjoint_dmajor(eng, G)
     assert (PK.fwd_bucket.launches, PK.mask_bucket.launches,
             PK.bwd_bucket.launches) == tuple(n + 2 for n in counts)
-    for b in range(8):
+    for b in range(bsz):
         ga1, sm1 = PK.fused_perception(eng, S[b], d_major=True)
         assert torch.equal(ga[b], ga1) and torch.equal(sm[b], sm1)
         assert torch.equal(mk[b], PK.mask_blur(eng, S[b]))
         assert torch.equal(da[b], PK.gradient_adjoint_dmajor(eng, G[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_recompute_forward_cancels_a_constant_field(cuda, dim):
+    """The recompute forward kernel's split TF32 products keep f32
+    accuracy: a constant state cancels against the rowsum of the A tile it
+    computes to |gA| < 1e-4, the CPU emulation's bound (one TF32 product
+    would not: tests/test_torch_recompute_split.py)."""
+    eng, _ = _cloud(cuda, dim)
+    S = eng.scatter(torch.full((eng.num_particles, 16), 1.7, device=cuda))
+    count = PK.fwd_bucket.launches
+    for lead in ((), (3,)):
+        Sb = S.expand(*lead, *S.shape).contiguous()
+        ga, _ = PK.fused_perception(eng, Sb, d_major=True)
+        torch.cuda.synchronize()
+        assert float(eng.gather_back(ga).abs().max()) < 1e-4
+    assert PK.fwd_bucket.launches == count + 4
 
 
 @pytest.mark.cuda
@@ -269,6 +334,12 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         PK.bwd_bucket(scal, eng.blk_xs, vs, gs, gb2, eng.blk_xw, G2,
                       eng.blk_win_cells)
+    # the TMA and its bulk copies take 16-byte aligned sources
+    for i, arg in ((6, _misaligned(G)), (5, _misaligned(eng.blk_xw))):
+        args = list(ok)
+        args[i] = arg
+        with pytest.raises(ValueError):
+            PK.bwd_bucket(*args)
 
 
 @pytest.mark.cuda
@@ -315,11 +386,6 @@ def _tab_buckets(eng):
     return ((0, nb1, eng.blk_win_cells, eng.blk_vw, eng.blk_md, eng.blk_w6),
             (nb1, nb, eng.blk2_win_cells, eng.blk2_vw, eng.blk2_md,
              eng.blk2_w6))
-
-
-def _rand(device, shape, seed):
-    return torch.from_numpy(np.random.default_rng(seed).normal(
-        size=shape).astype(np.float32)).to(device)
 
 
 @pytest.mark.cuda
