@@ -71,10 +71,11 @@ Phases, each printing one line with its wall time:
   tables         the stripes sphere's engine with bfloat16 and float32 pair
                  tables (sizes, pairs, table bytes, build seconds); each
                  table kernel against its plain version in both dtypes at
-                 B = 1 and (but the blur) B = 8, one B = 8 launch against 8
-                 B = 1 launches, pad rows exactly 0, and a constant state
-                 cancelling through the forward table kernel (|gA| < 1e-4;
-                 also on the training engine in the times phase)
+                 B = 1 and B = 8 (the mask and the blur also at B = 3 and
+                 11), one launch of B > 1 samples against B launches of one,
+                 pad rows exactly 0, and a constant state cancelling through
+                 the forward table kernel (|gA| < 1e-4; also on the training
+                 engine in the times phase)
   surface        the surface path: launch counts, finite states, unit
                  tangents, the textured share of points at steps 0, 64 and
                  128; then 16 steps at fire_rate 1.0, kernels vs plain
@@ -85,15 +86,16 @@ Phases, each printing one line with its wall time:
   times          each kernel's device time (profiler kernel records) beside
                  its plain version's, its bound and, where one exists, a
                  library call's: the recompute kernels at the training and
-                 gecko inference shapes (forward and adjoint beside their
-                 first design's recorded times, the table kernels' times on
-                 the same engine, and their bound on their route: geometry
-                 on the CUDA cores, 3 TF32 products on the tensor cores);
-                 the table kernels at the surface
-                 path's shapes and (forward, adjoint, mask) at the training
+                 gecko inference shapes (beside their first design's
+                 recorded times; the forward and adjoint also beside the
+                 table kernels' times on the same engine, and their bound on
+                 their route: geometry on the CUDA cores, 3 TF32 products on
+                 the tensor cores); the table kernels at the surface path's
+                 shapes (the blur also at B = 8, beside its first design's
+                 recorded time) and (forward, adjoint, mask) at the training
                  shapes beside one torch.bmm a bucket (forward and adjoint
-                 beside their first design's recorded times), the forward also at
-                 the batched gecko's shapes; the MLP kernel at the
+                 beside their first design's recorded times), the forward
+                 also at the batched gecko's shapes; the MLP kernel at the
                  training and batched gecko shapes beside addmm-relu-addmm
                  (float32 sums, bfloat16 products for the bfloat16 row);
                  ms per inference and per surface rollout step
@@ -105,12 +107,21 @@ line. Without a card it exits non-zero and prints no result.
 rollout steps, of 16 inference rollout steps and of one full-depth training
 iteration on each training path, with device time by kernel and the
 device's busy share.
+
+``python3 chip_smoke.py --against DIR`` adds a phase that builds the kernels
+of another checkout of the repository at DIR (an earlier commit, unpacked
+with ``git archive``) and holds the mask and blur kernels against it in this
+process: the same inputs through both libraries, the mask table kernel's
+outputs bit for bit, and each kernel's device time in turns (DIR's, this
+tree's, this tree's, DIR's).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
+import importlib.util
 import json
 import os
 import subprocess
@@ -186,7 +197,14 @@ TAB_RECORDED_MS = {"sph_fwd_tab_kernel": 0.8850,
 # measured here (that code is gone) and not in the kernels JSON line
 RC_RECORDED_MS = {("sph_fwd_kernel", "train"): 0.5236,
                   ("sph_fwd_kernel", "inference"): 0.1184,
-                  ("sph_bwd_kernel", "train"): 0.4673}
+                  ("sph_bwd_kernel", "train"): 0.4673,
+                  ("sph_mask_kernel", "train"): 0.0860,
+                  ("sph_mask_kernel", "inference"): 0.0316}
+# the first design of the blur table kernel (one thread block a block and
+# sample, the table read from device memory once per sample), as recorded in
+# PERF.md: device ms at the surface path's shapes (bfloat16 tables, B = 1),
+# on an H100 80GB HBM3 at 700 W; a record, as the ones above
+BLUR_RECORDED_MS = 0.0367
 # the batched-lane path at inference: the gecko on bfloat16 pair tables, B = 8
 # rollouts at once with a bfloat16 update MLP (the JAX package's recipe)
 BATCH_B = 8
@@ -210,8 +228,8 @@ ALIVE_ATOL = 0.03
 # padding and the largest it takes
 MLP_RAGGED_N = (1, 37, 161_792 + 37)
 MLP_RAGGED_HID = (100, 256, 512)
-# the mask table kernel's sample tiles besides B = 1 and 8: one ragged tile
-# of 8, and a full tile and a ragged one
+# the mask and blur table kernels' sample tiles besides B = 1 and 8: one
+# ragged tile, and full tiles and a ragged one
 MASK_RAGGED_B = (3, 11)
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
@@ -734,9 +752,9 @@ def normal_cuda(rng, shape, dev):
 
 
 def check_tab_kernels(eng, rng, dev) -> dict:
-    """Each table kernel against its plain version on ``eng``: fwd, bwd and
-    mask at B = 1 and B = SURF_B, the mask also at MASK_RAGGED_B, the blur
-    (F = 4) at B = 1, use_alpha on and off; each output within TAB_RTOL of
+    """Each table kernel against its plain version on ``eng``: fwd, bwd,
+    mask and blur (F = 4) at B = 1 and B = SURF_B, the mask and the blur also
+    at MASK_RAGGED_B, use_alpha on and off; each output within TAB_RTOL of
     the plain version's largest |value| over all rows; one launch of B > 1
     samples equal to B launches of one; pad rows exactly 0. Returns the
     largest absolute error per kernel."""
@@ -747,6 +765,7 @@ def check_tab_kernels(eng, rng, dev) -> dict:
     SB = normal_cuda(rng, (SURF_B, c, m, 16), dev)
     GB = normal_cuda(rng, (SURF_B, c, m, d * 16), dev)
     X = normal_cuda(rng, (c, m, 4), dev)
+    XB = normal_cuda(rng, (max(SURF_B, *MASK_RAGGED_B), c, m, 4), dev)
     errs = dict.fromkeys(TAB_KERNELS, 0.0)
     worst = dict.fromkeys(TAB_KERNELS, 0.0)  # relative to max |plain|
 
@@ -790,6 +809,12 @@ def check_tab_kernels(eng, rng, dev) -> dict:
                 hold("sph_blur_tab_kernel", xk,
                      PK.blur_bucket_plain(scal, vw, X, wc, w6), rr)
                 continue
+            xk = PK.blur_bucket(scal, vw, XB[:bsz], wc, w6)
+            hold("sph_blur_tab_kernel", xk,
+                 PK.blur_bucket_plain(scal, vw, XB[:bsz], wc, w6), rr)
+            for b in range(bsz):
+                same &= bool(torch.equal(xk[b], PK.blur_bucket(
+                    scal, vw, XB[b], wc, w6)))
             ga_k, sm_k = PK.fwd_tab_bucket(scal, ab, gs[lo:hi], vw, S, wc,
                                            md, w6, use_alpha=False)
             mk = PK.mask_tab_bucket(scal, vw, S, wc, w6, use_alpha=False)
@@ -807,7 +832,8 @@ def check_tab_kernels(eng, rng, dev) -> dict:
                              and torch.equal(dk1, dk[b]))
     if not same:
         fail(f"a B = {SURF_B} table launch differs from B = 1 launches")
-    # the mask's other sample tiles: a ragged tile of 8, a full and a ragged
+    # the mask's and the blur's other sample tiles: a ragged tile, full
+    # tiles and a ragged one
     SM = normal_cuda(rng, (max(MASK_RAGGED_B), c, m, 16), dev)
     for lo, hi, wc, vw, _, w6 in tab_buckets(eng):
         for bsz in MASK_RAGGED_B:
@@ -820,15 +846,23 @@ def check_tab_kernels(eng, rng, dev) -> dict:
                 for b in range(bsz):
                     same &= bool(torch.equal(mk[b], PK.mask_tab_bucket(
                         scal, vw, SM[b], wc, w6, use_alpha=use_alpha)))
+            xk = PK.blur_bucket(scal, vw, XB[:bsz], wc, w6)
+            hold("sph_blur_tab_kernel", xk,
+                 PK.blur_bucket_plain(scal, vw, XB[:bsz], wc, w6),
+                 real[lo:hi])
+            for b in range(bsz):
+                same &= bool(torch.equal(xk[b], PK.blur_bucket(
+                    scal, vw, XB[b], wc, w6)))
     if not same:
-        fail(f"a B in {MASK_RAGGED_B} mask launch differs from B = 1 "
-             "launches")
+        fail(f"a B in {MASK_RAGGED_B} mask or blur launch differs from B = "
+             "1 launches")
     const_field(eng, dev)
     print("  " + ", ".join(f"{n} max abs {errs[n]:.3e} (rel to max "
                            f"{worst[n]:.3e})" for n in TAB_KERNELS)
           + f"; B = {SURF_B} launch == {SURF_B} B = 1 launches (the mask "
-          f"also at B = {' and '.join(map(str, MASK_RAGGED_B))}): {same}; "
-          "pad rows exactly 0", flush=True)
+          f"and the blur also at B = "
+          f"{' and '.join(map(str, MASK_RAGGED_B))}): {same}; pad rows "
+          "exactly 0", flush=True)
     return errs
 
 
@@ -1028,12 +1062,14 @@ def surface_phases(dev, rng, smi: str) -> list:
         # the surface-grad phase's backward
         launches = (grad_launches[name] if name == "sph_bwd_tab_kernel"
                     else surf_launches[name])
+        before = (f"; first design, recorded: {BLUR_RECORDED_MS:.4f} ms"
+                  if name == "sph_blur_tab_kernel" else "")
         print(f"  {name} at the surface path's shapes (bfloat16 tables, "
               f"B=1, both buckets): {ms:.4f} ms device time "
               f"({cuda_ms(kcalls[name]):.4f} ms by CUDA events), plain "
               f"{plain_ms:.4f} ms, torch.bmm on f32 tables {lib_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB,"
-              f" {ops / 1e9:.3f} G operations)", flush=True)
+              f" {ops / 1e9:.3f} G operations{before})", flush=True)
         rows.append({
             "name": name, "route": "cuda",
             "source": "sph_nca_tpu_torch/csrc/table_kernels.cu",
@@ -1046,6 +1082,35 @@ def surface_phases(dev, rng, smi: str) -> list:
             "max_abs_err": tab_errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+    # the blur at B = SURF_B on the same engine: one launch a bucket for the
+    # batch (tiles of 4 samples), beside one torch.bmm a bucket of the f32
+    # tables with the batch's right-hand side
+    name = "sph_blur_tab_kernel"
+    XB = normal_cuda(rng, (SURF_B, c_s, m_s, 4), dev)
+    kb = tab_calls(eng_s, S1, G1, XB, plain=False, use_alpha=False)[name]
+    pb = tab_calls(eng_s, S1, G1, XB, plain=True, use_alpha=False)[name]
+    b_ms, b_plain = device_ms(kb, name), device_ms(pb)
+    blib = [(w6, normal_cuda(rng, (w6.shape[0], w6.shape[2], 4 * SURF_B),
+                             dev))
+            for *_, w6 in tab_buckets(seng["float32"])]
+    b_lib = device_ms(lambda: [torch.bmm(a, b) for a, b in blib])
+    nbytes, ops = work_tab(eng_s, SURF_B)[name]
+    b_bound, b_by = bound(nbytes, ops)
+    brow = next(r for r in rows if r["name"] == name)
+    b1_ms = brow["ms"]
+    print(f"  {name} at the surface path's shapes with B={SURF_B} (bfloat16 "
+          f"tables, both buckets): {b_ms:.4f} ms device time, "
+          f"{b_ms / b1_ms:.2f}x its B=1 time {b1_ms:.4f} ms; plain "
+          f"{b_plain:.4f} ms, torch.bmm on f32 tables {b_lib:.4f} ms, bound "
+          f"{b_bound:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} G operations); first design, recorded at B=1: "
+          f"{BLUR_RECORDED_MS:.4f} ms", flush=True)
+    brow["batch"] = {
+        "shapes": f"surface stripes sphere N={SURF_N} h={sh} bfloat16 "
+                  f"tables B={SURF_B}",
+        "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+        "bound_by": b_by, "library_ms": b_lib, "ms_over_b1": b_ms / b1_ms}
+    del XB, kb, pb, blib
     surf_ms = {}
     with torch.no_grad():
         for uk in (True, False):
@@ -1307,6 +1372,102 @@ def batched_phases(dev, model, x, h, A0, alive_ref: float) -> dict:
           f"the kernels, {step_ms[False]:.4f} ms with the plain versions "
           "(host clock around synchronize)", flush=True)
     return launches
+
+
+def other_library(root: str):
+    """The loader of another checkout's kernel library (at ``root``), built
+    by that checkout's own build module from its own sources into its own
+    build directory."""
+    path = os.path.join(root, "sph_nca_tpu_torch", "ops", "_build.py")
+    if not os.path.isfile(path):
+        fail(f"--against {root}: no sph_nca_tpu_torch/ops/_build.py there")
+    spec = importlib.util.spec_from_file_location("against_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build(verbose=False)
+    return mod.load_library
+
+
+@contextlib.contextmanager
+def kernels_of(loader):
+    """Inside, the wrappers launch the kernels of ``loader``'s library (each
+    wrapper looks its library up at every call)."""
+    keep = _build.load_library
+    _build.load_library = loader
+    try:
+        yield
+    finally:
+        _build.load_library = keep
+
+
+def against_phase(root: str, dev, rng, eng, teng, x, smi: str) -> None:
+    """The mask and blur kernels of this tree against those of the checkout
+    at ``root``, on the same inputs in this process: the mask table kernel's
+    outputs bit for bit, the others' largest difference (each is held
+    against its plain version elsewhere), and each kernel's device time in
+    turns (root's, this tree's, this tree's, root's)."""
+    t0 = time.time()
+    other, now = other_library(root), _build.load_library
+    stripes = load_weights_json(STRIPES, device=dev)
+    seng = build_cell_engine(fibonacci_sphere(SURF_N, SURF_RADIUS),
+                             stripes.h, pair_tables="bfloat16", device=dev)
+    tteng = build_cell_engine(x, TRAIN_H, pair_tables="float32", device=dev)
+
+    def state(e, lead, f):
+        return normal_cuda(rng, lead + tuple(e.xs.shape[:2]) + (f,), dev)
+
+    def mask(e, S):
+        sc = PK.scal_vec(e)
+        args = [bucket_args(e, S, b) for b in (1, 2)]
+        return lambda: [PK.mask_bucket(sc, xs_b, xw_b, vw_b, S, wc,
+                                       use_alpha=True)
+                        for xs_b, _, xw_b, vw_b, wc in args]
+
+    def table(e, name, S, X, use_alpha):
+        G = S.new_zeros(S.shape[:-1] + (e.xs.shape[-1] * 16,))  # unused
+        return tab_calls(e, S, G, X, plain=False, use_alpha=use_alpha)[name]
+
+    S1 = state(seng, (), 16)
+    cases = [
+        ("sph_mask_kernel", "gecko inference B=1", mask(eng, state(eng, (),
+                                                                    16)),
+         False),
+        ("sph_mask_kernel", f"training B={TRAIN_B}",
+         mask(teng, state(teng, (TRAIN_B,), 16)), False),
+        ("sph_mask_tab_kernel", "surface bfloat16 B=1",
+         table(seng, "sph_mask_tab_kernel", S1, None, False), True),
+        ("sph_mask_tab_kernel", f"training float32 B={TRAIN_B}",
+         table(tteng, "sph_mask_tab_kernel", state(tteng, (TRAIN_B,), 16),
+               None, True), True),
+        ("sph_blur_tab_kernel", "surface bfloat16 B=1",
+         table(seng, "sph_blur_tab_kernel", S1, state(seng, (), 4), False),
+         False),
+        ("sph_blur_tab_kernel", f"surface bfloat16 B={SURF_B}",
+         table(seng, "sph_blur_tab_kernel", S1, state(seng, (SURF_B,), 4),
+               False), False),
+    ]
+    for name, label, fn, exact in cases:
+        with kernels_of(other):
+            want = fn()
+        got = fn()
+        torch.cuda.synchronize()
+        if exact:
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"{name} at the {label} shapes differs from {root}'s")
+            diff = "bit-equal"
+        else:
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            top = max(float(b.abs().max()) for b in want)
+            diff = f"max abs difference {err:.3e} ({err / top:.3e} of max)"
+        times = []
+        for lib in (other, now, now, other):
+            with kernels_of(lib):
+                times.append(device_ms(fn, name))
+        print(f"  {name} at the {label} shapes: {root} {times[0]:.4f} / "
+              f"{times[3]:.4f} ms, this tree {times[1]:.4f} / {times[2]:.4f}"
+              f" ms device time (in turns); outputs {diff}", flush=True)
+    phase("against", t0, f"the mask and blur kernels against {root}'s, "
+          f"same inputs, one process | {smi}")
 
 
 def main() -> int:
@@ -1726,6 +1887,9 @@ def main() -> int:
                      f"counting all {ops / 1e9:.3f} G as fp32 on the CUDA "
                      f"cores; first design, recorded: "
                      f"{RC_RECORDED_MS[name, 'train']:.4f} ms)")
+        elif (name, "train") in RC_RECORDED_MS:
+            route = (f" (first design, recorded: "
+                     f"{RC_RECORDED_MS[name, 'train']:.4f} ms)")
         print(f"  {name} at the training shapes (B={TRAIN_B}, both buckets):"
               f" {ms:.4f} ms device time ({event_ms:.4f} ms by CUDA events "
               f"around the wrapper calls), plain {plain_ms:.4f} ms device "
@@ -1759,6 +1923,9 @@ def main() -> int:
                           f"recorded: "
                           f"{RC_RECORDED_MS[name, 'inference']:.4f} ms)")
                 i_bound, i_by = route_bound(*ineed["route"][name])
+            elif (name, "inference") in RC_RECORDED_MS:
+                iroute = (f" (first design, recorded: "
+                          f"{RC_RECORDED_MS[name, 'inference']:.4f} ms)")
             print(f"  {name} at the gecko inference shapes (B=1): {i_ms:.4f}"
                   f" ms device time ({cuda_ms(ik):.4f} ms by CUDA events), "
                   f"plain {i_plain:.4f} ms, bound {i_bound:.4f} ms by {i_by}"
@@ -1947,6 +2114,11 @@ def main() -> int:
           f"timed after the inference phases); kernel times: device time "
           f"from torch.profiler kernel records over 20 calls, L2-warm | "
           f"{smi}")
+
+    if "--against" in sys.argv[1:]:
+        args = sys.argv[1:]
+        against_phase(args[args.index("--against") + 1], dev, rng, eng, teng,
+                      x, smi)
 
     if "--profile" in sys.argv[1:]:
         t0 = time.time()

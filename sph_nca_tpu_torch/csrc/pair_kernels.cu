@@ -117,12 +117,36 @@
 //
 // ---- sph_mask_kernel -------------------------------------------------------
 //
-// Bound: ~16 operations a pair (~3 us at the gecko shapes) over ~4 MB (~1
-// us), bound by operations. Design, simple first: one thread block per
-// (bucket block, sample), 4 groups of 64 threads; thread (p, g) owns row p
-// and every 4th slot of each 64-slot window tile (positions and the
-// alive-weighted volumes staged in shared memory); the 4 partial sums meet
-// in shared memory.
+// Bound on this card: the geometry, ~9 operations a pair once per pass and 5
+// more a pair within h, and 2 a pair within h and sample (~2 us at the gecko
+// and the training shapes on the 67 TFLOP/s fp32 cores), over a few MB read
+// (~1 us): bound by OPERATIONS, by the geometry above all, which a sample
+// tile shares.
+//
+// The design is 2.1's geometry without its products. A thread block owns
+// one half of a block's rows (32) and a tile of BT = 8 samples (1 for B = 1,
+// the inference path); the grid is (2 nb, ceil(B / BT)): 580 thread blocks
+// at the gecko shapes. At its start the block reads its window's positions
+// and cell indices into shared memory once (RcWindow, as 2.1 / 2.2 keep
+// theirs) and marks, for each 16-row group of its rows and each group of 8
+// window slots, whether their bounding boxes lie more than h apart (pads in
+// the boxes, cut h^2 1.0001, as 2.1); the marked tiles are skipped whole.
+// For every other pair a thread computes w6 = max(h^2 - d2, 0)^3 once per
+// sample tile, d2 from per-axis differences, and adds w6 times each of the
+// tile's columns sig_w v_w alive_w into that sample's sum on the fp32 CUDA
+// cores: a w6 matvec has too few columns for the tensor cores (2.1's w6
+// product runs there only because its A tile is there already). The alive
+// column is gathered one chunk of 256 slots ahead into shared memory, as
+// sph_mask_tab_kernel gathers its own (table_kernels.cu); with one sample
+// the chunks are 1024 slots, so that a window of up to 1024 slots is
+// gathered once, behind the far bits, and the sums wait on no load and no
+// barrier. Culling depends on positions only, and every sum is taken in an
+// order fixed by the window (see the kernel), so one launch of B samples
+// equals B launches of one, bit for bit. The warp roles are the same for
+// one sample and for eight: every warp computes the geometry of its own
+// tiles, and there are no products to balance. Per thread block (D = 3, W =
+// 1000): 16 KB of columns (8 KB with one sample), 12 KB of positions, 0.5
+// KB of cell indices and 4 KB static.
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
 #include <cuda_runtime.h>
@@ -132,10 +156,7 @@
 
 namespace {
 
-constexpr int G = 4;               // mask: thread groups splitting the window
-constexpr int THREADS = P * G;     // mask
-constexpr int TW = 64;             // mask: window slots staged per tile
-constexpr float FAR = 1.0e6f;      // position of a tile's tail slots
+constexpr float FAR = 1.0e6f;      // position of a window's tail slots
 
 // Shared memory of the recompute forward (FWD) or adjoint at D for sample
 // tiles of BTC samples, 1024-byte aligned: a ring of NS stages (filled by
@@ -182,53 +203,66 @@ __device__ __forceinline__ float elem(const float2& v, int c) {
     return c == 0 ? v.x : v.y;
 }
 
-// The block's shared memory (RcLayout): the TMA ring of the state or the
-// cotangents (tile_ring.cuh's Ring, which also reads the window's cells),
-// the geometry buffers, and the window's positions and volumes, read once.
-template <int D, bool FWD, int BTC>
-struct RcBlock {
-    using L = RcLayout<D, FWD, BTC>;
-    Ring<L::NS> ring;
-    unsigned char* geo;   // two geometry buffers
+// The window rows of one block, in shared memory and read once: positions
+// [D][Wp] (FAR past W) and, with NX = D + 1, volumes [Wp] (0 past W); and,
+// for each of the thread block's two 16-row groups, a bit for each group of
+// CELL window slots (a window cell where M = CELL), set where every pair of
+// the two lies beyond h. The recompute forward and adjoint (RcBlock) and
+// the mask kernel keep their window here.
+template <int D, int NX>
+struct RcWindow {
     float* xw;            // [D][Wp] window positions ([Wp] volumes after)
-    unsigned* farw;       // [2][nwd] bits: group and window cell far apart
-    int nwd;              // words a group: (Wu + 31) / 32
+    unsigned* farw;       // [2][nwd] bits: row group and slot group far
+    int nwd;              // words a row group: (ng + 31) / 32
     int Wp;
 
-    // carve the dynamic shared memory; read the window's cells, positions
-    // (FAR past W) and volumes (0 past W); end with a __syncthreads
-    __device__ __forceinline__ void init(
-        unsigned char* dyn, uint64_t* bars, int* counts, int b, int W,
-        int Wu, const float* __restrict__ xw_b,
-        const float* __restrict__ vw_b, const int* __restrict__ win) {
-        ring.init(dyn, L::RHS, bars, counts, win + (size_t)b * Wu, Wu);
-        geo = ring.base + L::NS * L::RHS + L::cells(Wu);
-        Wp = L::wpad(W);
-        xw = reinterpret_cast<float*>(geo + 2 * L::GEO);
-        farw = reinterpret_cast<unsigned*>(xw + L::NX * Wp);
-        nwd = (Wu + 31) / 32;
-        const int w4 = Wp / 4;
-        for (int i = threadIdx.x; i < L::NX * w4; i += blockDim.x) {
-            const int d = i / w4;
-            const int w = (i - d * w4) * 4;
-            float4 v = d < D ? make_float4(FAR, FAR, FAR, FAR)
-                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-            if (w < W)
-                v = *reinterpret_cast<const float4*>(
-                    d < D ? xw_b + ((size_t)b * D + d) * W + w
-                          : vw_b + (size_t)b * W + w);
-            *reinterpret_cast<float4*>(xw + d * Wp + w) = v;
+    // bytes of the rows and the bits for a window of Wp slots, ng groups
+    __host__ __device__ static constexpr int bytes(int Wp, int ng) {
+        return NX * Wp * 4 + 2 * ((ng + 31) / 32) * 4;
+    }
+
+    // carve [at, at + bytes) (16-byte aligned) and read the rows: 16 bytes
+    // a thread where vec (W % 4 == 0 and 16-byte aligned rows), else 4. No
+    // __syncthreads.
+    __device__ __forceinline__ void load(
+        unsigned char* at, int b, int W, int wp, int ng,
+        const float* __restrict__ xw_b, const float* __restrict__ vw_b,
+        bool vec) {
+        Wp = wp;
+        xw = reinterpret_cast<float*>(at);
+        farw = reinterpret_cast<unsigned*>(xw + NX * Wp);
+        nwd = (ng + 31) / 32;
+        // row d of the window: axis d of the positions, or the volumes
+        auto row = [&](int d) {
+            return d < D ? xw_b + ((size_t)b * D + d) * W
+                         : vw_b + (size_t)b * W;
+        };
+        if (vec) {
+            const int w4 = Wp / 4;
+            for (int i = threadIdx.x; i < NX * w4; i += blockDim.x) {
+                const int d = i / w4;
+                const int w = (i - d * w4) * 4;
+                float4 v = d < D ? make_float4(FAR, FAR, FAR, FAR)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                if (w < W) v = *reinterpret_cast<const float4*>(row(d) + w);
+                *reinterpret_cast<float4*>(xw + d * Wp + w) = v;
+            }
+        } else {
+            for (int i = threadIdx.x; i < NX * Wp; i += blockDim.x) {
+                const int d = i / Wp;
+                const int w = i - d * Wp;
+                xw[i] = w < W ? row(d)[w] : d < D ? FAR : 0.0f;
+            }
         }
-        __syncthreads();
     }
 
     // the far bits: for the half's two 16-row groups (rows of xb [D][32])
-    // and each window cell, whether their bounding boxes lie more than h
-    // apart (the boxes' gap, squared, above cut: h^2 and a margin above the
-    // pairs' own rounding). A slot or row of a pad sits near PAD_POS and
-    // stays in its box, so that a tile is culled only where every pair of it
-    // is beyond h. Ends with a __syncthreads.
-    __device__ __forceinline__ void far_bits(int Wu, const float (*xb)[HALF],
+    // and each of the ng groups of CELL slots, whether their bounding boxes
+    // lie more than h apart (the boxes' gap, squared, above cut: h^2 and a
+    // margin above the pairs' own rounding). A slot or row of a pad sits
+    // near PAD_POS and stays in its box, so that a tile is culled only where
+    // every pair of it is beyond h. Ends with a __syncthreads.
+    __device__ __forceinline__ void far_bits(int ng, const float (*xb)[HALF],
                                              float (*gbox)[2][D], float cut) {
         if (threadIdx.x < 2 * D) {
             const int mg = threadIdx.x / D;
@@ -242,12 +276,13 @@ struct RcBlock {
             gbox[mg][1][d] = hi;
         }
         __syncthreads();
-        // a warp a word: lanes the cells of word i % nwd of group i / nwd
+        // a warp a word: lanes the groups of word i % nwd of row group
+        // i / nwd
         for (int i = threadIdx.x; i < 2 * nwd * 32; i += blockDim.x) {
             const int mg = i / (nwd * 32);
             const int c = i - mg * nwd * 32;
             bool far = false;
-            if (c < Wu) {
+            if (c < ng) {
                 float g2 = 0.0f;
 #pragma unroll
                 for (int d = 0; d < D; ++d) {
@@ -270,9 +305,32 @@ struct RcBlock {
         __syncthreads();
     }
 
-    // whether window cell c and 16-row group mg are far apart
+    // whether slot group c and 16-row group mg are far apart
     __device__ __forceinline__ bool far(int c, int mg) const {
         return farw[mg * nwd + c / 32] >> (c % 32) & 1;
+    }
+};
+
+// The recompute forward's or adjoint's shared memory (RcLayout): the TMA
+// ring of the state or the cotangents (tile_ring.cuh's Ring, which also
+// reads the window's cells), the geometry buffers, and the window's rows
+// (RcWindow, one slot group a window cell).
+template <int D, bool FWD, int BTC>
+struct RcBlock : RcWindow<D, RcLayout<D, FWD, BTC>::NX> {
+    using L = RcLayout<D, FWD, BTC>;
+    Ring<L::NS> ring;
+    unsigned char* geo;   // two geometry buffers
+
+    // carve the dynamic shared memory; read the window's cells, positions
+    // (FAR past W) and volumes (0 past W); end with a __syncthreads
+    __device__ __forceinline__ void init(
+        unsigned char* dyn, uint64_t* bars, int* counts, int b, int W,
+        int Wu, const float* __restrict__ xw_b,
+        const float* __restrict__ vw_b, const int* __restrict__ win) {
+        ring.init(dyn, L::RHS, bars, counts, win + (size_t)b * Wu, Wu);
+        geo = ring.base + L::NS * L::RHS + L::cells(Wu);
+        this->load(geo + 2 * L::GEO, b, W, L::wpad(W), Wu, xw_b, vw_b, true);
+        __syncthreads();
     }
 
     // one warp: the TMA copies of stage k into slot k % NS, one box a
@@ -615,80 +673,187 @@ sph_fwd_kernel(
     }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) sph_mask_kernel(
+// The mask kernel's dynamic shared memory, 16-byte aligned: two column
+// buffers [2][BTC][CHUNK] (sig_w v_w alive_w of the tile's samples for a
+// chunk of CHUNK window slots), the window's Wu cell indices, and its
+// positions (RcWindow<D, D>: W rounded up to a slot group of CELL, FAR past
+// W) with the far bits. One sample takes chunks of 1024 slots, 4 a thread:
+// a window of up to 1024 slots is one chunk, gathered before the sums.
+template <int D, int BTC>
+struct MaskLayout {
+    static constexpr int CHUNK = BTC == 1 ? 4 * TAB_THREADS : TAB_THREADS;
+    static constexpr int SPT = CHUNK / TAB_THREADS;   // column slots a thread
+    static constexpr int COL = BTC * CHUNK * 4;   // bytes of one buffer
+    __host__ __device__ static constexpr int wpad(int W) {
+        return (W + CELL - 1) / CELL * CELL;
+    }
+    __host__ __device__ static constexpr int cells(int Wu) {
+        return (Wu * 4 + 15) / 16 * 16;
+    }
+    static constexpr int smem(int W, int Wu) {
+        return 16 + 2 * COL + cells(Wu)
+            + RcWindow<D, D>::bytes(wpad(W), wpad(W) / CELL);
+    }
+};
+
+// sph_mask_kernel: sm[y, b, p] = sum_w sig_w max(h^2 - d2, 0)^3 v_w
+// alive_w, alive_w = S[y][win(w), 3] > thr (use_alpha) or v_w > 0; grid (2
+// nb row halves, ceil(B / BTC) sample tiles), 8 warps. Warp w owns the
+// half's 16-row group mg = w / 4 and, of every chunk of CHUNK slots, the
+// slot groups (of CELL slots) wq, wq + 4, .. (wq = w % 4); lane l the row mg
+// * 16 + l / 2 and slots 4 (l % 2) .. + 3 of each of those groups. Per kept
+// group (its far bit clear, a warp-uniform test) a thread computes the
+// poly6 core of its 4 pairs once, from per-axis differences (d2 = r_0^2,
+// then fmaf(r_d, r_d, d2): written out, so that every instantiation rounds
+// alike), and adds it times each sample's column into that sample's sum
+// with fmaf, slot after slot; a row's 8
+// partial sums (2 lanes x 4 warps) are then added as ((l0 + l1) of warp 0 +
+// .. of warp 1) + (.. of warp 2 + .. of warp 3). No order depends on B or
+// on the sample's place in its tile. The column is gathered as
+// sph_mask_tab_kernel gathers its own: thread t loads the volume and the
+// samples' channel 3 of its slots of chunk j (slots j CHUNK + k 256 + t) at
+// the start of chunk j - 1, keeps them in registers while that chunk is
+// summed, and writes the column at its end (one __syncthreads a chunk).
+template <int D, int BTC>
+__global__ void __launch_bounds__(TAB_THREADS, BTC == 1 ? 5 : 4)
+sph_mask_kernel(
     const float* __restrict__ xs_b,    // [nb, D, P]
     const float* __restrict__ S,       // [B][C*M, F] cell-layout state
     long long s_bs,                    // S's sample stride (elements)
     const float* __restrict__ xw_b,    // [nb, D, W]
     const float* __restrict__ vw_b,    // [nb, W]
     const int* __restrict__ win,       // [nb, Wu]
-    int F, int M, int W, int Wu, float h, float sig_w, float thr,
-    int use_alpha,
+    int B, int F, int M, int W, int Wu, float h, float sig_w, float thr,
+    int use_alpha, int vec,
     float* __restrict__ sm)            // [B, nb, P]
 {
-    __shared__ float s_x[D][TW];
-    __shared__ float s_va[TW];         // v_w * alive_w
-    __shared__ float s_red[G - 1][P];
+    using L = MaskLayout<D, BTC>;
+    constexpr int CHUNK = L::CHUNK;
+    constexpr int SPT = L::SPT;
+    constexpr int GPC = CHUNK / CELL;     // slot groups a chunk
+    extern __shared__ unsigned char dyn[];
+    __shared__ float xb[D][HALF];
+    __shared__ float gbox[2][2][D];       // the 16-row groups' boxes
+    __shared__ float red[4][HALF][BTC];   // a row's sums of each warp
+    const int b = blockIdx.x / 2;
+    const int hh = blockIdx.x % 2;        // rows hh*32 .. hh*32+31
+    const int nb = gridDim.x / 2;
+    const int y0 = blockIdx.y * BTC;      // first sample of the tile
+    const int nbt = min(BTC, B - y0);     // samples of this tile
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    unsigned char* base = dyn + ((16u - (smem_u32(dyn) & 15u)) & 15u);
+    float* col = reinterpret_cast<float*>(base);
+    int* cells = reinterpret_cast<int*>(base + 2 * L::COL);
+    const int Wp = L::wpad(W);
+    const int ng = Wp / CELL;
+    RcWindow<D, D> wnd;
+    wnd.load(base + 2 * L::COL + L::cells(Wu), b, W, Wp, ng, xw_b, nullptr,
+             vec);
+    for (int i = threadIdx.x; i < Wu; i += blockDim.x)
+        cells[i] = win[(size_t)b * Wu + i];
+    for (int i = threadIdx.x; i < D * HALF; i += blockDim.x)
+        xb[i / HALF][i % HALF] =
+            xs_b[((size_t)b * D + i / HALF) * P + hh * HALF + i % HALF];
+    __syncthreads();
 
-    const int b = blockIdx.x;
-    const int nb = gridDim.x;
-    const int y = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int p = tid % P;
-    const int g = tid / P;
-    const float hh = h * h;
+    // ---- the column: slots w = j CHUNK + k 256 + thread of chunk j ----
+    float vol[SPT], alpha[SPT][BTC];
+    auto gather = [&](int j) {  // the loads, left in flight
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+            const int w = j * CHUNK + k * TAB_THREADS + threadIdx.x;
+            vol[k] = w < W ? vw_b[(size_t)b * W + w] : 0.0f;
+            const size_t row = use_alpha && w < W
+                ? (size_t)cells[w / M] * M + w % M : 0;
+#pragma unroll
+            for (int s = 0; s < BTC; ++s)
+                alpha[k][s] = use_alpha && w < W && s < nbt
+                    ? S[(size_t)(y0 + s) * s_bs + row * F + 3] : 0.0f;
+        }
+    };
+    auto store = [&](int j) {
+#pragma unroll
+        for (int k = 0; k < SPT; ++k) {
+            float* cb = col + (j & 1) * BTC * CHUNK + k * TAB_THREADS
+                + threadIdx.x;
+#pragma unroll
+            for (int s = 0; s < BTC; ++s) {
+                const bool alive =
+                    use_alpha ? alpha[k][s] > thr : vol[k] > 0.0f;
+                cb[s * CHUNK] = alive && s < nbt ? sig_w * vol[k] : 0.0f;
+            }
+        }
+    };
+    gather(0);  // in flight while the far bits are marked
+    wnd.far_bits(ng, xb, gbox, h * h * 1.0001f);  // (ends in a sync)
+    store(0);
+    __syncthreads();
 
-    const float* xw = xw_b + (size_t)b * D * W;
-    const float* vw = vw_b + (size_t)b * W;
-    const int* wc = win + (size_t)b * Wu;
-    const float* Sy = S + (size_t)y * s_bs;
-
+    // ---- the pair sums ----
+    const int mg = warp / 4;
+    const int wq = warp % 4;
+    const int gr = mg * 16 + lane / 2;    // the thread's row of the half
+    const int q = lane % 2;               // its slots 4q .. 4q + 3 a group
     float xr[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) xr[d] = xs_b[((size_t)b * D + d) * P + p];
-    float msum = 0.0f;
-
-    for (int t0 = 0; t0 < W; t0 += TW) {
-        __syncthreads();
-        for (int i = tid; i < TW; i += THREADS) {
-            const int w = t0 + i;
-            float va = 0.0f;
+    for (int d = 0; d < D; ++d) xr[d] = xb[d][gr];
+    const float h2 = __fmul_rn(h, h);
+    float acc[BTC];
 #pragma unroll
-            for (int d = 0; d < D; ++d) s_x[d][i] = w < W ? xw[(size_t)d * W + w] : FAR;
-            if (w < W) {
-                const float v = vw[w];
-                bool alive = v > 0.0f;
-                if (use_alpha) {
-                    const int cell = wc[w / M];
-                    alive = Sy[((size_t)cell * M + (w % M)) * F + 3] > thr;
+    for (int s = 0; s < BTC; ++s) acc[s] = 0.0f;
+    const int nc = (W + CHUNK - 1) / CHUNK;
+    for (int j = 0; j < nc; ++j) {
+        if (j + 1 < nc) gather(j + 1);
+        const float* cb = col + (j & 1) * BTC * CHUNK;
+        for (int i = wq; i < GPC; i += 4) {
+            const int cg = j * GPC + i;       // the slot group
+            if (cg >= ng || wnd.far(cg, mg)) continue;
+            const int k = i * CELL + 4 * q;   // the first slot, of the chunk
+            float4 x4[D];
+#pragma unroll
+            for (int d = 0; d < D; ++d)
+                x4[d] = *reinterpret_cast<const float4*>(
+                    wnd.xw + d * Wp + j * CHUNK + k);
+            float w6[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                float d2 = 0.0f;
+#pragma unroll
+                for (int d = 0; d < D; ++d) {
+                    const float r = elem(x4[d], c) - xr[d];
+                    d2 = d == 0 ? __fmul_rn(r, r) : __fmaf_rn(r, r, d2);
                 }
-                va = alive ? v : 0.0f;
+                const float cc = fmaxf(__fsub_rn(h2, d2), 0.0f);
+                w6[c] = __fmul_rn(__fmul_rn(cc, cc), cc);
             }
-            s_va[i] = va;
+#pragma unroll
+            for (int s = 0; s < BTC; ++s) {
+                if (s >= nbt) break;
+                const float4 c4 =
+                    *reinterpret_cast<const float4*>(cb + s * CHUNK + k);
+                acc[s] = fmaf(w6[0], c4.x, acc[s]);
+                acc[s] = fmaf(w6[1], c4.y, acc[s]);
+                acc[s] = fmaf(w6[2], c4.z, acc[s]);
+                acc[s] = fmaf(w6[3], c4.w, acc[s]);
+            }
         }
+        if (j + 1 < nc) store(j + 1);
         __syncthreads();
-
-        const int n = min(TW, W - t0);
-        for (int j = g; j < n; j += G) {
-            float r[D];
-#pragma unroll
-            for (int d = 0; d < D; ++d) r[d] = s_x[d][j] - xr[d];
-            float d2 = r[0] * r[0];
-#pragma unroll
-            for (int d = 1; d < D; ++d) d2 = d2 + r[d] * r[d];
-            const float c = fmaxf(hh - d2, 0.0f);
-            msum += sig_w * (c * c * c) * s_va[j];
-        }
     }
 
-    if (g > 0) s_red[g - 1][p] = msum;
+    // ---- a row's 8 partial sums, in a fixed order ----
+#pragma unroll
+    for (int s = 0; s < BTC; ++s) {
+        const float v = acc[s] + __shfl_xor_sync(0xffffffffu, acc[s], 1);
+        if (q == 0) red[wq][gr][s] = v;
+    }
     __syncthreads();
-    if (g == 0) {
-#pragma unroll
-        for (int q = 0; q < G - 1; ++q) msum += s_red[q][p];
-        sm[((size_t)y * nb + b) * P + p] = msum;
-    }
+    const int r = threadIdx.x / BTC;      // row of the half
+    const int s = threadIdx.x % BTC;      // sample of the tile
+    if (r < HALF && s < nbt)
+        sm[((size_t)(y0 + s) * nb + b) * P + hh * HALF + r] =
+            (red[0][r][s] + red[1][r][s]) + (red[2][r][s] + red[3][r][s]);
 }
 
 template <int D, int BTC>
@@ -913,6 +1078,24 @@ int bwd_rc(const float* xs_b, const float* vs_b, const float* gsum_b,
     return (int)cudaGetLastError();
 }
 
+template <int D, int BTC>
+int mask_rc(const float* xs_b, const float* S, long long s_bs,
+            const float* xw_b, const float* vw_b, const int* win, int B,
+            int nb, int F, int M, int W, int Wu, float h, float sig_w,
+            float thr, int use_alpha, float* sm, cudaStream_t st) {
+    using L = MaskLayout<D, BTC>;
+    const cudaError_t err = allow_smem((const void*)sph_mask_kernel<D, BTC>);
+    if (err != cudaSuccess) return (int)err;
+    // the positions 16 bytes at a time where every row is 16-byte aligned
+    const int vec =
+        W % 4 == 0 && reinterpret_cast<uintptr_t>(xw_b) % 16 == 0;
+    const dim3 grid(2 * nb, (B + BTC - 1) / BTC);
+    sph_mask_kernel<D, BTC><<<grid, TAB_THREADS, L::smem(W, Wu), st>>>(
+        xs_b, S, s_bs, xw_b, vw_b, win, B, F, M, W, Wu, h, sig_w, thr,
+        use_alpha, vec, sm);
+    return (int)cudaGetLastError();
+}
+
 // what the recompute forward and adjoint take: P = 64, F = 16, M = 8 slots a
 // cell (one copy of 8 slots a window cell), W a multiple of M, D in {2, 3}
 bool bad_rc(int P_, int F, int M, int D, int nb, int B, int W, int Wu) {
@@ -923,12 +1106,12 @@ bool bad_rc(int P_, int F, int M, int D, int nb, int B, int W, int Wu) {
 }  // namespace
 
 // Plain C launchers for ctypes: raw device pointers, sizes, sample strides
-// and the caller's stream. The forward and adjoint run on a grid of (2 nb
-// row halves, tiles of 8 samples; the forward one of 1 for B = 1 and of 2
-// for B = 2, the adjoint one of 2 for B <= 2) and take 16-byte aligned
-// state / cotangents, window positions and volumes; the mask on (nb
-// blocks, B samples). Each returns the CUDA error code of its set-up or
-// launch (0 = ok).
+// and the caller's stream. All run on a grid of (2 nb row halves, tiles of
+// 8 samples; the forward and the mask one of 1 for B = 1, the forward one
+// of 2 for B = 2, the adjoint one of 2 for B <= 2). The forward and adjoint
+// take 16-byte aligned state / cotangents, window positions and volumes,
+// and M = 8 slots a cell; the mask any alignment, M and F >= 4. Each
+// returns the CUDA error code of its set-up or launch (0 = ok).
 
 extern "C" int sph_fwd_launch(
     const float* xs_b, const float* S, long long s_bs, const float* ab,
@@ -955,21 +1138,14 @@ extern "C" int sph_mask_launch(
     float* sm, void* stream)
 {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (P_ != P || F < 4 || nb <= 0 || B <= 0 || B > 65535)
+    if (P_ != P || F < 4 || nb <= 0 || B <= 0 || B > 65535 || M <= 0
+        || W < 0 || W % M || Wu != W / M || (D != 2 && D != 3))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid(nb, B);
-    if (D == 2) {
-        sph_mask_kernel<2><<<grid, THREADS, 0, st>>>(
-            xs_b, S, s_bs, xw_b, vw_b, win, F, M, W, Wu, h, sig_w, thr,
-            use_alpha, sm);
-    } else if (D == 3) {
-        sph_mask_kernel<3><<<grid, THREADS, 0, st>>>(
-            xs_b, S, s_bs, xw_b, vw_b, win, F, M, W, Wu, h, sig_w, thr,
-            use_alpha, sm);
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
-    return (int)cudaGetLastError();
+    // tiles of 1 sample for B = 1, else of 8
+    auto f = D == 2 ? (B == 1 ? mask_rc<2, 1> : mask_rc<2, BT>)
+                    : (B == 1 ? mask_rc<3, 1> : mask_rc<3, BT>);
+    return f(xs_b, S, s_bs, xw_b, vw_b, win, B, nb, F, M, W, Wu, h, sig_w,
+             thr, use_alpha, sm, st);
 }
 
 extern "C" int sph_bwd_launch(

@@ -136,9 +136,28 @@
 //
 // ---- sph_blur_tab_kernel ---------------------------------------------------
 //
-// Matrix-vector shaped, one thread block per (block, sample), the table read
-// straight from device memory once per sample (see the kernel; the mask's
-// sample tiles would suit it too: ROADMAP).
+// Bound on this card. At the surface shapes (bf16 tables, B = 1, F = 4; 370
+// + 124 blocks at W = 576 / 1000) a call must read w6 once (43 MB, ~0.013 ms
+// at 3.35 TB/s): bound by BYTES, the table read once per sample tile. At B =
+// 8 the dense FMAs (every table entry times 32 columns, 0.69 G FMA) take
+// ~0.02 ms at the fp32 CUDA-core rate, so a batch is bound by those.
+//
+// The design is the mask table kernel's (its stages, ring and table map:
+// the half's rows, sample tiles, 512-byte stages of w6 by TMA, columns
+// gathered a chunk ahead) with 4 columns a sample (v_w X_w), copied into
+// shared memory with cp.async (the state rows a gathered set of cells, out
+// of the TMA's reach; no registers wait on them while a chunk is summed)
+// and scaled by v_w in place once they land. B = 1, the surface path, takes
+// tiles of 1 sample (4 columns, three blocks an SM); B > 1 tiles of 4 (16
+// columns, two blocks an SM), the tiles of a row half adjacent in the grid,
+// so that the later ones read its table from L2, the 16 columns split
+// between the warps so that each column value read feeds 8 rows. The
+// columns of a stage sit so that the lanes' reads are conflict-free with
+// bf16 tables too, and the 32 lanes' sums are added by recursive halving
+// (see the kernel). One body with the mask's was tried: the same sums, but
+// the mask slower at the training shapes, so each keeps its own. Per
+// thread block (bf16, 4 samples): 48 KB of stages, 32 KB of column buffers
+// and the window's cells. chip_smoke.py prints ptxas's counts.
 
 #include <cuda.h>  // CUtensorMap and its enums only: no libcuda link
 #include <cuda_runtime.h>
@@ -152,11 +171,6 @@
 #include "tile_ring.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;   // blur
-constexpr int CH = THREADS;    // window slots per staged chunk (blur)
-constexpr int WARPS = THREADS / 32;
-constexpr int RPW = P / WARPS; // rows per warp (blur)
 
 // 16 bytes of table -> V floats (mask, blur)
 template <typename T> struct Vec;
@@ -182,9 +196,27 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* out,
     }
 }
 
-__device__ __forceinline__ size_t win_row(const int* __restrict__ wc, int w,
-                                          int M) {
-    return (size_t)wc[w / M] * M + (w % M);
+// 4 table entries (16 bytes of f32, 8 of bf16) -> 4 floats
+__device__ __forceinline__ void unpack4(const unsigned char* p, float* out,
+                                        float) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    out[0] = __uint_as_float(raw.x);
+    out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z);
+    out[3] = __uint_as_float(raw.w);
+}
+
+__device__ __forceinline__ void unpack4(const unsigned char* p, float* out,
+                                        __nv_bfloat16) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    out[0] = lo.x;
+    out[1] = lo.y;
+    out[2] = hi.x;
+    out[3] = hi.y;
 }
 
 // ---- shared-memory layout of one stage -----------------------------------
@@ -730,93 +762,245 @@ __global__ void __launch_bounds__(TAB_THREADS, 3) sph_mask_tab_kernel(
             out;
 }
 
-// sph_blur_tab_kernel: out[p, :] = sig_w sum_w w6[p, w] (v_w X_w)[:], F
-// features. Matrix-vector shaped: one thread block (256 threads) per (block,
-// sample); one warp per 8 rows reads its rows 16 bytes a lane straight from
-// device memory (a 512-byte coalesced load per row and step) against a
-// 256-slot chunk of the right-hand side staged f-major in shared memory. It
-// reads the table once per sample (the mask's sample tiles would read it
-// once per tile; ROADMAP).
-template <typename T, int F>
-__global__ void __launch_bounds__(THREADS) sph_blur_tab_kernel(
-    const T* __restrict__ w6,          // [nb, P, W]
-    const float* __restrict__ X,       // [B][C*M, F]
+// 4-byte asynchronous copies into shared memory, waited for by the thread
+// that issued them
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// The 32 lanes' sums of N values a lane (N a power of 2), by recursive
+// halving: at the step of offset o (1, 2, 4, 8, 16) each lane keeps half of
+// its values, adds its partner's (lane ^ o) half of them and sends the other
+// half, or, with one value left, adds its partner's. Every sum pairs the
+// same lanes in the same order as the butterfly (v += shfl_xor(v, o)) and a
+// + b = b + a, so each total is the butterfly's, bit for bit, for 62
+// shuffles (N = 64) or 16 (N = 16) where the butterfly takes 5 N. Returns
+// the index of v[0]'s value; the lane holds the totals first .. first +
+// max(N / 32, 1) - 1 in v[0 ..].
+template <int N>
+__device__ __forceinline__ int halving_sum(float (&v)[N], int lane) {
+    int first = 0;
+    int n = N;
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+        if (n > 1) {
+            n /= 2;
+            const bool up = lane & o;
+#pragma unroll
+            for (int k = 0; k < N / 2; ++k) {
+                if (k >= n) break;
+                const float send = up ? v[k] : v[k + n];
+                const float keep = up ? v[k + n] : v[k];
+                v[k] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+            }
+            if (up) first += n;
+        } else {
+            v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+        }
+    }
+    return first;
+}
+
+// Where slot n of a chunk sits in a column buffer of the blur: within a
+// 512-byte stage (TW slots, V a lane's 16-byte piece), slot q V + e of lane
+// q's piece at (e / 4) (4 TW / V) + 4 q + e % 4, so that the lanes' reads
+// of a quad of their slots are 16 consecutive bytes apiece (with bf16
+// tables, V = 8, lanes 32 bytes apart would meet in the same banks 8 at a
+// time); the identity for f32 tables (V = 4)
+template <typename T>
+__device__ __forceinline__ int stage_pos(int n) {
+    constexpr int TW = 512 / (int)sizeof(T);
+    constexpr int V = 16 / (int)sizeof(T);
+    const int k = n % TW;
+    return n - k + k % V / 4 * (4 * TW / V) + k / V * 4 + k % 4;
+}
+
+// sph_blur_tab_kernel: out[y, b, p, :] = sig_w sum_w w6[b, p, w] v_w
+// X[y][win(w), :], F = 4 (the tangent diffusion's [m, m t]). The design is
+// sph_mask_tab_kernel's (its MaskStage, Ring and table map: the half's 32
+// rows, sample tiles, 512-byte stages of w6 by TMA, columns gathered a chunk
+// ahead) with 4 columns a sample, v_w X_w: a tile of BTC samples is NC = 4
+// BTC columns. B = 1, the surface path, takes tiles of 1 (8 warps x 4 rows,
+// 4 columns); B > 1 tiles of 4, whose 16 columns the warps split in two (4
+// warps x 8 rows along the rows, 2 x 8 columns), so that a column value read
+// from shared memory feeds 8 rows (with 4 rows x 16 columns the column reads
+// alone took as many shared-memory cycles as the FMAs took issue cycles);
+// the tiles of a row half are adjacent in the grid (blockIdx.x = half x
+// tiles + tile), so that the later ones read its table from L2. The
+// columns: thread t copies slot j 256 + t's X rows of the tile's samples
+// with cp.async into buffer j % 2 at the start of chunk j - 1 (no registers
+// held while the chunk before is summed) and scales them by v_w in place at
+// its end, once its own copies have landed (v_w X_w, the plain version's
+// product); slots past W get zeros; a stage's values sit at stage_pos. Lane
+// q sums its 16-byte piece of each of its warp's rows against each column,
+// slot after slot, stage after stage (the table unpacked a quad at a time),
+// and the 32 lanes' sums are added by recursive halving (halving_sum: the
+// butterfly's sums, 62 shuffles for 64 where 64 butterflies take 320).
+// Every sum of a sample is taken in the same
+// order whatever B and the sample's place in its tile, so one launch of B
+// samples equals B launches of one, bit for bit.
+template <typename T, int BTC>
+__global__ void __launch_bounds__(TAB_THREADS, BTC == 1 ? 3 : 2)
+sph_blur_tab_kernel(
+    const __grid_constant__ CUtensorMap w6_map,  // w6 as [nb, 2, 32, W]
+    const float* __restrict__ X,       // [B][C*M, 4]
     long long x_bs,
     const float* __restrict__ vw_b,    // [nb, W]
     const int* __restrict__ win,       // [nb, Wu]
-    int M, int W, int Wu, float sig_w,
-    float* __restrict__ out)           // [B, nb, P, F]
+    int B, int M, int W, int Wu, float sig_w,
+    float* __restrict__ out)           // [B, nb, P, 4]
 {
-    constexpr int V = Vec<T>::N;
-    __shared__ __align__(16) float s_rhs[F][CH];
-
-    const int b = blockIdx.x;
-    const int nb = gridDim.x;
-    const int y = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const T* w6b = w6 + (size_t)b * P * W;
+    constexpr int K = 4;                  // columns a sample
+    constexpr int NC = BTC * K;           // columns of a sample tile
+    using L = MaskStage<T, NC>;           // 2.6's stages, NC columns
+    constexpr int TW = L::TW;
+    constexpr int NS = L::NS;
+    constexpr int CHUNK = L::CHUNK;
+    constexpr int SPC = CHUNK / TW;       // stages a chunk
+    constexpr int V = Vec<T>::N;          // slots of a 16-byte piece
+    constexpr int CS = BTC >= 4 ? 2 : 1;  // warps along the columns
+    constexpr int WR = WARPS_T / CS;      // warps along the rows
+    constexpr int RPW = HALF / WR;        // rows a warp
+    constexpr int NCW = NC / CS;          // columns a warp
+    extern __shared__ unsigned char dyn[];
+    __shared__ uint64_t bars[NS];
+    __shared__ int counts[NS];
+    const int nty = (B + BTC - 1) / BTC;  // sample tiles
+    const int b = blockIdx.x / nty / 2;
+    const int hh = blockIdx.x / nty % 2;  // rows hh*32 .. hh*32+31
+    const int y0 = blockIdx.x % nty * BTC;
+    const int nbt = min(BTC, B - y0);     // samples of this tile
+    const int nb = gridDim.x / (2 * nty);
+    Ring<NS> ring;
+    ring.init(dyn, L::BYTES, bars, counts, win + (size_t)b * Wu, Wu);
+    float* col = reinterpret_cast<float*>(ring.base + NS * L::BYTES
+                                          + L::cells(Wu));
     const float* vw = vw_b + (size_t)b * W;
-    const int* wc = win + (size_t)b * Wu;
-    const float* Xy = X + (size_t)y * x_bs;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int wr = CS == 1 ? warp : warp % WR;  // rows wr*RPW ..
+    const int wc = CS == 1 ? 0 : warp / WR;     // columns wc*NCW ..
+    const int nt = (W + TW - 1) / TW;
+    const int nc = (W + CHUNK - 1) / CHUNK;
 
-    float acc[RPW][F];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r)
-#pragma unroll
-        for (int f = 0; f < F; ++f) acc[r][f] = 0.0f;
+    const uint64_t pol = evict_first_policy();
+    auto issue = [&](int k) {  // one thread: the w6 box of stage k
+        const int s = k % NS;
+        bar_expect(&ring.full[s], L::BYTES);
+        tma_4d(ring.base + s * L::BYTES, &w6_map, k * TW, 0, hh, b,
+               &ring.full[s], pol);
+    };
+    if (threadIdx.x == 0)
+        for (int k = 0; k < min(NS, nt); ++k) issue(k);
 
-    for (int c0 = 0; c0 < W; c0 += CH) {
-        __syncthreads();
-        const int w = c0 + tid;
-        const size_t src = w < W ? win_row(wc, w, M) * F : 0;
-        const float v = w < W ? vw[w] : 0.0f;
+    // ---- the columns: slot w = j CHUNK + thread of chunk j, in buffer
+    // j % 2 at the thread's stage_pos ----
+    const int tpos = stage_pos<T>(threadIdx.x);
+    float vol = 0.0f;
+    auto gather = [&](int j) {  // the copies, left in flight
+        const int w = j * CHUNK + threadIdx.x;
+        float* c = col + (j & 1) * NC * CHUNK + tpos;
+        if (w < W) {
+            vol = vw[w];
+            const size_t row = (size_t)ring.cells[w / M] * M + w % M;
 #pragma unroll
-        for (int f = 0; f < F; ++f)
-            s_rhs[f][tid] = w < W ? v * Xy[src + f] : 0.0f;
-        __syncthreads();
+            for (int s = 0; s < BTC; ++s)
+                if (s < nbt)
+#pragma unroll
+                    for (int f = 0; f < K; ++f)
+                        cp_async4(c + (s * K + f) * CHUNK,
+                                  X + (size_t)(y0 + s) * x_bs + row * K + f);
+            cp_async_commit();
+        } else {
+            vol = 0.0f;
+#pragma unroll
+            for (int i = 0; i < NC; ++i) c[i * CHUNK] = 0.0f;
+        }
+    };
+    auto store = [&](int j) {  // the thread's own copies landed: v_w X_w
+        if (j * CHUNK + (int)threadIdx.x >= W) return;
+        cp_async_wait_all();
+        float* c = col + (j & 1) * NC * CHUNK + tpos;
+#pragma unroll
+        for (int s = 0; s < BTC; ++s)
+            if (s < nbt)
+#pragma unroll
+                for (int f = 0; f < K; ++f) c[(s * K + f) * CHUNK] *= vol;
+    };
+    gather(0);
+    store(0);
+    __syncthreads();
 
-        const int n = min(CH, W - c0);  // a multiple of 8
-        for (int k = lane * V; k < n; k += 32 * V) {
-            float rv[F][V];
+    // ---- products: lane the 16-byte piece of each of the warp's rows ----
+    float acc[RPW][NCW];
 #pragma unroll
-            for (int f = 0; f < F; ++f)
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
-                for (int e = 0; e < V; e += 4) {
-                    const float4 v4 =
-                        *reinterpret_cast<const float4*>(&s_rhs[f][k + e]);
-                    rv[f][e] = v4.x;
-                    rv[f][e + 1] = v4.y;
-                    rv[f][e + 2] = v4.z;
-                    rv[f][e + 3] = v4.w;
+        for (int c = 0; c < NCW; ++c) acc[i][c] = 0.0f;
+
+    for (int it = 0; it < nt; ++it) {
+        const int j = it / SPC;
+        if (it % SPC == 0 && j + 1 < nc) gather(j + 1);
+        const int s = it % NS;
+        bar_wait(&ring.full[s], (it / NS) & 1);
+        const unsigned char* rows = ring.base + s * L::BYTES
+            + wr * RPW * L::SEG + lane * 16;
+        const float* cb = col + (j & 1) * NC * CHUNK + (it % SPC) * TW
+            + lane * 4 + wc * NCW * CHUNK;
+#pragma unroll
+        for (int e = 0; e < V; e += 4) {  // the lane's quads of slots
+            float tv[RPW][4];
+#pragma unroll
+            for (int i = 0; i < RPW; ++i)
+                unpack4(rows + i * L::SEG + e * sizeof(T), tv[i], T());
+#pragma unroll
+            for (int c = 0; c < NCW; ++c) {
+                if ((wc * NCW + c) / K >= nbt) break;
+                const float4 c4 = *reinterpret_cast<const float4*>(
+                    cb + c * CHUNK + e / 4 * (4 * TW / V));
+#pragma unroll
+                for (int i = 0; i < RPW; ++i) {
+                    acc[i][c] = fmaf(tv[i][0], c4.x, acc[i][c]);
+                    acc[i][c] = fmaf(tv[i][1], c4.y, acc[i][c]);
+                    acc[i][c] = fmaf(tv[i][2], c4.z, acc[i][c]);
+                    acc[i][c] = fmaf(tv[i][3], c4.w, acc[i][c]);
                 }
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                float tv[V];
-                unpack16(*reinterpret_cast<const uint4*>(
-                             w6b + (size_t)(warp * RPW + r) * W + c0 + k),
-                         tv, T());
-#pragma unroll
-                for (int f = 0; f < F; ++f)
-#pragma unroll
-                    for (int e = 0; e < V; ++e) acc[r][f] += tv[e] * rv[f][e];
             }
+        }
+        if (ring.leave(s, lane) && lane == 0 && it + NS < nt) issue(it + NS);
+        if (it % SPC == SPC - 1 || it == nt - 1) {  // the chunk's last stage
+            if (j + 1 < nc) store(j + 1);
+            __syncthreads();
         }
     }
 
-    const size_t blk = (size_t)y * nb + b;
+    // ---- each (row, column)'s 32 pieces (halving_sum); the lanes that
+    // hold a total store sig_w times it ----
+    constexpr int N = RPW * NCW;
+    constexpr int PER = N / 32 > 0 ? N / 32 : 1;  // totals a lane holds
+    float v[N];
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) {
+    for (int i = 0; i < RPW; ++i)
 #pragma unroll
-        for (int f = 0; f < F; ++f) {
-            float v = acc[r][f];
+        for (int c = 0; c < NCW; ++c) v[i * NCW + c] = acc[i][c];
+    const int first = halving_sum(v, lane);
+    if (N < 32 && lane >= N) return;  // a copy of another lane's totals
 #pragma unroll
-            for (int off = 16; off > 0; off /= 2)
-                v += __shfl_xor_sync(0xffffffffu, v, off);
-            if (lane == 0)
-                out[(blk * P + warp * RPW + r) * F + f] = sig_w * v;
-        }
+    for (int e = 0; e < PER; ++e) {
+        const int i = (first + e) / NCW;
+        const int c = wc * NCW + (first + e) % NCW;
+        if (c / K < nbt)
+            out[(((size_t)(y0 + c / K) * nb + b) * P + hh * HALF + wr * RPW
+                  + i) * K + c % K] = sig_w * v[e];
     }
 }
 
@@ -964,25 +1148,42 @@ int mask_tab_b(const void* w6, const float* S, long long s_bs, int F,
              sm, st);
 }
 
-template <typename T>
-int blur_tab(const void* w6, const float* X, long long x_bs, int F,
-             const float* vw, const int* win, int B, int nb, int M, int W,
-             int Wu, float sig_w, float* out, cudaStream_t st) {
-    if (F != 4) return (int)cudaErrorInvalidValue;  // the diffusion's [m, m t]
-    sph_blur_tab_kernel<T, 4><<<dim3(nb, B), THREADS, 0, st>>>(
-        static_cast<const T*>(w6), X, x_bs, vw, win, M, W, Wu, sig_w, out);
+template <typename T, int BTC>
+int blur_tab(const void* w6, const float* X, long long x_bs, const float* vw,
+             const int* win, int B, int nb, int M, int W, int Wu,
+             float sig_w, float* out, cudaStream_t st) {
+    using L = MaskStage<T, 4 * BTC>;
+    CUtensorMap w6_map;
+    cudaError_t err = table_map<T, L::TW>(&w6_map, w6, nb, 1, W);
+    if (err == cudaSuccess)
+        err = allow_smem((const void*)sph_blur_tab_kernel<T, BTC>);
+    if (err != cudaSuccess) return (int)err;
+    // (2 nb) halves x sample tiles, the tiles of a half adjacent
+    const dim3 grid(2 * nb * ((B + BTC - 1) / BTC));
+    sph_blur_tab_kernel<T, BTC><<<grid, TAB_THREADS, L::smem(Wu), st>>>(
+        w6_map, X, x_bs, vw, win, B, M, W, Wu, sig_w, out);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int blur_tab_b(const void* w6, const float* X, long long x_bs, int F,
+               const float* vw, const int* win, int B, int nb, int M, int W,
+               int Wu, float sig_w, float* out, cudaStream_t st) {
+    if (F != 4) return (int)cudaErrorInvalidValue;  // the diffusion's [m, m t]
+    // tiles of 1 sample for B = 1, else of 4
+    auto f = B == 1 ? blur_tab<T, 1> : blur_tab<T, 4>;
+    return f(w6, X, x_bs, vw, win, B, nb, M, W, Wu, sig_w, out, st);
 }
 
 }  // namespace
 
 // Plain C launchers for ctypes: raw device pointers, sizes, sample strides,
-// the table type (0 = float32, 1 = bfloat16) and the caller's stream. The
-// forward, adjoint and mask run on a grid of (2 nb row halves, tiles of 8
-// samples, or one of 2 for B <= 2) and take 16-byte aligned tables (the
-// forward and adjoint also M = 8 slots a cell and 16-byte aligned state,
-// cotangents and volumes); the blur on (nb blocks, B samples). Each returns
-// the CUDA error code of its set-up or launch (0 = ok).
+// the table type (0 = float32, 1 = bfloat16) and the caller's stream. All run
+// on a grid of (2 nb row halves, sample tiles: of 8, or one of 2 for B <= 2;
+// the blur's of 4, or one of 1 for B = 1) and take 16-byte aligned tables
+// (the forward and adjoint also M = 8 slots a cell and 16-byte aligned
+// state, cotangents and volumes). Each returns the CUDA error code of its
+// set-up or launch (0 = ok).
 
 extern "C" int sph_fwd_tab_launch(
     int bf16, const void* md, const void* w6, const float* gsum,
@@ -1041,8 +1242,8 @@ extern "C" int sph_blur_tab_launch(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (bad_grid(P_, nb, B, W, M)) return (int)cudaErrorInvalidValue;
     return bf16
-        ? blur_tab<__nv_bfloat16>(w6, X, x_bs, F, vw, win, B, nb, M, W, Wu,
-                                  sig_w, out, st)
-        : blur_tab<float>(w6, X, x_bs, F, vw, win, B, nb, M, W, Wu, sig_w,
-                          out, st);
+        ? blur_tab_b<__nv_bfloat16>(w6, X, x_bs, F, vw, win, B, nb, M, W,
+                                    Wu, sig_w, out, st)
+        : blur_tab_b<float>(w6, X, x_bs, F, vw, win, B, nb, M, W, Wu, sig_w,
+                            out, st);
 }

@@ -270,6 +270,45 @@ def test_batched_launches_equal_per_sample(cuda, bsz):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("bsz", [1, 2, 3, 8, 11, 20])
+def test_mask_kernel_launches_equal_per_sample(cuda, dim, bsz):
+    """The recompute mask kernel within 1e-5 of max of its plain version
+    (use_alpha on and off, states of 16 and of 5 channels), exactly 0 where
+    the plain version is (most pad rows: in this periodic 3D cloud some pad
+    rows sit within h of window slots at the same offset, and both versions
+    sum those), one launch a bucket, and one launch of B samples equal to B
+    launches of one, bit for bit: 1 in a 1-sample tile, 2 and 3 in one ragged
+    tile of 8, 8 in a full one, 11 in a full and a ragged one, 20 in
+    three."""
+    eng, _ = _cloud(cuda, dim)
+    c, m = eng.xs.shape[:2]
+    scal = PK.scal_vec(eng)
+    real = (eng.vs > 0).reshape(-1, 64)
+    nb1 = eng.blk_xs.shape[0]
+    for f in (16, 5):
+        S = _rand(cuda, (bsz, c, m, f), 13)
+        for use_alpha in (True, False):
+            for xs_b, xw_b, vw_b, win, rr in (
+                (eng.blk_xs, eng.blk_xw, eng.blk_vw, eng.blk_win_cells,
+                 real[:nb1]),
+                (eng.blk2_xs, eng.blk2_xw, eng.blk2_vw, eng.blk2_win_cells,
+                 real[nb1:]),
+            ):
+                margs = (scal, xs_b, xw_b, vw_b)
+                n0 = PK.mask_bucket.launches
+                mk = PK.mask_bucket(*margs, S, win, use_alpha=use_alpha)
+                assert PK.mask_bucket.launches == n0 + 1
+                mp = PK.mask_bucket_plain(*margs, S, win, use_alpha=use_alpha)
+                torch.cuda.synchronize()
+                _close(mk, mp, rr.expand(bsz, -1, -1), SM_RTOL)
+                assert torch.equal(mk == 0, mp == 0)
+                for b in range(bsz):
+                    assert torch.equal(mk[b], PK.mask_bucket(
+                        *margs, S[b], win, use_alpha=use_alpha))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
 def test_recompute_forward_cancels_a_constant_field(cuda, dim):
     """The recompute forward kernel's split TF32 products keep f32
     accuracy: a constant state cancels against the rowsum of the A tile it
@@ -462,6 +501,32 @@ def test_table_batched_launches_equal_per_sample(cuda, dtype, bsz):
         assert torch.equal(mk[b], PK.mask_blur(eng, S[b]))
         assert torch.equal(da[b], PK.gradient_adjoint_dmajor(eng, G[b]))
         assert torch.equal(bl[b], PK.blur_cells(eng, X[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+@pytest.mark.parametrize("bsz", [1, 2, 3, 8, 11])
+def test_blur_kernel_matches_plain(cuda, dtype, bsz):
+    """The blur table kernel within 1e-5 of max of its plain version, pad
+    rows exactly 0, one launch a bucket, and one launch of B samples equal to
+    B launches of one, bit for bit: 1 in a 1-sample tile, 2 and 3 in one
+    ragged tile of 4, 8 in two full ones, 11 in two and a ragged one."""
+    eng = _tab_cloud(cuda, 3, dtype)
+    c, m, _ = eng.xs.shape
+    X = _rand(cuda, (bsz, c, m, 4), 14)
+    scal = PK.scal_vec(eng)
+    real = (eng.vs > 0).reshape(-1, 64)
+    for lo, hi, win, vw, _, w6 in _tab_buckets(eng):
+        rr = real[lo:hi]
+        n0 = PK.blur_bucket.launches
+        xk = PK.blur_bucket(scal, vw, X, win, w6)
+        assert PK.blur_bucket.launches == n0 + 1
+        xp = PK.blur_bucket_plain(scal, vw, X, win, w6)
+        torch.cuda.synchronize()
+        _close(xk, xp, rr.expand(bsz, -1, -1), SM_RTOL)
+        assert torch.all(xk[:, ~rr] == 0)
+        for b in range(bsz):
+            assert torch.equal(xk[b], PK.blur_bucket(scal, vw, X[b], win, w6))
 
 
 @pytest.mark.cuda

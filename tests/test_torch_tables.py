@@ -30,11 +30,13 @@ import torch
 from sph_nca_tpu.models import SPHNCAConfig as JaxConfig
 from sph_nca_tpu.models import init_params as jax_init_params
 from sph_nca_tpu.models.cell_step import nca_step_cells as jax_step
+from sph_nca_tpu.ops import batched as JB
 from sph_nca_tpu.ops.cells import build_cell_engine as jax_build
 from sph_nca_tpu.ops.pallas import pair_kernel as JP
 from sph_nca_tpu_torch.io.convert import params_from_jax_numpy
 from sph_nca_tpu_torch.models.cell_step import nca_step_cells
 from sph_nca_tpu_torch.models.nca import SPHNCAConfig
+from sph_nca_tpu_torch.ops import batched as TB
 from sph_nca_tpu_torch.ops import pair_kernel as TP
 from sph_nca_tpu_torch.ops.cells import build_cell_engine
 
@@ -201,6 +203,23 @@ def test_blur_matches_pallas(engines):
     want = JP.blur_cells_pallas(je, jnp.asarray(X))
     got = TP.blur_cells(te, torch.from_numpy(X))
     _close(got.numpy(), want, RTOL, _real(te))
+    assert torch.all(got[te.vs == 0] == 0)
+
+
+def test_blur_batched_matches_jax(engines):
+    """The batched blur (B = 3 samples of K = 4 lanes, the tangent
+    diffusion's, in the lane layout [C, M, B*K]) against the JAX package's
+    blur_batched: f32 tables within 1e-5 of max; bf16 tables within 1e-2 of
+    max, since JAX rounds v X to bf16 before its product where the port keeps
+    it f32 (the bf16 level of tests/test_torch_batched.py). Pad rows 0."""
+    je, te = engines
+    c, m, _ = te.xs.shape
+    XB = _normal((c, m, 3 * 4), 10)
+    want = JB.blur_batched(je, jnp.asarray(XB), 3)
+    got = TB.blur_batched(te, torch.from_numpy(XB), 3)
+    rtol = RTOL if te.blk_w6.dtype == torch.float32 else 1e-2
+    assert tuple(got.shape) == tuple(want.shape)
+    _close(got.numpy(), want, rtol, _real(te))
     assert torch.all(got[te.vs == 0] == 0)
 
 
