@@ -276,7 +276,9 @@ def test_mask_kernel_launches_equal_per_sample(cuda, dim, bsz):
     (use_alpha on and off, states of 16 and of 5 channels), exactly 0 where
     the plain version is (most pad rows: in this periodic 3D cloud some pad
     rows sit within h of window slots at the same offset, and both versions
-    sum those), one launch a bucket, and one launch of B samples equal to B
+    sum those, as the Pallas kernel does:
+    tests/test_torch_pair_kernel.py::test_mask_blur_pad_rows_match_pallas),
+    one launch a bucket, and one launch of B samples equal to B
     launches of one, bit for bit: 1 in a 1-sample tile, 2 and 3 in one ragged
     tile of 8, 8 in a full one, 11 in a full and a ragged one, 20 in
     three."""

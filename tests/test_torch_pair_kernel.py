@@ -89,6 +89,30 @@ def test_mask_blur_matches_pallas(engines, use_alpha):
     _close(sm_t, sm_j, te.vs.numpy() > 0, SM_RTOL)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("use_alpha", [True, False])
+def test_mask_blur_pad_rows_match_pallas(dim, use_alpha):
+    """The pad rows of the recompute mask, on the periodic cloud that
+    tests/test_torch_cuda.py holds the mask kernel on (600 points, h 0.25,
+    period 2): in 3D the reference itself is nonzero on some pad rows (pad
+    rows and window slots stored at the same large offset lie within h), in
+    2D on none. The port is zero on exactly the pad rows where the Pallas
+    kernel is, and within 1e-5 of max of it on all of them."""
+    x = np.random.default_rng(1).uniform(-1, 1, (600, dim)).astype(
+        np.float32)
+    je = jax_build(jnp.asarray(x), 0.25, period=jnp.asarray([2.0] * dim))
+    te = build_cell_engine(x, 0.25, period=[2.0] * dim, device="cpu")
+    S = _state(te, seed=13)
+    sm_j = np.asarray(JP.mask_blur_pallas(je, jnp.asarray(S),
+                                          use_alpha=use_alpha))
+    sm_t = TP.mask_blur(te, torch.from_numpy(S), use_alpha=use_alpha).numpy()
+    pad = te.vs.numpy() <= 0
+    np.testing.assert_array_equal(sm_t[pad] != 0, sm_j[pad] != 0)
+    assert (np.count_nonzero(sm_j[pad]) > 0) == (dim == 3)
+    scale = float(np.max(np.abs(sm_j)))
+    assert float(np.max(np.abs(sm_t - sm_j)[pad])) <= SM_RTOL * scale
+
+
 def _self_and_pad_bucket(d=3, f=16):
     """One block: row 0 is a real particle at (0.01, ...); its window holds
     one copy of that same slot (the self pair, d2 == 0 exactly) and M-1 pad
