@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
-toolkit. Four main paths, each driven through its entry point with every
+toolkit. Seven main paths, each driven through its entry point with every
 launch counter set to 0 just before it and read just after:
 
   inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
@@ -24,7 +24,19 @@ launch counter set to 0 just before it and read just after:
              model (16 channels, 256 hidden, h = 0.1, texture mode) on a
              25,600-point sphere of radius 1 with bfloat16 pair tables, 10
              farthest-point radial seeds, 128 steps at fire_rate 0.5, through
-             ``sph_nca_tpu_torch.models.surface.rollout_mesh_cells``.
+             ``sph_nca_tpu_torch.models.surface.rollout_mesh_cells``;
+  surface-batched  the same stripes sphere, 8 rollouts at once on bfloat16
+             tables with a bfloat16 update MLP, 128 steps at fire_rate 0.5,
+             through ``models.surface.rollout_mesh_batched``;
+  surface-cli  ``python -m sph_nca_tpu_torch.cli.test --surface`` on a
+             procedural mesh written to a temporary directory, 25,600
+             points, 128 steps: stripes (random seed), gecko (radial seeds)
+             and stripes at --h 0.08 (the diffusion on a second engine);
+  surface-bench  bench.py's configuration in the port: 8 rollouts on a
+             102,400-point sphere of radius 0.8 with h sized for ~30
+             neighbours, 128 steps, bfloat16 tables and MLP, random-init
+             parameters (16 channels, 256 hidden), through
+             ``rollout_mesh_batched``.
 
 Phases, each printing one line with its wall time:
 
@@ -83,6 +95,29 @@ Phases, each printing one line with its wall time:
   surface-grad   the gradient of a scalar loss on a 4-step surface rollout
                  through the table kernels (forward and adjoint) against the
                  same through the plain versions
+  surface-batched  the batched surface path: launch counts, finite states,
+                 unit tangents, the textured share of every sample at steps
+                 0, 64 and 128; ms per step and the device's busy share
+  surface-batched-check  16 steps at fire_rate 1.0 from the grown states,
+                 kernels vs plain versions (float32 MLP 1e-4; a bfloat16
+                 MLP one step, by the share of states that part), and B = 8
+                 against 8 unbatched rollout_mesh_cells runs (float32)
+  surface-cli    the three CLI runs: states.npz and PLY files (count,
+                 shapes, finite, points on the normalized mesh), launch
+                 counts (the random seed's 50 pre-diffusion blurs included),
+                 the sampling's and the engines' host times; the blur kernel
+                 against its plain version on the radius-0.2 engine
+  surface-cli-check  the CLI's own engines rebuilt from its points: the
+                 forward, mask and blur kernels (B = 1) and the MLP (float32)
+                 against their plain versions, and 16 steps of each run from
+                 its final state, kernels vs plain (1e-4)
+  surface-bench  particle-steps per second (best of 3), ms per step, the
+                 device's busy share (the profile's records of the port's
+                 kernels held against their launch counters), peak memory,
+                 table bytes, the engine's build time; the table and MLP
+                 kernels at that shape against their plain versions, with
+                 device times, bounds and library calls, torch.bmm also on
+                 the bfloat16 tables (surface-bench-kernels)
   times          each kernel's device time (profiler kernel records) beside
                  its plain version's, its bound and, where one exists, a
                  library call's: the recompute kernels at the training and
@@ -99,14 +134,16 @@ Phases, each printing one line with its wall time:
                  training and batched gecko shapes beside addmm-relu-addmm
                  (float32 sums, bfloat16 products for the bfloat16 row);
                  ms per inference and per surface rollout step
-Then one JSON line describing the eight kernels, and as the last line
+Then one JSON line describing the eight kernels (2.4, 2.6, 2.7 and 2.8 also
+with their launches on the batched surface paths and their numbers at the
+bench shape), and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
 line. Without a card it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --profile`` adds torch.profiler traces of 16 surface
-rollout steps, of 16 inference rollout steps and of one full-depth training
-iteration on each training path, with device time by kernel and the
-device's busy share.
+rollout steps, of 16 batched surface and bench steps, of 16 inference
+rollout steps and of one full-depth training iteration on each training
+path, with device time by kernel and the device's busy share.
 """
 
 from __future__ import annotations
@@ -131,15 +168,30 @@ from sph_nca_tpu_torch.models.cell_step import (
     rollout_cells,
     rollout_cells_batched,
 )
-from sph_nca_tpu_torch.models.surface import rollout_mesh_cells
+from sph_nca_tpu_torch.models.surface import (
+    DIFFUSE_H,
+    normalize,
+    orthogonalize,
+    rollout_mesh_batched,
+    rollout_mesh_batched_dual,
+    rollout_mesh_cells,
+)
 from sph_nca_tpu_torch.ops import _build
 from sph_nca_tpu_torch.ops import mlp_kernel as MK
 from sph_nca_tpu_torch.ops import pair_kernel as PK
 from sph_nca_tpu_torch.ops.batched import batched_gather_back, batched_scatter
 from sph_nca_tpu_torch.ops.cells import build_cell_engine
 from sph_nca_tpu_torch.utils.geometry import grange
-from sph_nca_tpu_torch.utils.meshes import fibonacci_sphere, sphere_normals
-from sph_nca_tpu_torch.utils.seeds import plane_seed, surface_radial_seed
+from sph_nca_tpu_torch.utils.meshes import (
+    fibonacci_sphere,
+    load_ply_points,
+    sphere_normals,
+)
+from sph_nca_tpu_torch.utils.seeds import (
+    plane_seed,
+    surface_radial_seed,
+    surface_random_seed,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GECKO = os.path.join(ROOT, "sph_nca_tpu", "demo", "web", "weights",
@@ -222,6 +274,11 @@ MLP_RAGGED_HID = (100, 256, 512)
 # the mask and blur table kernels' sample tiles besides B = 1 and 8: one
 # ragged tile, and full tiles and a ragged one
 MASK_RAGGED_B = (3, 11)
+# bench.py's configuration (bench.py:43-51,148-154,184-189): 8 surface
+# rollouts on a 102,400-point sphere of radius 0.8, h sized for ~30
+# neighbours, 128 steps, bfloat16 tables and MLP
+BENCH_N, BENCH_RADIUS, BENCH_B, BENCH_STEPS = 102_400, 0.8, 8, 128
+BENCH_NEIGHBOURS = 30
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
 # cores, dense TF32 and bf16 products with fp32 sums on the tensor cores, and
@@ -643,7 +700,8 @@ def tab_stats(eng) -> dict:
     for lo, hi, _, vw, md, w6 in tab_buckets(eng):
         stats["pairs"] += w6.numel()
         stats["within_h"] += int(((w6 > 0) & (vw[:, None, :] > 0)).sum())
-        stats["bytes"] += md.numel() * md.element_size()
+        if md is not None:  # a w6-only engine has no md
+            stats["bytes"] += md.numel() * md.element_size()
         stats["bytes"] += w6.numel() * w6.element_size()
         stats["buckets"].append((hi - lo, w6.shape[2]))
     return stats
@@ -728,6 +786,17 @@ def tab_calls(eng, S, G, X, plain: bool, use_alpha: bool) -> dict:
         "sph_blur_tab_kernel": lambda: [
             blr(scal, vw, X, wc, w6) for lo, hi, wc, vw, md, w6 in bks],
     }
+
+
+def tab_gap(got, want):
+    """(max abs, max rel to the plain output's max |value|) between the
+    outputs of a ``tab_calls`` closure and of its plain version."""
+    flat = [(k, q) for kk, pp in zip(got, want)
+            for k, q in (zip(kk, pp) if isinstance(kk, tuple)
+                         else [(kk, pp)])]
+    return (max(float((k - q).abs().max()) for k, q in flat),
+            max(float((k - q).abs().max()) / max(float(q.abs().max()), 1e-30)
+                for k, q in flat))
 
 
 def mlp_inputs(dev, dtype, k: int, lead, seed: int, hid: int = 256):
@@ -909,11 +978,13 @@ def surface_rollout(params, cfg, eng, A0, nrm, t0, steps, h, *,
                               collect_all=collect_all)
 
 
-def surface_phases(dev, rng, smi: str) -> list:
+def surface_phases(dev, rng, smi: str):
     """The surface phases: the stripes surface engine with pair tables, each
     table kernel against its plain version, the surface path (launch counts
     reset just before it and read just after), its gradient, and the table
-    kernels' times. Returns the table kernels' rows of the kernels line."""
+    kernels' times. Returns the table kernels' rows of the kernels line and
+    the scene (model, config, engines by table dtype, points, normals, seed
+    state) for the batched surface phases."""
     # ---- tables: the surface engine, each table kernel vs plain -------
     t0 = time.time()
     stripes = load_weights_json(STRIPES, device=dev)
@@ -1158,7 +1229,620 @@ def surface_phases(dev, rng, smi: str) -> list:
           f"synchronize); kernel times: device time from torch.profiler "
           f"kernel records, median of 3 profiles of 20 calls, L2-warm | "
           f"{smi}")
-    return rows
+    return rows, (stripes, scfg, seng, xsph, nsph, A0s)
+
+
+def write_mesh_obj(path: str, nu: int = 160, nv: int = 80) -> str:
+    """A bumpy ellipsoid as an OBJ: bands of quads (``v/vt/vn`` entries),
+    triangle fans at the poles; 12,642 vertices, 25,280 triangles."""
+    verts = [(0.0, 1.0, 0.0), (0.0, -1.0, 0.0)]
+    for j in range(1, nv):
+        th = np.pi * j / nv
+        for i in range(nu):
+            ph = 2 * np.pi * i / nu
+            r = 1.0 + 0.12 * np.sin(3 * th) * np.cos(2 * ph)
+            verts.append((1.2 * r * np.sin(th) * np.cos(ph), r * np.cos(th),
+                          0.9 * r * np.sin(th) * np.sin(ph)))
+    lines = [f"v {a:.6f} {b:.6f} {c:.6f}" for a, b, c in verts]
+    lines += ["vt 0 0", "vn 0 1 0"]
+
+    def ring(j, i):  # 1-based vertex index of band j, column i
+        return 3 + j * nu + i % nu
+
+    for j in range(nv - 2):
+        for i in range(nu):
+            lines.append("f " + " ".join(f"{k}/1/1" for k in (
+                ring(j, i), ring(j, i + 1), ring(j + 1, i + 1),
+                ring(j + 1, i))))
+    for i in range(nu):
+        lines.append(f"f 1 {ring(0, i + 1)} {ring(0, i)}")
+        lines.append(f"f 2 {ring(nv - 2, i)} {ring(nv - 2, i + 1)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def tab_launches(eng, steps: int, extra_blur: int = 0) -> dict:
+    """Launch counts of ``steps`` batched surface steps on ``eng``: the
+    forward, the mask and the diffusion blur once per window-size bucket a
+    step (every diffusion engine here has two buckets, as ``eng``), the
+    update MLP once a step; ``extra_blur`` blur launches besides (the random
+    seed's pre-diffusion)."""
+    nbk = sum(1 for nb, _ in tab_stats(eng)["buckets"] if nb > 0)
+    return {**NO_LAUNCHES, "sph_fwd_tab_kernel": nbk * steps,
+            "sph_mask_tab_kernel": nbk * steps,
+            "sph_blur_tab_kernel": nbk * steps + extra_blur,
+            "sph_mlp_kernel": steps}
+
+
+def busy_share(fn, steps: int, attempts: int = 4):
+    """Run fn() under torch.profiler; returns (device us per step, traced
+    wall us per step, device records in the profile, the port's kernel
+    launches in it). Profiles taken after the batched surface phases have
+    lost kernel records, so the records of the port's kernels are held
+    against the launch counters over the same window: a profile that misses
+    one is printed and taken again, up to ``attempts`` times. With
+    ``--profile`` it prints the breakdown by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.time() - t1) * 1e6
+        launched = {n: c for n, c in read_launches().items() if c}
+        held = dict.fromkeys(launched, 0)
+        dev_us, n_records = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                continue
+            dev_us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0))
+            n_records += ev.count
+            for name in launched:
+                if name in ev.key:
+                    held[name] += ev.count
+        if held == launched:
+            break
+        print(f"  the profiler holds {held} records of the port's kernels "
+              f"where the window launched {launched}; taken again",
+              flush=True)
+    else:
+        fail(f"no profile of {attempts} held every kernel record")
+    if "--profile" in sys.argv[1:]:
+        device_breakdown(prof, wall_us, steps, "step")
+    return dev_us / steps, wall_us / steps, n_records, launched
+
+
+def surface_batched_phases(dev, smi, stripes, scfg, seng, xsph, nsph,
+                           A0s) -> dict:
+    """The batched surface rollout (``rollout_mesh_batched``): the stripes
+    sphere with SURF_B rollouts at once, bfloat16 tables and MLP, SURF_STEPS
+    steps at fire_rate 0.5 (counters reset just before, read just after);
+    then CHECK_STEPS steps at fire_rate 1.0 from the grown states with the
+    kernels against the plain versions, and the batched rollout against
+    SURF_B unbatched rollout_mesh_cells runs (float32 tables and MLP).
+    Returns the path's launch counts and each kernel's bound at its
+    shapes."""
+    t0 = time.time()
+    sh, eng = stripes.h, seng["bfloat16"]
+    # SURF_B radial seeds: the same seed points, tangents of other draws
+    T0 = torch.stack([surface_radial_seed(
+        xsph, nsph, scfg.channels, SURF_SEEDS, sh,
+        torch.Generator().manual_seed(SEED + b))[1] for b in range(SURF_B)])
+    A0 = A0s[None].expand(SURF_B, -1, -1).contiguous()
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(SEED)
+
+    reset_launches()
+    t1 = time.time()
+    with torch.no_grad():
+        fA, fT, states = rollout_mesh_batched(
+            stripes.params, scfg, eng, A0, nsph, T0, gen(), SURF_STEPS, sh,
+            mlp_dtype="bfloat16", collect_all=True)
+    torch.cuda.synchronize()
+    secs = time.time() - t1
+    launches = read_launches()
+    want = tab_launches(eng, SURF_STEPS)
+    if launches != want:
+        fail(f"batched surface launch counts {launches}, expected {want}")
+    if states.shape != (SURF_STEPS + 1, SURF_B, SURF_N, scfg.channels):
+        fail(f"batched surface trajectory shape {tuple(states.shape)}")
+    if not (bool(torch.isfinite(states).all())
+            and bool(torch.isfinite(fT).all())):
+        fail("non-finite states or tangents in the batched surface rollout")
+    tnorm = float(fT.norm(dim=-1).max())
+    if not tnorm <= 1.0 + 1e-5:
+        fail(f"batched tangent norm {tnorm} > 1 + 1e-5")
+    ks = (0, SURF_STEPS // 2, SURF_STEPS)
+    share = torch.stack([(states[k].abs().amax(-1) > 0).float().mean(-1)
+                         for k in ks])  # [3, B]
+    if not bool(((share[0] < share[1]) & (share[1] <= share[2])).all()):
+        fail(f"the texture did not spread in every sample: {share.tolist()}")
+    del states
+    print(f"  launches {launches}", flush=True)
+    phase("surface-batched", t0, f"stripes, {SURF_N} points, B={SURF_B}, "
+          f"{SURF_STEPS} steps at fire_rate {scfg.fire_rate}, bfloat16 "
+          f"tables and MLP, in {secs:.2f} s (collecting every state): "
+          f"finite, max tangent norm {tnorm:.7f}; share of points whose "
+          f"state left 0 at steps {ks}, per sample: " + "; ".join(
+              " ".join(f"{v:.4f}" for v in share[:, b].tolist())
+              for b in range(SURF_B)))
+
+    t0 = time.time()
+    cfg1 = dataclasses.replace(scfg, fire_rate=1.0)
+    with torch.no_grad():
+        outs = {}
+        for mlp_dtype, steps in ((None, CHECK_STEPS), ("bfloat16", 1),
+                                 ("bfloat16", CHECK_STEPS)):
+            outs[mlp_dtype, steps] = [rollout_mesh_batched(
+                stripes.params, cfg1, eng, fA, nsph, fT, gen(), steps, sh,
+                mlp_dtype=mlp_dtype, use_kernels=uk) for uk in (True, False)]
+        gaps = {key: [(a - b).abs() for a, b in zip(*pair)]
+                for key, pair in outs.items()}
+        diff = max(float(g.max()) for g in gaps[None, CHECK_STEPS])
+        share1 = float((gaps["bfloat16", 1][0] > ROLLOUT_ATOL).float()
+                       .mean())
+        gap16 = float(gaps["bfloat16", CHECK_STEPS][0].max())
+        e32 = seng["float32"]
+        bA, bT = rollout_mesh_batched(stripes.params, cfg1, e32, fA, nsph,
+                                      fT, gen(), CHECK_STEPS, sh)
+        per = 0.0
+        for b in range(SURF_B):
+            rA, rT, _ = rollout_mesh_cells(stripes.params, cfg1, e32, fA[b],
+                                           nsph, fT[b], gen(), CHECK_STEPS,
+                                           sh, fire_rate=1.0)
+            per = max(per, float((bA[b] - rA).abs().max()),
+                      float((bT[b] - rT).abs().max()))
+    del outs, gaps
+    phase("surface-batched-check", t0, f"{CHECK_STEPS} steps at fire_rate "
+          f"1.0 from the grown states, bfloat16 tables: kernels vs plain "
+          f"versions, max difference of states and tangents {diff:.3e} with "
+          f"a float32 MLP (limit {ROLLOUT_ATOL}), {gap16:.3e} with a "
+          f"bfloat16 MLP (printed; share of state values past "
+          f"{ROLLOUT_ATOL} after one step {share1:.3e}, limit "
+          f"{BF16_STEP_SHARE}); float32 tables and MLP, the B={SURF_B} "
+          f"rollout vs {SURF_B} unbatched rollout_mesh_cells runs: {per:.3e}"
+          f" (limit {ROLLOUT_ATOL})")
+    if not (diff <= ROLLOUT_ATOL and per <= ROLLOUT_ATOL
+            and share1 <= BF16_STEP_SHARE):
+        fail(f"batched surface rollout kernels vs plain {diff:.3e} (bfloat16"
+             f" MLP one step: {share1:.3e} of the states past "
+             f"{ROLLOUT_ATOL}), vs unbatched {per:.3e}")
+
+    step_ms = {}
+    with torch.no_grad():
+        for uk in (True, False):
+            rollout_mesh_batched(stripes.params, scfg, eng, A0, nsph, T0,
+                                 gen(), 4, sh, mlp_dtype="bfloat16",
+                                 use_kernels=uk)  # warm-up
+            torch.cuda.synchronize()
+            t1 = time.time()
+            rollout_mesh_batched(stripes.params, scfg, eng, A0, nsph, T0,
+                                 gen(), SURF_STEPS, sh, mlp_dtype="bfloat16",
+                                 use_kernels=uk)
+            torch.cuda.synchronize()
+            step_ms[uk] = (time.time() - t1) * 1e3 / SURF_STEPS
+        busy, wall, recs, held = busy_share(lambda: rollout_mesh_batched(
+            stripes.params, scfg, eng, A0, nsph, T0, gen(), 16, sh,
+            mlp_dtype="bfloat16"), 16)
+    # the bounds of each kernel of the path at its shapes
+    c, m, _ = eng.xs.shape
+    need = work_tab(eng, SURF_B, use_alpha=scfg.use_alpha)
+    need["sph_mlp_kernel"] = work_mlp(SURF_B * c * m, 256, 33, 2)
+    out = {}
+    for name, (nbytes, ops) in need.items():
+        if launches[name]:
+            b_ms, b_by = bound(nbytes, ops, BF16_FLOPS
+                               if name == "sph_mlp_kernel" else FP32_FLOPS)
+            out[name] = {"launches": launches[name], "bound_ms": b_ms,
+                         "bound_by": b_by}
+    print(f"  batched surface step (B={SURF_B}): {step_ms[True]:.4f} ms with"
+          f" the kernels ({SURF_B * SURF_N * 1e3 / step_ms[True]:.4e} "
+          f"particle-steps/s), {step_ms[False]:.4f} ms with the plain "
+          f"versions (host clock around synchronize, {SURF_STEPS} steps); "
+          f"device busy {busy:.2f} of {wall:.2f} us a step traced "
+          f"({100 * busy / wall:.1f}%; {recs} device records, the port's "
+          f"kernels' equal to their launches {held}); bounds of one call at these shapes "
+          f"(both buckets; the MLP one launch), ms: "
+          + ", ".join(f"{n} {v['bound_ms']:.4f} by {v['bound_by']}"
+                      for n, v in out.items())
+          + f" | {smi}", flush=True)
+    return out
+
+
+def surface_cli_phase(dev, smi):
+    """The test CLI's surface mode on a procedural mesh, SURF_N points,
+    SURF_STEPS steps: stripes with the random seed, gecko with radial seeds,
+    and stripes at --h 0.08 (the diffusion on a second engine at 0.1); the
+    trajectory, the PLY files, the launch counts; then the blur kernel
+    against its plain version on the random seed's engine at radius 0.2,
+    and the kernels on the CLI's own engines (``cli_engine_checks``).
+    Returns each run's launch counts and the kernels' largest errors
+    there."""
+    t0 = time.time()
+    runs = {"stripes-random": (STRIPES, []), "gecko-radial": (GECKO, []),
+            "stripes-dual": (STRIPES, ["--h", "0.08"])}
+    every = 16
+    counts, finals = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = write_mesh_obj(os.path.join(tmp, "bumpy.obj"))
+        for label, (weights, extra) in runs.items():
+            out_dir = os.path.join(tmp, label)
+            reset_launches()
+            t1 = time.time()
+            rc = cli_test.main([
+                "--weights_json", weights, "--surface", obj,
+                "--surface_numpoints", str(SURF_N), "--steps",
+                str(SURF_STEPS), "--export_every", str(every), "--seed",
+                str(SEED), "--device", "cuda", "--output_dir", out_dir]
+                + extra)
+            torch.cuda.synchronize()
+            secs = time.time() - t1
+            counts[label] = read_launches()
+            if rc != 0:
+                fail(f"surface CLI ({label}) returned {rc}")
+            (run,) = os.listdir(out_dir)
+            run = os.path.join(out_dir, run)
+            with np.load(os.path.join(run, "states.npz")) as z:
+                x, states = z["x"], z["states"]
+            if (x.shape != (SURF_N, 3)
+                    or states.shape != (SURF_STEPS + 1, SURF_N, 16)):
+                fail(f"surface CLI ({label}) shapes {x.shape} {states.shape}")
+            if not (np.isfinite(states).all() and np.abs(x).max() <= 1 + 1e-5):
+                fail(f"surface CLI ({label}): non-finite states or points "
+                     "off the normalized mesh")
+            names = sorted(f for f in os.listdir(run) if f.endswith(".ply"))
+            want_names = [f"{i:04d}.ply" for i in range(0, SURF_STEPS + 1,
+                                                          every)]
+            if names != want_names:
+                fail(f"surface CLI ({label}) PLY files {names}")
+            for name in names:
+                pts, rgba = load_ply_points(os.path.join(run, name))
+                if not (np.array_equal(pts, x)
+                        and rgba.shape == (SURF_N, 4)):
+                    fail(f"surface CLI ({label}) {name}: wrong points")
+            finals[label] = states[-1]
+            live = [float((np.abs(states[k]).max(-1) > 0).mean())
+                    for k in (0, SURF_STEPS)]
+            print(f"  {label}: {secs:.2f} s, {len(names)} PLY files, share "
+                  f"of points whose state is not 0 at steps 0 and "
+                  f"{SURF_STEPS}: {live[0]:.4f} {live[1]:.4f}; launches "
+                  f"{counts[label]}", flush=True)
+
+        # the random seed's pre-diffusion engine (radius 0.2, float32 w6)
+        t1 = time.time()
+        x, nrm, fps_s = cli_test.surface_points(
+            obj, 1.0, SURF_N, np.random.default_rng(SEED), dev)
+        points_s = time.time() - t1
+    t1 = time.time()
+    peng = build_cell_engine(x, cli_test.SEED_RADIUS_RANDOM,
+                             pair_tables="float32", w6_only=True, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t1
+    st = tab_stats(peng)
+    rng = np.random.default_rng(SEED)
+    c, m, _ = peng.xs.shape
+    scal = PK.scal_vec(peng)
+    real = (peng.vs > 0).reshape(-1, 64)
+    err = rel = 0.0
+    for bsz in (1, SURF_B):
+        X = normal_cuda(rng, (bsz, c, m, 4), dev)
+        for lo, hi, wc, vw, _, w6 in tab_buckets(peng):
+            got = PK.blur_bucket(scal, vw, X, wc, w6)
+            want = PK.blur_bucket_plain(scal, vw, X, wc, w6)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            err = max(err, e)
+            rel = max(rel, e / max(float(want.abs().max()), 1e-30))
+            if not bool((got[:, ~real[lo:hi]] == 0).all()):
+                fail("sph_blur_tab_kernel: nonzero pad rows at radius 0.2")
+    # every engine here has both window-size buckets (the tables phase
+    # checks the sphere's; the pre-diffusion engine's is checked here)
+    if len(st["buckets"]) != 2 or min(nb for nb, _ in st["buckets"]) == 0:
+        fail(f"expected two non-empty buckets at radius 0.2: {st['buckets']}")
+    for name, (weights, _) in runs.items():
+        want = tab_launches(
+            peng, SURF_STEPS,
+            extra_blur=(2 * cli_test.PREDIFFUSE_PASSES if weights == STRIPES
+                        else 0))
+        if counts[name] != want:
+            fail(f"surface CLI ({name}) launch counts {counts[name]}, "
+                 f"expected {want}")
+    phase("surface-cli", t0, f"test CLI --surface on a procedural mesh, "
+          f"{SURF_N} points, {SURF_STEPS} steps, runs "
+          f"{', '.join(runs)}: states and PLYs as expected; points and "
+          f"normals {points_s:.2f} s of which farthest-point sampling "
+          f"({SURF_N} of {8 * SURF_N} candidates, on the card) {fps_s:.2f} "
+          f"s; the random "
+          f"seed's engine at radius 0.2: C={peng.num_cells}, blocks x W "
+          + " + ".join(f"{nb} x {w}" for nb, w in st["buckets"])
+          + f", float32 w6 table {st['bytes'] / 1e6:.1f} MB, built in "
+          f"{build_s:.2f} s; sph_blur_tab_kernel == plain there at B = 1 and "
+          f"{SURF_B}: max abs {err:.3e}, rel to max {rel:.3e} (limit "
+          f"{TAB_RTOL}) | {smi}")
+    if not rel <= TAB_RTOL:
+        fail(f"sph_blur_tab_kernel vs plain at radius 0.2: {rel:.3e}")
+    return counts, cli_engine_checks(dev, smi, runs, x, nrm, peng, finals)
+
+
+def cli_engine_checks(dev, smi, runs, x, nrm, peng, finals) -> dict:
+    """The surface CLI's own engines, rebuilt from the same points as the
+    CLI builds them (bfloat16 tables at each run's h; for h != DIFFUSE_H a
+    bfloat16 w6-only diffusion engine at DIFFUSE_H), each run's kernels
+    against their plain versions there: the forward and the mask on the
+    perception engine and the blur on the diffusion engine (random inputs,
+    B = 1, within TAB_RTOL of max), the update MLP at the run's shape
+    (float32, as the CLI runs it), and CHECK_STEPS rollout steps at
+    fire_rate 1 from the run's final state with the random seed's tangent
+    field, kernels vs plain (ROLLOUT_ATOL). Returns the largest absolute
+    error per kernel."""
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 2)
+    xt, nt = torch.from_numpy(x).to(dev), torch.from_numpy(nrm).to(dev)
+    with torch.no_grad():
+        t_seed = surface_random_seed(
+            xt, nt, 16, np.random.default_rng(SEED),
+            torch.Generator(device=dev).manual_seed(SEED), peng,
+            cli_test.PREDIFFUSE_PASSES)[1]
+    engs, lines = {}, []
+    errs = dict.fromkeys(("sph_fwd_tab_kernel", "sph_mask_tab_kernel",
+                          "sph_blur_tab_kernel", "sph_mlp_kernel"), 0.0)
+
+    def engine(h, w6_only):
+        if (h, w6_only) not in engs:
+            t1 = time.time()
+            engs[h, w6_only] = build_cell_engine(
+                x, h, pair_tables="bfloat16", w6_only=w6_only, device=dev)
+            torch.cuda.synchronize()
+            st = tab_stats(engs[h, w6_only])
+            lines.append(f"h={h}{' w6 only' if w6_only else ''}: blocks x W "
+                         + " + ".join(f"{nb} x {w}" for nb, w in st["buckets"])
+                         + f", {st['bytes'] / 1e6:.1f} MB, built in "
+                         f"{time.time() - t1:.2f} s")
+        return engs[h, w6_only]
+
+    def hold(name, kc, pc):
+        abs_err, rel = tab_gap(kc[name](), pc[name]())
+        errs[name] = max(errs[name], abs_err)
+        return rel
+
+    for label, (weights, extra) in runs.items():
+        model = load_weights_json(weights, device=dev)
+        h = float(extra[1]) if extra else model.h
+        cfg = dataclasses.replace(model.cfg, fire_rate=1.0,
+                                  use_alpha=model.mode == "image")
+        eng = engine(h, False)
+        eng_d = eng if abs(h - DIFFUSE_H) < 1e-9 else engine(DIFFUSE_H, True)
+        rels = {}
+        for e, names in ((eng, ("sph_fwd_tab_kernel", "sph_mask_tab_kernel")),
+                         (eng_d, ("sph_blur_tab_kernel",))):
+            c, m, d = e.xs.shape
+            S = normal_cuda(rng, (1, c, m, 16), dev)
+            X = normal_cuda(rng, (1, c, m, 4), dev)
+            G = normal_cuda(rng, (1, c, m, d * 16), dev)
+            kc = tab_calls(e, S, G, X, plain=False, use_alpha=cfg.use_alpha)
+            pc = tab_calls(e, S, G, X, plain=True, use_alpha=cfg.use_alpha)
+            for name in names:
+                rels[name] = hold(name, kc, pc)
+        c, m, _ = eng.xs.shape
+        args = mlp_inputs(dev, torch.float32, 33, (1, c, m), seed=17)
+        got, want = MK.mlp_forward(*args), MK.mlp_ref(*args)
+        top = max(float(b.abs().max()) for b in want if b is not None)
+        mlp_err = max(float((a - b).abs().max()) for a, b in zip(got, want)
+                      if b is not None)
+        errs["sph_mlp_kernel"] = max(errs["sph_mlp_kernel"], mlp_err)
+        rels["sph_mlp_kernel"] = mlp_err / top
+        del got, want, args
+        A = torch.from_numpy(finals[label]).to(dev)[None]
+        with torch.no_grad():
+            (kA, kT), (pA, pT) = [rollout_mesh_batched_dual(
+                model.params, cfg, eng, eng_d, A, nt, t_seed[None],
+                torch.Generator(device=dev).manual_seed(SEED), CHECK_STEPS,
+                h, use_kernels=uk) for uk in (True, False)]
+        gap = max(float((kA - pA).abs().max()), float((kT - pT).abs().max()))
+        lines.append(f"{label} (h={h}, diffusion at h="
+                     f"{DIFFUSE_H if eng_d is not eng else h}): rel to max "
+                     + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
+                     + f"; {CHECK_STEPS} steps kernels vs plain {gap:.3e}")
+        bad = [n for n, v in rels.items()
+               if not v <= (MLP_RTOL[torch.float32] if n == "sph_mlp_kernel"
+                            else TAB_RTOL)]
+        if bad or not gap <= ROLLOUT_ATOL:
+            fail(f"surface CLI ({label}) engines: kernels vs plain {rels}, "
+                 f"rollout {gap:.3e}")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    phase("surface-cli-check", t0, "the CLI's engines rebuilt from its "
+          f"points: the table kernels at B = 1 within {TAB_RTOL} of max, the "
+          f"float32 MLP within {MLP_RTOL[torch.float32]} of max, "
+          f"{CHECK_STEPS} rollout steps at fire_rate 1.0 from each run's "
+          f"final state within {ROLLOUT_ATOL} (states and tangents) | {smi}")
+    return errs
+
+
+def mlp_library(args):
+    """The library chain addmm -> relu -> addmm computing the update MLP on
+    ``mlp_inputs`` args [S, ga, w1k, b1, w2, b2]: in float32 with TF32 off,
+    or on bfloat16 inputs with float32 sums and outputs and H rounded to
+    bfloat16 between the two (the function the kernel computes)."""
+    S_m, ga_m, w1k, b1, w2, b2 = args
+    X = torch.cat([S_m, ga_m], -1).reshape(-1, 48)
+    if S_m.dtype == torch.float32:
+        return lambda: torch.addmm(b2, torch.relu(torch.addmm(b1, X, w1k)),
+                                   w2)
+    f32 = torch.float32
+    return lambda: torch.addmm(b2, torch.relu(torch.addmm(
+        b1, X, w1k, out_dtype=f32)).to(S_m.dtype), w2, out_dtype=f32)
+
+
+def surface_bench_phase(dev, rng, smi) -> dict:
+    """bench.py's configuration in the port: BENCH_B rollouts on a
+    BENCH_N-point sphere of radius BENCH_RADIUS with h sized for
+    BENCH_NEIGHBOURS neighbours, BENCH_STEPS steps, bfloat16 tables and MLP,
+    random-init parameters (16 channels, 256 hidden, normalize_perception =
+    1/h), uniform states and random unit tangents; particle-steps per
+    second (best of 3, host clock around synchronize), the device's busy
+    share, peak memory, table bytes and the engine's build time; then the
+    table and MLP kernels at this shape against their plain versions, with
+    their times (CUDA events), bounds and library calls. Returns their
+    rows."""
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig, init_params
+
+    t0 = time.time()
+    x = fibonacci_sphere(BENCH_N, BENCH_RADIUS)
+    h = float(np.sqrt(BENCH_NEIGHBOURS * 4.0 * np.pi * BENCH_RADIUS ** 2
+                      / BENCH_N / np.pi))
+    t1 = time.time()
+    eng = build_cell_engine(x, h, pair_tables="bfloat16", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t1
+    st = tab_stats(eng)
+    cfg = SPHNCAConfig(normalize_perception=1.0 / h)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    nrm = torch.from_numpy(sphere_normals(x)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    A0 = torch.rand(BENCH_B, BENCH_N, cfg.channels, generator=g, device=dev)
+    T0 = orthogonalize(nrm, normalize(torch.randn(BENCH_B, BENCH_N, 3,
+                                                  generator=g, device=dev)))
+
+    def run(steps, seed):
+        return rollout_mesh_batched(
+            params, cfg, eng, A0, nrm, T0,
+            torch.Generator(device=dev).manual_seed(seed), steps, h,
+            mlp_dtype="bfloat16")
+
+    secs = []
+    with torch.no_grad():
+        run(4, SEED)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(3):
+            if i == 0:
+                reset_launches()
+            t1 = time.time()
+            fA, fT = run(BENCH_STEPS, SEED + i)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t1)
+            if i == 0:
+                launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        busy, wall, recs, held = busy_share(lambda: run(16, SEED), 16)
+    want = tab_launches(eng, BENCH_STEPS)
+    if launches != want:
+        fail(f"bench launch counts {launches}, expected {want}")
+    if not (bool(torch.isfinite(fA).all()) and bool(torch.isfinite(fT).all())
+            and float(fT.norm(dim=-1).max()) <= 1.0 + 1e-5):
+        fail("bench rollout: non-finite states or tangents off unit length")
+    pps = [BENCH_B * BENCH_N * BENCH_STEPS / s for s in secs]
+    print(f"  engine: C={eng.num_cells}, blocks x W "
+          + " + ".join(f"{nb} x {w}" for nb, w in st["buckets"])
+          + f", {st['pairs']} pairs, {st['within_h']} within h, bfloat16 "
+          f"tables {st['bytes'] / 1e6:.1f} MB, built in {build_s:.2f} s "
+          f"(host numpy + device cast); launches {launches}", flush=True)
+    phase("surface-bench", t0, f"bench.py's configuration: {BENCH_N} "
+          f"points, h={h:.6f}, B={BENCH_B}, {BENCH_STEPS} steps, bfloat16 "
+          f"tables and MLP: {max(pps):.4e} particle-steps/s (best of 3; "
+          + ", ".join(f"{p:.4e}" for p in pps) + f"; "
+          f"{min(secs) * 1e3 / BENCH_STEPS:.4f} ms a step, host clock "
+          f"around synchronize); device busy {busy:.2f} of {wall:.2f} us a "
+          f"step traced ({100 * busy / wall:.1f}%; {recs} device records, "
+          f"the port's kernels' equal to their launches {held}); peak "
+          f"device memory "
+          f"{peak_gb:.3f} GiB (max_memory_allocated, tables included); "
+          f"tables {st['bytes'] / 1e6:.1f} MB; engine build {build_s:.2f} s"
+          f" | {smi}")
+    del fA, fT
+
+    # each kernel of the path at this shape: kernel vs plain, device times,
+    # bound, and one PyTorch call computing the same function
+    t0 = time.time()
+    c, m, d = eng.xs.shape
+    S = normal_cuda(rng, (BENCH_B, c, m, 16), dev)
+    G = normal_cuda(rng, (BENCH_B, c, m, d * 16), dev)
+    X = normal_cuda(rng, (BENCH_B, c, m, 4), dev)
+    kc = tab_calls(eng, S, G, X, plain=False, use_alpha=True)
+    pc = tab_calls(eng, S, G, X, plain=True, use_alpha=True)
+    need = work_tab(eng, BENCH_B, use_alpha=True)
+    widths = {"sph_fwd_tab_kernel": 16 * BENCH_B,
+              "sph_mask_tab_kernel": BENCH_B,
+              "sph_blur_tab_kernel": 4 * BENCH_B}
+    shapes = (f"bench sphere N={BENCH_N} h={h:.6f} bfloat16 tables "
+              f"B={BENCH_B}")
+    out = {}
+    for name, width in widths.items():
+        abs_err, rel = tab_gap(kc[name](), pc[name]())
+        if not rel <= TAB_RTOL:
+            fail(f"{name} vs plain at the bench shape: {rel:.3e} of max")
+        # torch.bmm twice: on float32 copies of the tables (the kernel's
+        # function: float32 right-hand side and sums), and on the bfloat16
+        # tables with a bfloat16 right-hand side (the table bytes the kernel
+        # reads, one call)
+        tabs = [md if name == "sph_fwd_tab_kernel" else w6
+                for *_, md, w6 in tab_buckets(eng)]
+        rhs = [normal_cuda(rng, (t.shape[0], t.shape[2], width), dev)
+               for t in tabs]
+        lib = [(t.float(), r) for t, r in zip(tabs, rhs)]
+        lib16 = [(t, r.to(t.dtype)) for t, r in zip(tabs, rhs)]
+        ms, plain_ms = cuda_ms(kc[name], 20, 3), cuda_ms(pc[name], 20, 3)
+        lib_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in lib], 20, 3)
+        lib16_ms = cuda_ms(lambda: [torch.bmm(a, b) for a, b in lib16], 20,
+                           3)
+        del lib, lib16, rhs, tabs
+        bound_ms, bound_by = bound(*need[name])
+        print(f"  {name} at the bench shape (both buckets): {ms:.4f} ms "
+              f"by CUDA events, plain {plain_ms:.4f} ms, torch.bmm "
+              f"[nb, *, W] @ [nb, W, {width}] on float32 copies of the "
+              f"tables {lib_ms:.4f} ms, on the bfloat16 tables with a "
+              f"bfloat16 right-hand side {lib16_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({100 * bound_ms / ms:.1f}% "
+              f"of it); max abs {abs_err:.3e} from plain", flush=True)
+        out[name] = {"shapes": shapes, "launches": launches[name],
+                     "launches_path": "surface-bench",
+                     "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms, "library_bf16_ms": lib16_ms}
+    del S, G, X, kc, pc
+    args = mlp_inputs(dev, torch.bfloat16, 33, (BENCH_B, c, m), seed=13)
+    got, want_m = MK.mlp_forward(*args), MK.mlp_ref(*args)
+    diff = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(got, want_m)
+                      if b is not None])
+    top = max(float(b.abs().max()) for b in want_m if b is not None)
+    share = float((diff > 1e-5 * top).float().mean())
+    if not (float(diff.max()) <= MLP_RTOL[torch.bfloat16] * top
+            and share <= MLP_FLIP_SHARE):
+        fail(f"sph_mlp_kernel vs mlp_ref at the bench shape: "
+             f"{float(diff.max()) / top:.3e} of max, {share:.3e} past 1e-5")
+    del got, want_m
+    ms = cuda_ms(lambda: MK.mlp_forward(*args), 20, 3)
+    plain_ms = cuda_ms(lambda: MK.mlp_ref(*args), 20, 3)
+    lib_ms = cuda_ms(mlp_library(args), 20, 3)
+    n = BENCH_B * c * m
+    nbytes, ops = work_mlp(n, 256, 33, 2)
+    bound_ms, bound_by = bound(nbytes, ops, BF16_FLOPS)
+    print(f"  sph_mlp_kernel at the bench shape ({n} items, bfloat16 "
+          f"inputs): {ms:.4f} ms by CUDA events, plain {plain_ms:.4f} ms, "
+          f"library chain {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}; rel to max {float(diff.max()) / top:.3e}, share past"
+          f" 1e-5 of max {share:.3e}", flush=True)
+    out["sph_mlp_kernel"] = {
+        "shapes": f"bench ({BENCH_B}, {c}, {m}) bfloat16 inputs",
+        "launches": launches["sph_mlp_kernel"],
+        "launches_path": "surface-bench", "max_abs_err": float(diff.max()),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms}
+    phase("surface-bench-kernels", t0, "the table and MLP kernels at the "
+          f"bench shape == plain (table kernels within {TAB_RTOL} of max, "
+          f"the MLP within {MLP_RTOL[torch.bfloat16]} of max and "
+          f"{MLP_FLIP_SHARE} of outputs past 1e-5); times by CUDA events "
+          f"around 20 calls after 3 (each call takes 0.2 ms or more here, so "
+          f"the host enqueues ahead of the device; profiles of 20 calls "
+          f"after the earlier phases kept losing kernel records) | {smi}")
+    return out
 
 
 def mlp_phases(dev, shapes: dict) -> dict:
@@ -1738,7 +2422,7 @@ def main() -> int:
           + f" | {smi}")
 
     # ---- the surface path and its table kernels ---------------------
-    rows_tab = surface_phases(dev, rng, smi)
+    rows_tab, scene = surface_phases(dev, rng, smi)
 
     # ---- times -------------------------------------------------------
     t0 = time.time()
@@ -1969,15 +2653,7 @@ def main() -> int:
         args = mlp_inputs(dev, dtype, 33, lead, seed=11)
         S_m, ga_m, w1k, b1, w2, b2 = args
         X = torch.cat([S_m, ga_m], -1).reshape(-1, 48)
-        if dtype == torch.float32:
-            def library():
-                return torch.addmm(b2, torch.relu(torch.addmm(b1, X, w1k)),
-                                   w2)
-        else:
-            def library():
-                f32 = torch.float32
-                H = torch.relu(torch.addmm(b1, X, w1k, out_dtype=f32))
-                return torch.addmm(b2, H.to(dtype), w2, out_dtype=f32)
+        library = mlp_library(args)
         lib_err = float((library() - torch.cat(
             [o.reshape(X.shape[0], -1) for o in MK.mlp_ref(*args)], -1)
         ).abs().max())
@@ -2045,7 +2721,31 @@ def main() -> int:
             phase("profile-train", t0, "torch.profiler, one full-depth "
                   f"training iteration ({label})")
 
+    # ---- the batched surface rollout, the CLI's surface mode, the bench --
+    # (after the times phase: once these phases' profiles have run, every
+    # later profile of 20 calls was seen to lose 4-5 of its 40 records)
+    sb_launches = surface_batched_phases(dev, smi, *scene)
+    del scene
+    cli_launches, cli_errs = surface_cli_phase(dev, smi)
+    bench = surface_bench_phase(dev, rng, smi)
+
     kernels = rows + rows_tab + [mlp_row]
+    # the batched surface paths: launches of the batched rollout and of each
+    # surface CLI run, and the bench shape's numbers
+    for row in kernels:
+        name = row["name"]
+        if name in bench:
+            row["surface_batched"] = {
+                "shapes": f"surface stripes sphere N={SURF_N} bfloat16 "
+                          f"tables B={SURF_B}",
+                **sb_launches[name], "launches_path": "surface-batched"}
+            row["surface_cli"] = {
+                "shapes": f"test CLI --surface {SURF_N} points B=1",
+                "launches": {label: c[name]
+                             for label, c in cli_launches.items()},
+                "launches_path": "surface-cli",
+                "max_abs_err": cli_errs[name]}
+            row["bench"] = bench[name]
     if len(kernels) != 8:
         fail(f"the kernels line has {len(kernels)} rows, expected 8")
     print(json.dumps({"kernels": kernels}), flush=True)

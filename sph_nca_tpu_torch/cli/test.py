@@ -1,25 +1,42 @@
-"""Inference CLI of the port: image-mode rollout on the cell engine.
+"""Inference CLI of the port: image-mode and 3D-surface rollouts on the cell
+engine.
 
-Counterpart of ``sph_nca_tpu/cli/test.py`` for ``--engine cells`` in image
-mode:
+Counterpart of ``sph_nca_tpu/cli/test.py`` for ``--engine cells``. Image mode:
 
     python -m sph_nca_tpu_torch.cli.test \
         --weights_json sph_nca_tpu/demo/web/weights/gecko.json \
         --image_size 128 --steps 128 --output_dir /tmp/sphnca
 
 writes ``<output_dir>/sphnca-test-<time>/states.npz`` (grid positions ``x``
-[N, 2] and the trajectory ``states`` [steps+1, N, F] in particle order). Give
-an output directory outside the source tree: the trajectory of a 128x128,
-128-step run is ~135 MB.
+[N, 2] and the trajectory ``states`` [steps+1, N, F] in particle order). 3D
+surface mode:
+
+    python -m sph_nca_tpu_torch.cli.test \
+        --weights_json sph_nca_tpu/demo/web/weights/stripes.json \
+        --surface mesh.obj --surface_numpoints 25600 --steps 128 \
+        --output_dir /tmp/sphnca
+
+samples the mesh (normalized, 8x oversampled, farthest-point sampled on the
+device), seeds it (``--initial_feature radial``: ``--surface_numseed`` radial
+seeds; ``random``: a pre-diffused tangent field at radius 0.2 and uniform
+features), runs ``models.surface.rollout_mesh_batched_dual`` at B = 1 on a
+cell engine with bfloat16 pair tables at the model's h (the diffusion on a
+second engine at ``DIFFUSE_H`` = 0.1 when h differs), and writes
+``states.npz`` (``x`` [N, 3], ``states``) and one binary PLY point cloud per
+``--export_every``-th step. Give an output directory outside the source tree:
+a 128x128, 128-step trajectory is ~135 MB.
+
+Texture-mode models (``mode: texture``) derive ``--wrap`` (a periodic plane
+in image mode), no alpha and ``--initial_feature random`` (uniform features
+drawn from a ``torch.Generator``: the JAX CLI's law, another stream); image
+models derive the opposite. ``--h`` overrides the model's h whenever it is
+given (the JAX CLI ignores an explicit ``--h 0.08``, its parser default).
 
 Runs poly6 models only: the cell engine's pair kernels hard-wire the poly6 /
 spiky pair math, and the Wendland models of the JAX package run on its band
 engine, which is not ported yet.
 
-Not ported yet: the band and graph engines, the 3D surface mode (the JAX CLI
-runs it on the band engine; the library entry point
-``sph_nca_tpu_torch.models.surface.rollout_mesh_cells`` runs a surface rollout
-on the cell engine), the random initial feature, JAX checkpoints, PNG export.
+Not ported yet: the band and graph engines, JAX checkpoints, PNG export.
 """
 
 from __future__ import annotations
@@ -31,6 +48,11 @@ import time
 
 import numpy as np
 import torch
+
+# the random surface seed's radial seeds and pre-diffusion radius
+# (sph_nca_tpu/cli/test.py:181-203)
+SEED_RADIUS_RANDOM = 0.2
+PREDIFFUSE_PASSES = 50
 
 
 def str2bool(v) -> bool:
@@ -55,10 +77,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_alpha", type=str2bool, default=None)
     p.add_argument("--wrap", type=str2bool, default=None)
     p.add_argument("--image_size", type=int, default=128)
-    p.add_argument("--surface", type=str, default="")
+    p.add_argument("--surface", type=str, default="",
+                   help="OBJ mesh: run the 3D surface mode")
+    p.add_argument("--surface_scale", type=float, default=1.0)
+    p.add_argument("--surface_numpoints", type=int, default=25600)
+    p.add_argument("--surface_numseed", type=int, default=10)
+    p.add_argument("--export_every", type=int, default=1,
+                   help="export every n-th step (surface mode PLYs)")
     p.add_argument("--steps", type=int, default=128)
     p.add_argument("--nca_normalize_perception", type=float, default=-1)
-    p.add_argument("--h", type=float, default=0.08)
+    p.add_argument("--h", type=float, default=None,
+                   help="override the model's h")
     p.add_argument("--firerate", type=float, default=0.5)
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--use_3d", type=str2bool, default=True)
@@ -84,24 +113,120 @@ def load_model(args, device):
     if args.nca_normalize_perception > 0:
         overrides["normalize_perception"] = args.nca_normalize_perception
     cfg = dataclasses.replace(cfg, **overrides)
-    if args.h != build_parser().get_default("h"):
+    if args.h is not None:
         h = args.h  # explicit override for cross-discretization rollouts
     return cfg, m.params, h
 
 
+def surface_points(path: str, scale: float, numpoints: int,
+                   rng: np.random.Generator, device):
+    """The surface mode's points and normals (``sph_nca_tpu/cli/test.py:
+    154-166``): load and normalize the mesh, area-weighted vertex normals,
+    ``numpoints * 8`` area-uniform samples (numpy draws from ``rng``) with
+    normals interpolated barycentrically, then ``numpoints`` of them by
+    farthest-point sampling on ``device``. Returns (x, normals) [N, 3]
+    float32 numpy arrays and the sampling's seconds."""
+    from ..utils.meshes import (
+        farthest_point_sampling,
+        load_obj,
+        normalize_mesh,
+        sample_surface,
+        vertex_normals,
+    )
+
+    v, f = load_obj(path)
+    v = normalize_mesh(v, scale)
+    vn = vertex_normals(v, f)
+    pts, fi, w = sample_surface(v, f, numpoints * 8, rng)
+    nrm = np.einsum("nc,ncd->nd", w, vn[f[fi]])
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    t0 = time.time()
+    sel = farthest_point_sampling(torch.from_numpy(pts).to(device),
+                                  numpoints).cpu().numpy()
+    return pts[sel], nrm[sel], time.time() - t0
+
+
+def run_surface(args, cfg, params, h, device, gen) -> str:
+    """The 3D surface mode; returns the run's output directory."""
+    from ..models.nca import to_rgba
+    from ..models.surface import DIFFUSE_H, rollout_mesh_batched_dual
+    from ..ops.cells import build_cell_engine
+    from ..utils.meshes import save_ply
+    from ..utils.seeds import surface_radial_seed, surface_random_seed
+
+    seed_radius = (
+        args.initial_feature_radius if args.initial_feature_radius > 0 else h
+    )
+    rng = np.random.default_rng(args.seed)
+    x_np, n_np, fps_s = surface_points(args.surface, args.surface_scale,
+                                       args.surface_numpoints, rng, device)
+    x = torch.from_numpy(x_np).to(device)
+    nrm = torch.from_numpy(n_np).to(device)
+    print(f"surface: {x.shape[0]} points by farthest-point sampling in "
+          f"{fps_s:.2f}s", flush=True)
+
+    def engine(radius, tables, w6_only):
+        t1 = time.time()
+        eng = build_cell_engine(x_np, radius, pair_tables=tables,
+                                w6_only=w6_only, device=device)
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     (eng.blk_md, eng.blk_w6, eng.blk2_md, eng.blk2_w6)
+                     if t is not None)
+        print(f"  engine h={radius}: C={eng.num_cells}, blocks x W "
+              f"{eng.blk_xs.shape[0]} x {eng.blk_xw.shape[2]} + "
+              f"{eng.blk2_xs.shape[0]} x {eng.blk2_xw.shape[2]}, {tables} "
+              f"{'w6 table' if w6_only else 'tables'} {nbytes / 1e6:.1f} "
+              f"MB, built in {time.time() - t1:.2f}s", flush=True)
+        return eng
+
+    # the JAX CLI's engines: bfloat16 tables at the model's h and at
+    # DIFFUSE_H, float32 at the seeding radius; the blur engines read only w6
+    eng = engine(h, "bfloat16", False)
+    if args.initial_feature == "random":
+        A0, t0 = surface_random_seed(
+            x, nrm, cfg.channels, rng, gen,
+            engine(SEED_RADIUS_RANDOM, "float32", True), PREDIFFUSE_PASSES)
+    else:
+        A0, t0 = surface_radial_seed(x, nrm, cfg.channels,
+                                     args.surface_numseed, seed_radius, gen)
+    eng_d = (eng if abs(h - DIFFUSE_H) < 1e-9
+             else engine(DIFFUSE_H, "bfloat16", True))
+    print(f"surface rollout: n={x.shape[0]}, {args.steps} steps"
+          + ("" if eng_d is eng else f", diffusion at h={DIFFUSE_H}"),
+          flush=True)
+    t1 = time.time()
+    with torch.no_grad():
+        _, _, states = rollout_mesh_batched_dual(
+            params, cfg, eng, eng_d, A0[None], nrm, t0[None], gen,
+            args.steps, h, fire_rate=args.firerate, collect_all=True)
+        rgba = to_rgba(states[::args.export_every, 0], cfg.use_alpha)
+    states = states[:, 0].cpu().numpy()
+    rgba = rgba.cpu().numpy()
+    print(f"rollout {time.time() - t1:.2f}s", flush=True)
+
+    out_dir = _out_dir(args)
+    np.savez(os.path.join(out_dir, "states.npz"), x=x_np, states=states)
+    for k, i in enumerate(range(0, states.shape[0], args.export_every)):
+        save_ply(os.path.join(out_dir, f"{i:04d}.ply"), x_np, rgba[k])
+    return out_dir
+
+
+def _out_dir(args) -> str:
+    out_dir = os.path.join(args.output_dir,
+                           f"sphnca-test-{time.strftime('%m%d%H%M')}")
+    os.makedirs(out_dir, exist_ok=True)
+    return out_dir
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.surface:
-        raise SystemExit(
-            "the 3D surface mode is not ported yet: the JAX CLI runs it on "
-            "the band engine (--engine band), which comes with the band "
-            "engine's port; models.surface.rollout_mesh_cells runs a surface "
-            "rollout on a cell engine built with pair tables")
     if args.engine != "cells":
         raise SystemExit(f"--engine {args.engine} is not ported yet; "
                          "use --engine cells")
-    if args.image_size <= 0:
-        raise SystemExit("need --image_size")
+    if args.export_every <= 0:
+        raise SystemExit("--export_every must be positive")
+    if not args.surface and args.image_size <= 0:
+        raise SystemExit("need --image_size or --surface")
 
     from .. import resolve_device
     from ..models.cell_step import rollout_states_cells
@@ -113,9 +238,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, params, h = load_model(args, device)
-    if args.initial_feature != "radial":
-        raise SystemExit("--initial_feature random is not ported yet")
+    if cfg.smoothing != "poly6":
+        raise SystemExit(f"--engine cells: the cell engine runs poly6 "
+                         f"models only, not {cfg.smoothing!r}")
     print(f"model: {cfg}, h={h}", flush=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+
+    if args.surface:
+        out_dir = run_surface(args, cfg, params, h, device, gen)
+        print(f"exported {out_dir}", flush=True)
+        return 0
 
     seed_radius = (
         args.initial_feature_radius if args.initial_feature_radius > 0 else h
@@ -128,16 +261,12 @@ def main(argv=None) -> int:
     if args.wrap:
         period = [2.0] * x.shape[1]
     A0 = plane_seed(x2, cfg.channels, gmin=gmin, gsize=gsize,
-                    radius=seed_radius).to(device)
+                    radius=seed_radius,
+                    randomized=args.initial_feature == "random",
+                    generator=gen).to(device)
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
     t0 = time.time()
-    try:
-        eng = build_cell_engine(x, h, period=period, smoothing=cfg.smoothing,
-                                device=device)
-    except NotImplementedError as err:
-        raise SystemExit(f"--engine cells: {err}") from err
+    eng = build_cell_engine(x, h, period=period, device=device)
     print(f"image rollout: n={x.shape[0]}, {args.steps} steps, "
           f"engine C={eng.num_cells} built in {time.time() - t0:.2f}s",
           flush=True)
@@ -147,9 +276,7 @@ def main(argv=None) -> int:
     states = states.cpu().numpy()
     print(f"rollout {time.time() - t0:.2f}s", flush=True)
 
-    out_dir = os.path.join(args.output_dir,
-                           f"sphnca-test-{time.strftime('%m%d%H%M')}")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = _out_dir(args)
     np.savez(os.path.join(out_dir, "states.npz"), x=x2.numpy(), states=states)
     print(f"exported {out_dir}", flush=True)
     return 0

@@ -272,14 +272,14 @@ def _step_samples(cfg: SPHNCAConfig, eng: CellEngine, weights,
     """One batched step on S [B, C, M, F] given the MLP's weights
     (``_mlp_weights``) and the fire draws u [B, C, M]: perception (table
     kernels 2.4 / 2.5), pre-mask, the update, the post-update mask
-    (detached)."""
+    (detached). ``perception_transform`` maps the unscaled per-sample
+    d-major gradient ga [B, C, M, D*F] to features [B, C, M, >= 2F] whose
+    first 2F lanes feed the MLP (the surface rollout's tangent projection
+    returns just those two blocks)."""
     ga, pre_sm = perceive_cells_dmajor(eng, S, cfg.use_alpha,
                                        use_kernels=use_kernels)
     if perception_transform is not None:
-        # the transform reads and returns the JAX layout's lane blocks
-        d = eng.xs.shape[-1]
-        ga = BT.lanes_to_dmajor(
-            perception_transform(BT.dmajor_to_lanes(ga, d)), S.shape[0], d)
+        ga = perception_transform(ga)
     prev_mask = pre_sm > ALIVE_THRESHOLD
     nS = _update_samples(cfg, weights, S, ga, u, fire_rate, use_kernels)
     new_sm = mask_blur(eng, nS.detach(), use_alpha=cfg.use_alpha,
@@ -308,8 +308,10 @@ def nca_step_cells_batched(
 
     ``mlp_dtype="bfloat16"`` runs the update MLP on bfloat16 inputs and
     weights (float32 sums). ``perception_transform`` maps the unscaled
-    gradient lanes gaB [C, M, D*B*F] to the same layout (it costs two layout
-    copies a step). Needs an engine with pair tables, as the JAX package's.
+    gradient lanes gaB [C, M, D*B*F] to d-major lane blocks [C, M, K*B*F],
+    K >= 2 (it costs two layout copies a step; the batched rollouts hand
+    ``_step_samples`` a transform in the sample layout instead). Needs an
+    engine with pair tables, as the JAX package's.
     """
     BT.require_tables(eng)
     if fire_rate is None:
@@ -317,8 +319,15 @@ def nca_step_cells_batched(
     S = BT.to_samples(SB, b)
     u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
     weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
+    transform = None
+    if perception_transform is not None:
+        d, f = eng.xs.shape[-1], S.shape[-1]
+
+        def transform(ga):
+            out = perception_transform(BT.dmajor_to_lanes(ga, d))
+            return BT.lanes_to_dmajor(out, b, out.shape[-1] // (b * f))
     return BT.to_lanes(_step_samples(cfg, eng, weights, S, u, fire_rate,
-                                     use_kernels, perception_transform))
+                                     use_kernels, transform))
 
 
 def rollout_cells_batched(

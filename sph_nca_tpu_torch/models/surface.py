@@ -1,30 +1,65 @@
-"""3D-surface rollout on the cell engine: tangent frames, tangent diffusion
-and tangent-space perception.
+"""3D-surface rollouts on the cell engine: tangent frames, tangent diffusion
+and tangent-space perception, for one rollout and for B rollouts at once.
 
 Counterpart of the cell-engine part of ``sph_nca_tpu/models/surface.py``
-(``normalize``, ``orthogonalize``,
-``project_tangent_space_cells``, ``diffuse_cells`` and ``rollout_mesh_cells``;
-reference nca.py:302-381). Every pair pass runs through the table kernels of
-``ops/pair_kernel.py``, so the engine must be built with ``pair_tables``; its
-h serves both perception and diffusion (the reference diffuses at 0.1, every
-shipped model's h; like the JAX package, the port does not enforce it).
+(``normalize``, ``orthogonalize``, ``project_tangent_space_cells``,
+``diffuse_cells`` and ``rollout_mesh_cells``; reference nca.py:302-381), and
+of its batched rollouts ``rollout_mesh_batched`` (:473) and
+``rollout_mesh_batched_dual`` (:602) with their pieces
+(``normal_components``, ``_diffuse_td`` / ``_diffuse_weights`` /
+``_diffuse_mt`` / ``_diffuse_combine``, ``_project_td`` and
+``_finish_mesh_batched``). The JAX package's lane-layout wrappers
+``diffuse_batched`` (:305) and ``project_tangent_space_lanes`` (:265) have
+no counterpart of their own: the port steps only in the sample layout, where
+``_diffuse_td`` and ``_project_td`` compute the same functions.
+Every pair pass runs through the table kernels of ``ops/pair_kernel.py``, so
+the engine must be built with ``pair_tables``. ``rollout_mesh_cells`` and
+``rollout_mesh_batched`` diffuse at the engine's h (the reference diffuses at
+``DIFFUSE_H`` = 0.1, every shipped model's h; like the JAX package, the port
+does not enforce it); ``rollout_mesh_batched_dual`` diffuses on a second
+engine.
 
-The fire-rate mask is drawn per slot from a ``torch.Generator``: the law of
-the JAX package, another stream, so trajectories match the JAX package only at
-fire_rate == 1.
+The batched rollouts step in the port's sample layout: the state
+[B, C, M, F], tangents as three [B, C, M] components, normals as three
+loop-invariant [C, M] components. The JAX package fuses step t's diffusion
+into step t+1's perception pass (a TPU schedule; its docstring calls it the
+same function); the port diffuses at the end of each step, as the JAX dual
+rollout does, so one body serves both functions. Not ported: ``unroll`` (a
+``lax.scan`` knob) and the fused ``extra`` blur lanes (a cell engine has
+none in the JAX package either, ``ops/batched.py:261-263``).
+
+Numerics with ``mlp_dtype="bfloat16"``: the JAX package rounds the
+perception and the normals to bfloat16 before the projection and the
+re-orthogonalization; the port keeps both in float32 and rounds only the
+MLP's inputs (a documented deviation, as for the table kernels' right-hand
+sides).
+
+The fire-rate mask is drawn per slot (and sample) from a ``torch.Generator``:
+the law of the JAX package, another stream, so trajectories match the JAX
+package only at fire_rate == 1.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..ops import batched as BT
 from ..ops.cells import CellEngine
 from ..ops.pair_kernel import blur_cells
-from .cell_step import cell_activity_s, nca_step_cells
+from .cell_step import (
+    _mlp_weights,
+    _step_samples,
+    cell_activity_s,
+    nca_step_cells,
+)
 from .nca import MLPParams, SPHNCAConfig
+
+# the reference's tangent-diffusion radius (nca.py:357)
+DIFFUSE_H = 0.1
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -115,3 +150,238 @@ def rollout_mesh_cells(
             states.append(eng.gather_back(S))
     return (eng.gather_back(S), eng.gather_back(t),
             torch.stack(states) if collect_all else None)
+
+
+# ---- the batched rollouts (engines with pair tables) ----------------------
+
+
+def normal_components(nc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Split vectors [..., 3] into three contiguous [...] components, once
+    per rollout (the normals [C, M, 3]; the tangents [B, C, M, 3])."""
+    return tuple(nc[..., i].contiguous() for i in range(3))
+
+
+def _diffuse_weights(S: torch.Tensor) -> torch.Tensor:
+    """w = clip(alpha, 0, 1) per slot and sample: S [B, C, M, F] ->
+    [B, C, M]. Always the alpha lane: the reference's diffuse() reads
+    cell_activity at its default use_alpha=True (nca.py:312-314), whatever
+    the model's own flag."""
+    return torch.clamp(S[..., 3], 0.0, 1.0)
+
+
+def _diffuse_mt(w: torch.Tensor, td, w_multiplier: float) -> torch.Tensor:
+    """The diffusion blur's input [m, m t_x, m t_y, m t_z] [B, C, M, 4]
+    (reference nca.py:315-317)."""
+    m = (1.0 - w_multiplier) + w * w_multiplier
+    return torch.stack([m] + [m * t for t in td], dim=-1)
+
+
+def _diffuse_combine(mt2: torch.Tensor, w: torch.Tensor, td, nd,
+                     lerp_multiplier: float) -> Tuple[torch.Tensor, ...]:
+    """The diffusion's tail (nca.py:318-323): normalize by the blurred mass,
+    lerp toward the previous tangent where active, re-orthogonalize against
+    the shared normal and renormalize, per sample."""
+    denom = 1e-8 + mt2[..., 0]
+    lerp = w * lerp_multiplier
+    t2d = []
+    for i in range(3):
+        ti = mt2[..., i + 1] / denom
+        t2d.append(ti + (td[i] - ti) * lerp)
+    ndot = t2d[0] * nd[0] + t2d[1] * nd[1] + t2d[2] * nd[2]
+    t2d = [t2d[i] - nd[i] * ndot for i in range(3)]
+    norm = torch.sqrt(t2d[0] ** 2 + t2d[1] ** 2 + t2d[2] ** 2)
+    return tuple(t / (1e-8 + norm) for t in t2d)
+
+
+def _slot_maps(eng: CellEngine, eng_d: CellEngine):
+    """The static index pair between two engines' layouts of the same
+    particles: ``to_d`` [C_d * M_d] gives each slot of ``eng_d`` the slot of
+    ``eng`` that holds its particle, ``from_d`` [C * M] the reverse; a pad
+    slot points one past the end, at a zero row (``_permute``)."""
+    if eng_d.num_particles != eng.num_particles:
+        raise ValueError("the diffusion engine holds "
+                         f"{eng_d.num_particles} particles, the perception "
+                         f"engine {eng.num_particles}")
+    rows = eng.num_cells * eng.slots_per_cell
+    rows_d = eng_d.num_cells * eng_d.slots_per_cell
+    sp, sd = eng.slot_of_particle, eng_d.slot_of_particle
+    to_d = torch.full((rows_d,), rows, dtype=torch.int64, device=sp.device)
+    to_d[sd] = sp
+    from_d = torch.full((rows,), rows_d, dtype=torch.int64, device=sp.device)
+    from_d[sp] = sd
+    return to_d, from_d
+
+
+def _permute(X: torch.Tensor, idx: torch.Tensor, eng_to: CellEngine):
+    """X [B, C, M, K] in one engine's layout -> [B, C', M', K] in
+    ``eng_to``'s through an index of ``_slot_maps`` (pad slots get 0)."""
+    b, c, m, k = X.shape
+    flat = torch.cat([X.reshape(b, c * m, k), X.new_zeros(b, 1, k)], dim=1)
+    return flat[:, idx].reshape(b, eng_to.num_cells, eng_to.slots_per_cell, k)
+
+
+def _diffuse_td(eng: CellEngine, nd, td, S: torch.Tensor, *,
+                lerp_multiplier: float = 1.0, w_multiplier: float = 1.0,
+                use_kernels: bool = True,
+                dual=None) -> Tuple[torch.Tensor, ...]:
+    """Batched tangent diffusion in the sample layout (the JAX package's
+    ``_diffuse_td``, and its ``diffuse_batched`` without the lane layout):
+    normals nd (three [C, M]), tangents td (three [B, C, M]), states S
+    [B, C, M, F] -> the new tangents (three [B, C, M]). The blur is the table blur (2.7, K = 4) at
+    ``eng``'s h or, with ``dual`` = (eng_d, to_d, from_d), on eng_d through
+    ``_slot_maps``' index pair."""
+    w = _diffuse_weights(S)
+    mt = _diffuse_mt(w, td, w_multiplier)
+    if dual is None:
+        mt2 = blur_cells(eng, mt, use_kernels=use_kernels)
+    else:
+        eng_d, to_d, from_d = dual
+        mt2 = _permute(blur_cells(eng_d, _permute(mt, to_d, eng_d),
+                                  use_kernels=use_kernels), from_d, eng)
+    return _diffuse_combine(mt2, w, td, nd, lerp_multiplier)
+
+
+def _project_td(ga: torch.Tensor, nd, td,
+                include_normal: bool = True) -> torch.Tensor:
+    """Tangent projection of per-sample d-major gradients ga [B, C, M, 3*F]
+    with per-sample tangents td (three [B, C, M]) and shared normals nd
+    (three [C, M]) -> [B, C, M, K*F], blocks [gA.t | gA.bitan (| gA.n)]
+    (reference nca.py:325-330; the JAX package's ``_project_td``, and its
+    ``project_tangent_space_lanes`` without the lane layout). ``include_normal=False`` drops the normal
+    block: the update reads only the first two (nca.py:23-31)."""
+    f = ga.shape[-1] // 3
+    g = [ga[..., i * f:(i + 1) * f] for i in range(3)]
+    bd = (nd[1] * td[2] - nd[2] * td[1],
+          nd[2] * td[0] - nd[0] * td[2],
+          nd[0] * td[1] - nd[1] * td[0])
+    bases = [td, bd] + ([nd] if include_normal else [])
+    return torch.cat([g[0] * e[0][..., None] + g[1] * e[1][..., None]
+                      + g[2] * e[2][..., None] for e in bases], dim=-1)
+
+
+def _finish_mesh_batched(eng: CellEngine, S: torch.Tensor, td):
+    """The rollouts' tail: the state [B, C, M, F] and tangents (three
+    [B, C, M]) back to particle order, ([B, N, F], [B, N, 3])."""
+    return eng.gather_back(S), eng.gather_back(torch.stack(td, dim=-1))
+
+
+def _rollout_mesh_samples(params: MLPParams, cfg: SPHNCAConfig,
+                          eng: CellEngine, eng_d: CellEngine,
+                          A0: torch.Tensor, n: torch.Tensor, t0: torch.Tensor,
+                          generator: torch.Generator, n_steps: int, h: float,
+                          *, fire_rate, lerp_multiplier, w_multiplier,
+                          mlp_dtype, remat, collect_all, use_kernels):
+    """The body of both batched rollouts: perception on ``eng``, the
+    diffusion blur on ``eng_d`` (``eng`` itself, or another engine of the
+    same particles reached through one static index pair)."""
+    BT.require_tables(eng)
+    if eng_d.blk_w6 is None:
+        raise ValueError("the diffusion engine needs pair_tables (the "
+                         "diffusion blurs over its poly6 table)")
+    if fire_rate is None:
+        fire_rate = cfg.fire_rate
+    dual = None if eng_d is eng else (eng_d, *_slot_maps(eng, eng_d))
+    S = eng.scatter(A0)  # [B, C, M, F]
+    nd = normal_components(eng.scatter(n))
+    td = normal_components(eng.scatter(t0))
+    weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
+    remat = remat and torch.is_grad_enabled() and (
+        A0.requires_grad or any(p.requires_grad for p in params))
+
+    def step(S, u, *td):
+        return _step_samples(
+            cfg, eng, weights, S, u, fire_rate, use_kernels,
+            lambda ga: _project_td(ga, nd, td, include_normal=False))
+
+    states = [A0] if collect_all else None
+    for _ in range(n_steps):
+        u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
+        if remat:
+            S = checkpoint(step, S, u, *td, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            S = step(S, u, *td)
+        # the reference's step ends with T_t = diffuse(A_t, T_{t-1}),
+        # detached (nca.py:352-357)
+        with torch.no_grad():
+            td = _diffuse_td(eng, nd, td, S.detach(),
+                             lerp_multiplier=lerp_multiplier,
+                             w_multiplier=w_multiplier,
+                             use_kernels=use_kernels, dual=dual)
+        if collect_all:
+            states.append(eng.gather_back(S))
+    out = _finish_mesh_batched(eng, S, td)
+    return out + (torch.stack(states),) if collect_all else out
+
+
+def rollout_mesh_batched(
+    params: MLPParams,
+    cfg: SPHNCAConfig,
+    eng: CellEngine,
+    A0: torch.Tensor,
+    n: torch.Tensor,
+    t0: torch.Tensor,
+    generator: torch.Generator,
+    n_steps: int,
+    h: float,
+    *,
+    fire_rate: Optional[float] = None,
+    lerp_multiplier: float = 1.0,
+    w_multiplier: float = 1.0,
+    mlp_dtype: Optional[str] = None,
+    remat: bool = False,
+    collect_all: bool = False,
+    use_kernels: bool = True,
+):
+    """B surface rollouts on one engine (the JAX package's
+    ``rollout_mesh_batched``): per step, tangent-projected perception, the
+    update (the fused MLP kernel, ``mlp_dtype="bfloat16"`` on bfloat16
+    inputs), the life masks, then a detached per-sample tangent diffusion
+    at the engine's h.
+
+    A0 [B, N, F], shared normals n [N, 3], tangents t0 [B, N, 3], in
+    particle order -> (final_A [B, N, F], final_T [B, N, 3]), and states
+    [n_steps+1, B, N, F] with ``collect_all``. Differentiable in A0 and the
+    parameters (tangents detached); ``remat`` recomputes each step in the
+    backward (torch.utils.checkpoint, as ``cell_step.REMAT``).
+    ``use_kernels=False`` runs the kernels' plain versions on any device.
+    """
+    return _rollout_mesh_samples(
+        params, cfg, eng, eng, A0, n, t0, generator, n_steps, h,
+        fire_rate=fire_rate, lerp_multiplier=lerp_multiplier,
+        w_multiplier=w_multiplier, mlp_dtype=mlp_dtype, remat=remat,
+        collect_all=collect_all, use_kernels=use_kernels)
+
+
+def rollout_mesh_batched_dual(
+    params: MLPParams,
+    cfg: SPHNCAConfig,
+    eng: CellEngine,
+    eng_d: CellEngine,
+    A0: torch.Tensor,
+    n: torch.Tensor,
+    t0: torch.Tensor,
+    generator: torch.Generator,
+    n_steps: int,
+    h: float,
+    *,
+    fire_rate: Optional[float] = None,
+    lerp_multiplier: float = 1.0,
+    w_multiplier: float = 1.0,
+    mlp_dtype: Optional[str] = None,
+    remat: bool = False,
+    collect_all: bool = False,
+    use_kernels: bool = True,
+):
+    """``rollout_mesh_batched`` with the diffusion blur on a second engine
+    ``eng_d`` (the JAX package's ``rollout_mesh_batched_dual``): the
+    reference diffuses at ``DIFFUSE_H`` whatever the model's h (nca.py:357),
+    so a model with h != 0.1 needs two neighbourhoods. ``eng_d`` is built
+    on the same particles, in the same order, with pair tables (its poly6
+    table is all the blur reads: ``build_cell_engine(..., w6_only=True)``
+    will do); ``eng_d is eng`` runs ``rollout_mesh_batched``."""
+    return _rollout_mesh_samples(
+        params, cfg, eng, eng_d, A0, n, t0, generator, n_steps, h,
+        fire_rate=fire_rate, lerp_multiplier=lerp_multiplier,
+        w_multiplier=w_multiplier, mlp_dtype=mlp_dtype, remat=remat,
+        collect_all=collect_all, use_kernels=use_kernels)

@@ -10,13 +10,17 @@ stride. So each function converts to that layout (``to_samples``), runs the
 port's table path (``ops/pair_kernel.py``: kernels 2.4 and 2.5 through the
 ``perceive_cells_dmajor`` Function, 2.6 for the mask, 2.7 for the blur) and
 converts back (``to_lanes``). The batched rollout (``models/cell_step.py``)
-converts once on entry and once on exit and steps in [B, C, M, F].
+converts once on entry and once on exit and steps in [B, C, M, F]; the
+batched surface rollouts (``models/surface.py``) scatter particle-order
+states straight into that layout and never build lanes.
 
 Every function raises for an engine built without pair tables, as the JAX
 package's do. Left out: the TPU layout knobs ``block_chunks``, ``out_dtype``,
-``split_d`` and ``extra`` (they do not change the function on a cell engine;
-the band engine's batched API, ROADMAP item 4, is where they matter) and
-``expand_lanes`` (a TPU relayout workaround; a broadcast does it here).
+``split_d`` and ``extra`` (they do not change the function on a cell engine,
+where the JAX package's ``extra`` lanes fall back to a ``blur_batched`` pass
+too; the band engine's batched API, ROADMAP §1 item 3, is where they
+matter) and ``expand_lanes`` (a TPU relayout workaround; a broadcast does it
+here).
 
 Numerics with bfloat16 tables: the JAX package casts the volume-premultiplied
 state (and the blurred values) to the table dtype before its products and

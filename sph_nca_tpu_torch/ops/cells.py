@@ -198,6 +198,7 @@ def build_cell_engine(
     smoothing: str = "poly6",
     gradient_kernel: str = "spiky",
     pair_tables: Optional[str] = None,
+    w6_only: bool = False,
     device="cuda",
 ) -> CellEngine:
     """Build the engine for concrete positions ``x`` [N, D] (host-side,
@@ -214,6 +215,10 @@ def build_cell_engine(
     ``pair_tables``: None (the kernels recompute the pair weights every
     pass), "float32" or "bfloat16" (store them once per block; the pair
     passes then run over the tables, 4 * nb * P * W * itemsize bytes).
+    ``w6_only`` stores the poly6 table alone (nb * P * W * itemsize bytes):
+    what the mask and the blur read. Such an engine serves a blur at another
+    radius (the surface rollout's tangent diffusion and seeding); its
+    perception would recompute the pair weights.
     """
     # the pair kernels and tables hard-wire the poly6 / spiky pair math
     if smoothing != "poly6" or gradient_kernel != "spiky":
@@ -455,8 +460,11 @@ def build_cell_engine(
         sig_w=float(sig_w),
         sig_g=float(sig_g),
     )
+    if w6_only and pair_tables is None:
+        raise ValueError("w6_only needs pair_tables")
     if pair_tables is not None:
-        eng = _build_pair_tables(eng, getattr(torch, pair_tables))
+        eng = _build_pair_tables(eng, getattr(torch, pair_tables),
+                                 md=not w6_only)
     return eng
 
 
@@ -498,15 +506,20 @@ def _blk_gsum_rows(xs_b: np.ndarray, xw_b: np.ndarray, vw_b: np.ndarray, h,
     return out
 
 
-def _blk_pair_mats(xs_b: np.ndarray, xw_b: np.ndarray, h) -> tuple:
+def _blk_pair_mats(xs_b: np.ndarray, xw_b: np.ndarray, h,
+                   md: bool = True) -> tuple:
     """Per-block pair tables in f32: md [nb, D*P, W] = mag * (xw_d - xb_d),
-    rows d-major, and w6 [nb, P, W] = max(h^2 - d2, 0)^3. d2 comes from
-    direct per-axis differences, and mag = 3(h-d)^2/d in the sqrt/divide
-    form of the JAX build (numpy's sqrt rounds correctly, as XLA's does)."""
+    rows d-major (None unless ``md``), and w6 [nb, P, W] = max(h^2 - d2,
+    0)^3. d2 comes from direct per-axis differences, and mag = 3(h-d)^2/d in
+    the sqrt/divide form of the JAX build (numpy's sqrt rounds correctly, as
+    XLA's does)."""
     diff = xw_b[:, :, None, :] - xs_b[:, :, :, None]  # [nb, D, P, W]
     d2 = diff[:, 0] * diff[:, 0]
     for ax in range(1, diff.shape[1]):
         d2 = d2 + diff[:, ax] * diff[:, ax]
+    if not md:
+        c = np.maximum(h * h - d2, np.float32(0.0))
+        return None, c * c * c
     dist = np.sqrt(np.where(d2 > 0.0, d2, np.float32(1.0)))
     inside = (d2 > 0.0) & (dist < h)
     mag = np.where(inside, np.float32(3.0) * (h - dist) ** 2 / dist,
@@ -530,11 +543,12 @@ def _blk_gsum_from_tables(md: torch.Tensor, vw_b: torch.Tensor,
 
 
 def _build_pair_tables(eng: CellEngine, dtype: torch.dtype,
-                       chunk: int = 64) -> CellEngine:
+                       chunk: int = 64, md: bool = True) -> CellEngine:
     """Compute the per-block pair tables of both buckets on the host in f32
     (chunks of ``chunk`` blocks), cast them to ``dtype`` on the engine's
     device (round to nearest even), and replace ``gsum`` with the one derived
-    from the quantized table.
+    from the quantized table. Without ``md`` only w6 is built, and ``gsum``
+    stays the engine's.
 
     The rows of pad slots are zero, so every table pass gives them exactly
     0 (the JAX build keeps their phantom pairs with the union window's unused
@@ -548,31 +562,37 @@ def _build_pair_tables(eng: CellEngine, dtype: torch.dtype,
         xs_h, xw_h = xs_b.cpu().numpy(), xw_b.cpu().numpy()
         mds, w6s, gss = [], [], []
         for c0 in range(0, xs_h.shape[0], chunk):
-            md, w6 = _blk_pair_mats(xs_h[c0:c0 + chunk], xw_h[c0:c0 + chunk],
-                                    h)
+            mdc, w6 = _blk_pair_mats(xs_h[c0:c0 + chunk],
+                                     xw_h[c0:c0 + chunk], h, md=md)
             # pad rows get empty rows: their slot sits at PAD_POS, where
             # the union window's unused entries (cell 0's volumes, shifted
             # to PAD_POS) would otherwise pair with it
             keep = real[c0:c0 + chunk]  # [nb, P]
-            md = np.where(np.tile(keep, (1, d))[:, :, None], md,
-                          np.float32(0.0))
             w6 = np.where(keep[:, :, None], w6, np.float32(0.0))
-            md = torch.from_numpy(md).to(eng.device).to(dtype)
-            mds.append(md)
             w6s.append(torch.from_numpy(w6).to(eng.device).to(dtype))
-            gss.append(_blk_gsum_from_tables(md, vw_b[c0:c0 + chunk], sig_g,
+            if not md:
+                continue
+            mdc = np.where(np.tile(keep, (1, d))[:, :, None], mdc,
+                           np.float32(0.0))
+            mdc = torch.from_numpy(mdc).to(eng.device).to(dtype)
+            mds.append(mdc)
+            gss.append(_blk_gsum_from_tables(mdc, vw_b[c0:c0 + chunk], sig_g,
                                              d))
         w = xw_b.shape[2]
-        if not mds:
+        if not w6s:
             return (xs_b.new_zeros((0, d * p, w), dtype=dtype),
                     xs_b.new_zeros((0, p, w), dtype=dtype),
                     xs_b.new_zeros((0, p, d)))
+        if not md:
+            return None, torch.cat(w6s), None
         return torch.cat(mds), torch.cat(w6s), torch.cat(gss)
 
     real = (eng.vs > 0).reshape(-1, p).cpu().numpy()
     nb1 = eng.blk_xs.shape[0]
     md1, w61, gs1 = run(eng.blk_xs, eng.blk_xw, eng.blk_vw, real[:nb1])
     md2, w62, gs2 = run(eng.blk2_xs, eng.blk2_xw, eng.blk2_vw, real[nb1:])
+    if not md:
+        return dataclasses.replace(eng, blk_w6=w61, blk2_w6=w62)
     gsum = torch.cat([gs1, gs2]).reshape(c, m, d).contiguous()
     return dataclasses.replace(eng, blk_md=md1, blk_w6=w61, blk2_md=md2,
                                blk2_w6=w62, gsum=gsum)

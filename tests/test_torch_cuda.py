@@ -818,3 +818,58 @@ def test_batched_rollout_kernels_match_plain(cuda, dtype):
         assert got == ((8, 8, 4) if use_kernels else (0, 0, 0))
     assert torch.isfinite(out[True]).all()
     assert float((out[True] - out[False]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+@pytest.mark.parametrize("dual", [False, True])
+def test_batched_surface_rollout_kernels_match_plain(cuda, dtype, dual):
+    """A 6-step batched surface rollout (B = 3, fire_rate 1) through the
+    table and MLP kernels against the plain versions, with the diffusion at
+    the engine's h or on a w6-only engine at 0.3, and one launch per bucket
+    and step of the forward, mask and blur table kernels and one MLP launch
+    a step. The scene of test_surface_rollout_kernels_match_plain: radial
+    seeds (their tangents drawn per sample), a texture-mode model."""
+    from sph_nca_tpu_torch.models.surface import rollout_mesh_batched_dual
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+    from sph_nca_tpu_torch.utils.meshes import (
+        fibonacci_sphere,
+        sphere_normals,
+    )
+    from sph_nca_tpu_torch.utils.seeds import surface_radial_seed
+
+    x = fibonacci_sphere(3000, 1.0)
+    eng = build_cell_engine(x, 0.2, pair_tables=dtype, device=cuda)
+    eng_d = (build_cell_engine(x, 0.3, pair_tables=dtype, w6_only=True,
+                               device=cuda) if dual else eng)
+    xt = torch.from_numpy(x).to(cuda)
+    nrm = torch.from_numpy(sphere_normals(x)).to(cuda)
+    seeds = [surface_radial_seed(xt, nrm, 16, 5, 0.2,
+                                 torch.Generator().manual_seed(b))
+             for b in range(3)]
+    A0 = torch.stack([a for a, _ in seeds])
+    t0 = torch.stack([t for _, t in seeds])
+    g = torch.Generator(device="cpu").manual_seed(0)
+    cfg = SPHNCAConfig(fire_rate=1.0, use_alpha=False,
+                       normalize_perception=5.0)
+    params = MLPParams(
+        torch.randn(48, 256, generator=g) * 0.1, torch.zeros(256),
+        torch.randn(256, 33, generator=g) * 0.1, torch.zeros(33))
+    params = MLPParams(*(p.to(cuda) for p in params))
+    wrappers = (PK.fwd_tab_bucket, PK.mask_tab_bucket, PK.blur_bucket,
+                MK.mlp_forward)
+    out = {}
+    for use_kernels in (True, False):
+        counts = [w.launches for w in wrappers]
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        out[use_kernels] = rollout_mesh_batched_dual(
+            params, cfg, eng, eng_d, A0, nrm, t0, gen, 6, 0.2,
+            fire_rate=1.0, use_kernels=use_kernels)
+        got = tuple(w.launches - c for w, c in zip(wrappers, counts))
+        buckets = [int(e.blk_xs.shape[0] > 0) + int(e.blk2_xs.shape[0] > 0)
+                   for e in (eng, eng_d)]
+        want = (6 * buckets[0], 6 * buckets[0], 6 * buckets[1], 6)
+        assert got == (want if use_kernels else (0, 0, 0, 0))
+    for k, p in zip(out[True], out[False]):
+        assert torch.isfinite(k).all()
+        assert float((k - p).abs().max()) <= 1e-4

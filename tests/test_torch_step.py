@@ -171,7 +171,7 @@ def test_cli_writes_trajectory(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--engine", "band"],
-                                  ["--surface", "bunny.obj"]])
+                                  ["--engine", "graph"]])
 def test_cli_names_unported_modes(tmp_path, argv):
     with pytest.raises(SystemExit, match="not ported"):
         cli_test.main(["--weights_json", GECKO, "--device", "cpu",
