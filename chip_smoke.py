@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout on a machine with a CUDA card and the CUDA
-toolkit. Seven main paths, each driven through its entry point with every
-launch counter set to 0 just before it and read just after:
+Run from the root of a checkout on a machine with a CUDA card, the CUDA
+toolkit and g++. Eleven main paths, each driven through its entry point with
+every launch counter set to 0 just before it and read just after:
 
   inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
              h = 0.1) on a 128x128 grid for 128 steps, as
@@ -36,14 +36,26 @@ launch counter set to 0 just before it and read just after:
              102,400-point sphere of radius 0.8 with h sized for ~30
              neighbours, 128 steps, bfloat16 tables and MLP, random-init
              parameters (16 channels, 256 hidden), through
-             ``rollout_mesh_batched``.
+             ``rollout_mesh_batched``;
+  band-train  the train CLI at its defaults, now ``--engine band`` (float32
+             band tables), 60 iterations, and a ``--smoothing_kernel
+             wendlandC2`` run;
+  band-inference  the test CLI's image mode at its default ``--engine
+             band`` (bfloat16 band tables, the batched rollout at B = 1),
+             the gecko, 128 steps;
+  band-bench  bench.py's configuration on the band engine, as the JAX
+             package runs it;
+  band-surface-cli  ``cli.test --surface --engine band`` on the procedural
+             mesh, the random and the radial seeds.
+The cell-engine paths above pass ``--engine cells`` to the CLIs.
 
 Phases, each printing one line with its wall time:
 
   device         the card's name and power limit; TF32 off
   build          the nvcc build of sph_nca_tpu_torch/csrc/*.cu for sm_90a,
                  with nvcc's -Xptxas -v output (registers, shared memory and
-                 spills of every kernel instantiation)
+                 spills of every kernel instantiation), and the g++ build of
+                 the band engine's native library (its command printed)
   kernels        the recompute forward and mask kernels against their plain
                  PyTorch versions at the gecko 128x128 bucket shapes, both
                  buckets, use_alpha on and off; a constant state cancelling
@@ -134,16 +146,44 @@ Phases, each printing one line with its wall time:
                  training and batched gecko shapes beside addmm-relu-addmm
                  (float32 sums, bfloat16 products for the bfloat16 row);
                  ms per inference and per surface rollout step
+  band-build     band engines at the gecko inference grid (bfloat16), the
+                 train CLI's defaults (float32) and bench.py's configuration
+                 (bfloat16): blocks, far buckets, table bytes, build seconds;
+                 the band passes (perception, both masks, the blur) with
+                 float32 tables against the cell engine's plain versions on
+                 the same positions, the whole float32 gradient against a
+                 float64 gradient of the same pairs (gradient_f64), the
+                 path's engine on the card against its plain CPU version
+                 (1e-5 of max), volume_consistency
+  band-mlp       kernel 2.8 against mlp_ref at the lead shapes the band
+                 paths give it (band-train, band-inference, band-bench)
+  band-train     finite, falling losses; kernel 2.8's launches (no pair-
+                 table kernel); ms per iteration, peak memory, device time
+                 per BPTT step of one full-depth iteration, no copy or cast
+                 of a table in an iteration (a profile with shapes);
+                 wendlandC2 runs
+  band-inference launches, the gecko growing; 16 steps at fire_rate 1.0 on
+                 float32 band tables against the cell engine (1e-4 of max),
+                 the bfloat16 band rollout's gap printed
+  band-bench     particle-steps per second (best of 3) beside the cell
+                 engine's, busy share, peak memory; one torch.bmm a table
+                 slice and pass, no copy or cast of a table (a profile with
+                 shapes); each band pass's time beside its byte bound, and
+                 the permuting copy of the state into lanes (band-bench-
+                 passes)
+  band-surface-cli  the two runs' files and launches
 Then one JSON line describing the eight kernels (2.4, 2.6, 2.7 and 2.8 also
 with their launches on the batched surface paths and their numbers at the
-bench shape), and as the last line
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
-line. Without a card it exits non-zero and prints no result.
+bench shape; 2.8 also with its launches and errors on the band paths), and
+as the last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before that line. Without a card it exits non-zero and prints no
+result.
 
 ``python3 chip_smoke.py --profile`` adds torch.profiler traces of 16 surface
-rollout steps, of 16 batched surface and bench steps, of 16 inference
-rollout steps and of one full-depth training iteration on each training
-path, with device time by kernel and the device's busy share.
+rollout steps, of 16 batched surface and bench steps (the band engine's
+too), of 16 inference rollout steps and of one full-depth training
+iteration on each training path (the band engine's too), with device time
+by kernel and the device's busy share.
 """
 
 from __future__ import annotations
@@ -162,6 +202,7 @@ import torch
 
 from sph_nca_tpu_torch.cli import test as cli_test
 from sph_nca_tpu_torch.cli import train as cli_train
+from sph_nca_tpu_torch import native
 from sph_nca_tpu_torch.io.weights_json import load_weights_json
 from sph_nca_tpu_torch.models import cell_step
 from sph_nca_tpu_torch.models.cell_step import (
@@ -578,12 +619,12 @@ def make_trainer(eng, x2):
     return trainer, pool
 
 
-def run_train_cli(out_dir: str, extra) -> list:
-    """The train CLI at its defaults on the card; returns its per-iteration
-    metrics rows."""
+def run_train_cli(out_dir: str, extra, engine: str = "cells") -> list:
+    """The train CLI at its defaults on the card with ``--engine engine``;
+    returns its per-iteration metrics rows."""
     rc = cli_train.main(["--device", "cuda", "--seed", str(SEED),
-                         "--log_every", "10", "--output_dir", out_dir]
-                        + list(extra))
+                         "--log_every", "10", "--output_dir", out_dir,
+                         "--engine", engine] + list(extra))
     torch.cuda.synchronize()
     if rc != 0:
         fail(f"train CLI returned {rc}")
@@ -1479,8 +1520,8 @@ def surface_cli_phase(dev, smi):
                 "--weights_json", weights, "--surface", obj,
                 "--surface_numpoints", str(SURF_N), "--steps",
                 str(SURF_STEPS), "--export_every", str(every), "--seed",
-                str(SEED), "--device", "cuda", "--output_dir", out_dir]
-                + extra)
+                str(SEED), "--device", "cuda", "--output_dir", out_dir,
+                "--engine", "cells"] + extra)
             torch.cuda.synchronize()
             secs = time.time() - t1
             counts[label] = read_launches()
@@ -1695,8 +1736,7 @@ def surface_bench_phase(dev, rng, smi) -> dict:
 
     t0 = time.time()
     x = fibonacci_sphere(BENCH_N, BENCH_RADIUS)
-    h = float(np.sqrt(BENCH_NEIGHBOURS * 4.0 * np.pi * BENCH_RADIUS ** 2
-                      / BENCH_N / np.pi))
+    h = bench_h()
     t1 = time.time()
     eng = build_cell_engine(x, h, pair_tables="bfloat16", device=dev)
     torch.cuda.synchronize()
@@ -1842,16 +1882,14 @@ def surface_bench_phase(dev, rng, smi) -> dict:
           f"around 20 calls after 3 (each call takes 0.2 ms or more here, so "
           f"the host enqueues ahead of the device; profiles of 20 calls "
           f"after the earlier phases kept losing kernel records) | {smi}")
-    return out
+    return out, max(pps)
 
 
-def mlp_phases(dev, shapes: dict) -> dict:
+def mlp_shape_checks(dev, shapes: dict) -> dict:
     """sph_mlp_kernel against mlp_ref at each path's shapes (lead axes
-    [B, C, M]), gated and orig, float32 and bfloat16 inputs; the wrapper
-    refusing what the kernel does not take; the gradients through mlp_fused
-    (kernel forward) against autograd through mlp_ref. Returns the largest
-    absolute error per (shapes, dtype)."""
-    t0 = time.time()
+    [B, C, M]), gated and orig, float32 and bfloat16 inputs, within MLP_RTOL
+    of max and all but MLP_FLIP_SHARE of the outputs within 1e-5 of max.
+    Returns the largest absolute error per (shapes, dtype)."""
     errs = {}
     for label, lead in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1881,6 +1919,16 @@ def mlp_phases(dev, shapes: dict) -> dict:
                          f"(limit {MLP_RTOL[dtype]}), {share:.3e} of outputs "
                          f"past 1e-5 of max (limit {MLP_FLIP_SHARE}) "
                          f"({label}, {dtype}, K={k})")
+    return errs
+
+
+def mlp_phases(dev, shapes: dict) -> dict:
+    """``mlp_shape_checks`` at each path's shapes and at ragged and edge
+    shapes; the wrapper refusing what the kernel does not take; the
+    gradients through mlp_fused (kernel forward) against autograd through
+    mlp_ref. Returns the largest absolute error per (shapes, dtype)."""
+    t0 = time.time()
+    errs = mlp_shape_checks(dev, shapes)
     # ragged and edge shapes, each against mlp_ref within MLP_RTOL (the
     # share of outputs past 1e-5 of max is held at the large n only: one
     # flipped bf16 hidden unit moves several of the few outputs of n <= 37)
@@ -2070,6 +2118,647 @@ def batched_phases(dev, model, x, h, A0, alive_ref: float) -> dict:
     return launches
 
 
+# ---- the band engine (ops/bands.py): the default engine of both CLIs --------
+#
+# Its pair passes are torch.bmm products over static tables (the JAX package
+# multiplies them outside Pallas too); the batched step's update MLP is
+# kernel 2.8. The band paths launch no pair-table kernel.
+
+# band passes against the cell engine's plain versions on the same positions
+# (float32 tables: the same products summed in another order), and the card
+# route against the CPU plain version (float32 sums of the same products).
+# The gradient is sigma_g sum_j md_ij X_j - X_i gsum_i; each engine's gsum is
+# the float32 sum of its own table's md entries, which nearly cancel (the
+# spiky vectors of a full neighbourhood), so the two engines' gsums differ by
+# their float32 roundings. Against the cell engine the moments
+# sigma_g sum_j md_ij X_j (the gradient with each engine's self term added
+# back) are held to BAND_RTOL and the whole gradient's gap is printed. The
+# whole float32 band gradient is held to BAND_RTOL against gradient_f64, a
+# float64 gradient from the same pairs with no table and no gsum (on the
+# CPU at the bench shape, B = 1: the band engine 4.6e-7 of max from it, the
+# cell engine 1.23e-5: the gap between the engines is the cell engine's
+# self term). The card route against its CPU version shares the gsum and
+# holds the whole gradient.
+BAND_RTOL = 1e-5
+# volume_consistency, sigma_W sum_w W v_w, is 1 wherever the neighbours'
+# volumes equal a row's own: its median over real rows, within this of 1;
+# on the closed bench sphere every row (a plane's boundary rows differ)
+VOL_MEDIAN_ATOL = 1e-3
+VOL_SPHERE_ATOL = 1e-2
+WENDLAND_ITERS = 3
+
+
+def bench_h() -> float:
+    """bench.py's h for BENCH_NEIGHBOURS neighbours on the bench sphere."""
+    return float(np.sqrt(BENCH_NEIGHBOURS * 4.0 * np.pi * BENCH_RADIUS ** 2
+                         / BENCH_N / np.pi))
+
+
+def band_stats(eng) -> str:
+    """One line of a band engine's shape and table bytes."""
+    band_b, far_b = eng.table_bytes()
+    buckets = ", ".join(f"{int(b.shape[0])} x {int(g.shape[1])}"
+                        for b, g in zip(eng.far_blocks, eng.far_groups))
+    return (f"nb={eng.num_cells} P={eng.slots_per_cell}, "
+            f"{int(eng.nbr_count.sum())} pairs within h, "
+            f"{len(eng.far_tabs)} far buckets (blocks x groups of "
+            f"{eng.far_group_size}): {buckets}; "
+            f"{str(eng.Tband.dtype).split('.')[-1]} band table "
+            f"{band_b / 1e6:.1f} MB + far tables {far_b / 1e6:.1f} MB")
+
+
+def band_states(rng, bsz: int, n: int, dev) -> torch.Tensor:
+    """[bsz, n, 16] normal states with the alpha lane uniform in [0, 0.3],
+    0.005 away from the alive threshold."""
+    A = rng.normal(size=(bsz, n, 16)).astype(np.float32)
+    a = rng.uniform(0.0, 0.3, (bsz, n))
+    A[..., 3] = np.where(np.abs(a - 0.1) < 0.005, 0.12, a)
+    return torch.from_numpy(A).to(dev)
+
+
+def band_passes(eng, A, X, cell: bool) -> dict:
+    """Perception (gradient and pre-step mask), the post-update mask (alpha
+    on and off) and the blur of A [B, N, 16] / X [B, N, 4] in particle
+    order, through the engine seam (a cell engine's plain versions)."""
+    from sph_nca_tpu_torch.ops import batched as BT
+
+    S = eng.scatter(A)
+    kw = {"use_kernels": False} if cell else {}
+    ga, sm = BT.perceive_samples(eng, S, True, **kw)
+    ga = eng.gather_back(ga)
+    d = eng.gsum.shape[-1]
+    gsum = eng.gather_back(eng.gsum).repeat_interleave(A.shape[-1], -1)
+    return {"gradient": ga, "moments": ga + A.repeat(1, 1, d) * gsum,
+            "pre-mask": eng.gather_back(sm[..., None]),
+            "mask": eng.gather_back(BT.mask_blur_samples(
+                eng, S, True, **kw)[..., None]),
+            "mask (no alpha)": eng.gather_back(BT.mask_blur_samples(
+                eng, S, False, **kw)[..., None]),
+            "blur": eng.gather_back(BT.blur_samples(eng, eng.scatter(X),
+                                                    **kw))}
+
+
+def band_gap(got: dict, want: dict) -> dict:
+    """Largest difference of each pass, relative to the largest output."""
+    out = {}
+    for k, w in want.items():
+        w = w.float().to(got[k].device)
+        out[k] = float((got[k].float() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+    return out
+
+
+def gradient_f64(x, h: float, A: torch.Tensor) -> torch.Tensor:
+    """The SPH gradient sigma_g sum_j md_ij (A_j - A_i) of A [B, N, F] in
+    float64, [B, N, D*F] d-major in particle order on A's device: the true
+    pairs of x from the native scan, poly6 volumes v = 1 / (sigma_W sum_j
+    W_ij) and spiky md_ij = mag(r_ij) dx_ij v_j, every sum in float64. No
+    table and no gsum: an independent witness of both engines' float32
+    gradients."""
+    from sph_nca_tpu_torch.ops import kernels as KN
+
+    x = np.asarray(x, np.float64)
+    n, d = x.shape
+    pi, pj, dx, d2, w6sum, _ = native.true_pairs(x, float(h))
+    sig_w = float(KN.get_smoothing_kernel("poly6").norm(h, d))
+    sig_g = float(KN.get_gradient_kernel("spiky").norm(h, d))
+    v = 1.0 / (sig_w * w6sum)
+    d2 = d2.astype(np.float64)
+    dist = np.sqrt(np.where(d2 > 0.0, d2, 1.0))
+    mag = np.where(d2 > 0.0, 3.0 * (h - dist) ** 2 / dist, 0.0)
+    dev = A.device
+    md = torch.from_numpy(mag[:, None] * dx.astype(np.float64)
+                          * v[pj][:, None]).to(dev)  # [E, D]
+    pi = torch.from_numpy(pi.astype(np.int64)).to(dev)
+    pj = torch.from_numpy(pj.astype(np.int64)).to(dev)
+    out = []
+    for a in A.double():
+        g = a.new_zeros((n, d, a.shape[-1]))
+        g.index_add_(0, pi, md[:, :, None] * (a[pj] - a[pi])[:, None, :])
+        out.append(sig_g * g.reshape(n, -1))
+    return torch.stack(out)
+
+
+def band_build_phase(dev, smi) -> dict:
+    """The band engine at the gecko inference grid (bfloat16 tables), the
+    train CLI's defaults (float32) and bench.py's configuration (bfloat16):
+    shapes, far buckets, table bytes, build seconds; on each, the band
+    passes with float32 tables against the cell engine's plain versions on
+    the same positions (particle order), the path's own engine on the card
+    against its plain CPU version, and volume_consistency. Returns the
+    engines by label."""
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+
+    t0 = time.time()
+    model_h = load_weights_json(GECKO, device=dev).h
+    x2 = grange((IMAGE, IMAGE), (-1.0, -1.0), (2.0, 2.0)).reshape(-1, 2)
+    plane = torch.nn.functional.pad(x2, (0, 1)).numpy()
+    shapes = {"gecko": (plane, model_h, "bfloat16"),
+              "train": (plane, TRAIN_H, "float32"),
+              "bench": (fibonacci_sphere(BENCH_N, BENCH_RADIUS), bench_h(),
+                        "bfloat16")}
+    engines, lines = {}, []
+    rng = np.random.default_rng(SEED)
+    for label, (x, h, dtype) in shapes.items():
+        t1 = time.time()
+        eng = build_band_engine(x, h, table_dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.time() - t1
+        engines[label] = eng
+        n = x.shape[0]
+        A = band_states(rng, BATCH_B, n, dev)
+        X = normal_cuda(rng, (BATCH_B, n, 4), dev)
+        # float32 band passes against the cell engine's plain versions
+        e32 = eng if dtype == "float32" else build_band_engine(
+            x, h, table_dtype="float32", device=dev)
+        ceng = build_cell_engine(x, h, pair_tables="float32", device=dev)
+        with torch.no_grad():
+            got32 = band_passes(e32, A, X, False)
+            cell32 = band_passes(ceng, A, X, True)
+            cell_gap = band_gap(got32, cell32)
+            ref = {"gradient": gradient_f64(x, h, A)}
+            f64_gap = {k: band_gap({"gradient": g["gradient"]}, ref)[
+                "gradient"] for k, g in (("band", got32), ("cell", cell32))}
+        del e32, ceng, got32, cell32, ref
+        torch.cuda.empty_cache()
+        # the path's engine on the card against its plain CPU version
+        with torch.no_grad():
+            route_gap = band_gap(
+                band_passes(eng, A, X, False),
+                band_passes(eng.to("cpu"), A.cpu(), X.cpu(), False))
+        vc = eng.volume_consistency()[eng.vs > 0]
+        med = float(vc.median())
+        dev1 = float((vc - 1.0).abs().max())
+        within = float(((vc - 1.0).abs() <= 0.01).float().mean())
+        lines.append(f"{label} (N={n}, h={h:.6f}): {band_stats(eng)}; "
+                     f"built in {build_s:.2f} s")
+        print(f"  {lines[-1]}", flush=True)
+        print(f"    float32 band vs cell engine (plain), rel to max: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in cell_gap.items()),
+              flush=True)
+        print(f"    float32 gradient vs the float64 gradient of the same pairs "
+              f"(gradient_f64), rel to max: band {f64_gap['band']:.3e} "
+              f"(limit {BAND_RTOL}), cell engine {f64_gap['cell']:.3e}",
+              flush=True)
+        print(f"    {dtype} card route vs CPU plain, rel to max: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in route_gap.items()),
+              flush=True)
+        print(f"    volume_consistency on real rows: median {med:.6f}, "
+              f"largest |v - 1| {dev1:.4f}, share within 1% {within:.4f}",
+              flush=True)
+        worst = max([v for k, v in cell_gap.items() if k != "gradient"]
+                    + list(route_gap.values()) + [f64_gap["band"]])
+        if not worst <= BAND_RTOL:
+            fail(f"band passes at the {label} shape: {cell_gap} against the "
+                 f"cell engine, {route_gap} against the CPU, the gradient "
+                 f"{f64_gap['band']} against gradient_f64")
+        if not (abs(med - 1.0) <= VOL_MEDIAN_ATOL
+                and (label != "bench" or dev1 <= VOL_SPHERE_ATOL)):
+            fail(f"volume_consistency at the {label} shape: median {med}, "
+                 f"largest |v - 1| {dev1}")
+    phase("band-build", t0, "band engines: " + "; ".join(lines)
+          + f"; band passes == the cell engine's plain versions (float32, "
+          f"B={BATCH_B}; the gradient's moments, the whole gradient's gap "
+          f"printed), the whole float32 band gradient == its float64 "
+          f"reference from the same pairs and the card route == CPU plain "
+          f"within {BAND_RTOL} of "
+          f"max; volume_consistency median within {VOL_MEDIAN_ATOL} of 1 "
+          f"| {smi}")
+    return engines
+
+
+def band_mlp_phase(dev, smi, engines: dict) -> dict:
+    """Kernel 2.8 against mlp_ref at the lead shapes [B, nb, P] the band
+    paths give it: band-train (B = TRAIN_B, float32 on the path),
+    band-inference (the gecko, B = 1, bfloat16) and band-bench (B =
+    BATCH_B, bfloat16), both dtypes at each. Returns the largest absolute
+    error per (label, dtype)."""
+    t0 = time.time()
+    shapes = {f"band-{label}": (bsz, engines[name].num_cells,
+                                engines[name].slots_per_cell)
+              for label, name, bsz in (("train", "train", TRAIN_B),
+                                       ("inference", "gecko", 1),
+                                       ("bench", "bench", BATCH_B))}
+    errs = mlp_shape_checks(dev, shapes)
+    phase("band-mlp", t0, "sph_mlp_kernel == mlp_ref at the band paths' "
+          "shapes " + ", ".join(f"{label} {lead}"
+                                for label, lead in shapes.items())
+          + f", gated and orig, float32 / bfloat16 within "
+          f"{MLP_RTOL[torch.float32]} / {MLP_RTOL[torch.bfloat16]} of max, "
+          f"all but {MLP_FLIP_SHARE} of the outputs within 1e-5 of max "
+          f"| {smi}")
+    return errs
+
+
+def band_train_device(teng, x2):
+    """Device us per BPTT step, traced wall us per BPTT step and the steps
+    of one full-depth Trainer iteration on ``teng`` (after one warm-up);
+    the breakdown by kernel with ``--profile``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, pool = make_trainer(teng, x2)
+    trainer.run_iteration(0, pool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        trainer.run_iteration(1, pool)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t1) * 1e6
+    n = trainer.last_steps
+    dev_us = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+                 for ev in prof.key_averages()
+                 if ev.device_type != torch.autograd.DeviceType.CPU)
+    if "--profile" in sys.argv[1:]:
+        device_breakdown(prof, wall_us, n, "BPTT step")
+    return dev_us / n, wall_us / n, n
+
+
+def band_train_ops(teng, x2):
+    """A CPU-side profile with shapes of one full-depth Trainer iteration on
+    ``teng`` (forward, recompute and backward), for ``band_table_copies``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, pool = make_trainer(teng, x2)
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        trainer.run_iteration(0, pool)
+        torch.cuda.synchronize()
+    return prof
+
+
+def band_train_phase(dev, smi, teng, x2) -> int:
+    """The train CLI at its defaults (now --engine band, float32 tables) for
+    TRAIN_ITERS iterations: finite, falling losses, launch counts (kernel
+    2.8 only), ms per iteration, peak memory; one full-depth iteration's
+    device time per BPTT step; a --smoothing_kernel wendlandC2 run of
+    WENDLAND_ITERS iterations. Returns 2.8's launches."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_launches()
+        rows = run_train_cli(out_dir, ["--training_iter", str(TRAIN_ITERS)],
+                             engine="band")
+        launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = [r["loss"] for r in rows]
+    steps = [r["steps"] for r in rows]
+    want = expected_train_launches(steps, 0, tables=True)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    iter_ms = [1e3 * r["seconds"] for r in rows]
+    dev_us, wall_us, depth = band_train_device(teng, x2)
+    copies = band_table_copies(band_train_ops(teng, x2), teng)
+    with tempfile.TemporaryDirectory() as out_dir:
+        wrows = run_train_cli(out_dir, ["--training_iter",
+                                        str(WENDLAND_ITERS),
+                                        "--smoothing_kernel", "wendlandC2"],
+                              engine="band")
+    wlosses = [r["loss"] for r in wrows]
+    print(f"  losses {' '.join(f'{l:.4f}' for l in losses)}", flush=True)
+    print(f"  rollout lengths {steps}; launches {launches}", flush=True)
+    phase("band-train", t0, f"train CLI --engine band (float32 tables) "
+          f"{TRAIN_ITERS} iterations: loss {first:.4f} (mean of first 5) -> "
+          f"{last:.4f} (last 5), median {np.median(iter_ms):.1f} ms an "
+          f"iteration over {sum(steps)} steps, kernel 2.8 "
+          f"{launches['sph_mlp_kernel'] / sum(steps):.2f} launches a step "
+          f"(remat recomputes each), peak device memory {peak_gb:.3f} GiB; "
+          f"one full-depth iteration ({depth} BPTT steps, B={TRAIN_B}): "
+          f"{dev_us:.2f} us of device time a BPTT step of {wall_us:.2f} us "
+          f"traced ({100 * dev_us / wall_us:.1f}% busy), no copy or cast "
+          f"of a table in an iteration with its backward; "
+          f"--smoothing_kernel wendlandC2, {WENDLAND_ITERS} iterations: "
+          f"losses {' '.join(f'{l:.4f}' for l in wlosses)} | {smi}")
+    if len(rows) != TRAIN_ITERS or not all(np.isfinite(losses)):
+        fail(f"band training losses not finite or missing: {losses}")
+    if not last < first:
+        fail(f"the band training loss did not fall: {first} -> {last}")
+    if launches != want:
+        fail(f"band training launch counts {launches}, expected {want}")
+    if len(wrows) != WENDLAND_ITERS or not all(np.isfinite(wlosses)):
+        fail(f"wendlandC2 training losses not finite: {wlosses}")
+    if copies:
+        fail(f"band training: {len(copies)} copies of a table in one "
+             f"iteration, the first {copies[:3]}")
+    return launches["sph_mlp_kernel"]
+
+
+def band_inference_phase(dev, smi, model, x) -> int:
+    """The test CLI's image mode on the gecko with --engine band, STEPS
+    steps (bfloat16 band tables, the batched rollout at B = 1): launch
+    counts, finite states, the gecko growing; then CHECK_STEPS steps at
+    fire_rate 1.0 from the grown state on float32 band tables against the
+    cell engine's rollout (kernels), and the bfloat16 band rollout's gap.
+    Returns 2.8's launches."""
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_launches()
+        t1 = time.time()
+        rc = cli_test.main([
+            "--weights_json", GECKO, "--image_size", str(IMAGE),
+            "--steps", str(STEPS), "--firerate", "0.5", "--seed", str(SEED),
+            "--output_dir", out_dir, "--device", "cuda", "--engine", "band"])
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        launches = read_launches()
+        if rc != 0:
+            fail(f"test CLI --engine band returned {rc}")
+        (run,) = os.listdir(out_dir)
+        with np.load(os.path.join(out_dir, run, "states.npz")) as z:
+            states = z["states"]
+    if launches != {**NO_LAUNCHES, "sph_mlp_kernel": STEPS}:
+        fail(f"band inference launch counts {launches}")
+    if states.shape != (STEPS + 1, IMAGE * IMAGE, model.cfg.channels):
+        fail(f"band inference trajectory shape {states.shape}")
+    alive0 = float((states[0][:, 3] > 0.1).mean())
+    alive = float((states[-1][:, 3] > 0.1).mean())
+    if not (np.isfinite(states).all() and alive0 < alive < 0.5):
+        fail(f"the band gecko did not grow: {alive0} -> {alive}")
+    h = model.h
+    cfg1 = dataclasses.replace(model.cfg, fire_rate=1.0)
+    grown = torch.from_numpy(states[-1]).to(dev)[None]
+    finals = {}
+    with torch.no_grad():
+        for label, eng in (
+                ("band float32", build_band_engine(x, h, device=dev)),
+                ("band bfloat16", build_band_engine(
+                    x, h, table_dtype="bfloat16", device=dev)),
+                ("cells float32", build_cell_engine(
+                    x, h, pair_tables="float32", device=dev))):
+            out = rollout_cells_batched(
+                model.params, cfg1, eng, batched_scatter(eng, grown), 1,
+                torch.Generator(device=dev).manual_seed(SEED), CHECK_STEPS,
+                h, fire_rate=1.0)
+            finals[label] = batched_gather_back(eng, out, 1)
+    top = float(finals["cells float32"].abs().max())
+    gap = float((finals["band float32"] - finals["cells float32"]).abs()
+                .max()) / top
+    gap16 = float((finals["band bfloat16"] - finals["band float32"]).abs()
+                  .max()) / top
+    alive16 = [float((finals[k][0, :, 3] > 0.1).float().mean())
+               for k in ("band bfloat16", "band float32")]
+    phase("band-inference", t0, f"test CLI --engine band, gecko "
+          f"{IMAGE}x{IMAGE}, {STEPS} steps at fire_rate 0.5 in {secs:.2f} s "
+          f"(bfloat16 band tables, B = 1, every state kept): launches "
+          f"{launches}, alive fraction {alive0:.4f} -> {alive:.4f}; "
+          f"{CHECK_STEPS} steps at fire_rate 1.0 from the grown state: band "
+          f"(float32 tables) vs the cell engine's kernels {gap:.3e} of max "
+          f"(limit {ROLLOUT_ATOL}); bfloat16 band tables vs float32 "
+          f"{gap16:.3e} of max (printed; alive share {alive16[0]:.4f} vs "
+          f"{alive16[1]:.4f}, limit +-{ALIVE_ATOL}) | {smi}")
+    if not gap <= ROLLOUT_ATOL:
+        fail(f"band rollout vs cell engine rollout: {gap:.3e} of max")
+    if not abs(alive16[0] - alive16[1]) <= ALIVE_ATOL:
+        fail(f"bfloat16 band rollout alive share {alive16}")
+    return launches["sph_mlp_kernel"]
+
+
+def band_pass_work(eng, cols: str, width: int, out_bytes: int) -> tuple:
+    """Bytes and operations of one band pass over the table columns
+    ``cols`` ("md" or "w6") with ``width`` right-hand columns: the column
+    slice of the band and far tables read once in their stored type, the
+    right-hand side once in the table dtype, the output written once
+    (``out_bytes`` a value); a multiply-add for every pair within h and
+    column (D for md)."""
+    d, p = eng.dim, eng.slots_per_cell
+    es = eng.Tband.element_size()
+    frac = d / (d + 1) if cols == "md" else 1 / (d + 1)
+    tabs = eng.Tband.numel() + sum(t.numel() for t in eng.far_tabs)
+    rows = eng.num_cells * p
+    nbytes = (frac * tabs * es + rows * width * es
+              + rows * width * out_bytes * (d if cols == "md" else 1))
+    ops = 2 * int(eng.nbr_count.sum()) * width * (d if cols == "md" else 1)
+    return nbytes, ops
+
+
+def band_table_copies(prof, eng) -> list:
+    """Copy or cast ops in a profile whose input has the shape of a band
+    or far table or of one of their column slices (a per-step copy of a
+    table)."""
+    shapes = set()
+    for t in (eng.Tband,) + tuple(eng.far_tabs):
+        n, w, cc = t.shape
+        p = eng.slots_per_cell
+        for c in (cc, eng.dim * p, p):
+            shapes |= {(n, w, c), (n, c, w)}
+    hits = []
+    for ev in prof.events():
+        if ev.name in ("aten::copy_", "aten::_to_copy", "aten::clone",
+                       "aten::contiguous"):
+            for s in ev.input_shapes or ():
+                if tuple(s) in shapes:
+                    hits.append((ev.name, tuple(s)))
+    return hits
+
+
+def profiled_ms(fn, calls: int):
+    """Device ms per call of fn() summed over one profile's kernel records
+    (printed only: profiles after the batched surface phases have lost
+    records, see ``device_ms``), and the number of records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type != torch.autograd.DeviceType.CPU]
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) for ev in evs)
+    return us / calls / 1e3, sum(ev.count for ev in evs)
+
+
+def band_bench_phase(dev, rng, smi, eng, cell_pps: float) -> int:
+    """bench.py's configuration on the band engine: BENCH_B rollouts,
+    BENCH_STEPS steps, bfloat16 tables and MLP, ``rollout_mesh_batched``
+    (the inputs of [surface-bench]): particle-steps per second (best of 3),
+    the device's busy share, peak memory, beside the cell engine's; the
+    products a step and no per-step copy of a table (a profile with
+    shapes); each band pass's time at this shape beside its byte bound and
+    the permuting copy into lanes. Returns 2.8's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig, init_params
+    from sph_nca_tpu_torch.ops import bands as BD
+
+    t0 = time.time()
+    h = bench_h()
+    x = fibonacci_sphere(BENCH_N, BENCH_RADIUS)
+    cfg = SPHNCAConfig(normalize_perception=1.0 / h)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    nrm = torch.from_numpy(sphere_normals(x)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    A0 = torch.rand(BENCH_B, BENCH_N, cfg.channels, generator=g, device=dev)
+    T0 = orthogonalize(nrm, normalize(torch.randn(BENCH_B, BENCH_N, 3,
+                                                  generator=g, device=dev)))
+
+    def run(steps, seed):
+        return rollout_mesh_batched(
+            params, cfg, eng, A0, nrm, T0,
+            torch.Generator(device=dev).manual_seed(seed), steps, h,
+            mlp_dtype="bfloat16")
+
+    secs = []
+    with torch.no_grad():
+        run(4, SEED)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(3):
+            if i == 0:
+                reset_launches()
+            t1 = time.time()
+            fA, fT = run(BENCH_STEPS, SEED + i)
+            torch.cuda.synchronize()
+            secs.append(time.time() - t1)
+            if i == 0:
+                launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        busy, wall, recs, held = busy_share(lambda: run(16, SEED), 16)
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            run(2, SEED)
+            torch.cuda.synchronize()
+    bmm = sum(ev.count for ev in prof.key_averages()
+              if ev.key == "aten::bmm") / 2
+    copies = band_table_copies(prof, eng)
+    if launches != {**NO_LAUNCHES, "sph_mlp_kernel": BENCH_STEPS}:
+        fail(f"band bench launch counts {launches}")
+    if not (bool(torch.isfinite(fA).all()) and bool(torch.isfinite(fT).all())
+            and float(fT.norm(dim=-1).max()) <= 1.0 + 1e-5):
+        fail("band bench: non-finite states or tangents off unit length")
+    nfar = len(eng.far_tabs)
+    if bmm != 4 * (1 + nfar) or copies:
+        fail(f"band bench: {bmm} products a step, expected {4 * (1 + nfar)}"
+             f" (each table slice read once a pass); {len(copies)} copies "
+             f"of a table, the first {copies[:3]}")
+    pps = [BENCH_B * BENCH_N * BENCH_STEPS / s for s in secs]
+    phase("band-bench", t0, f"bench.py's configuration on the band engine: "
+          f"{BENCH_N} points, h={h:.6f}, B={BENCH_B}, {BENCH_STEPS} steps, "
+          f"bfloat16 tables and MLP: {max(pps):.4e} particle-steps/s (best of"
+          f" 3; " + ", ".join(f"{p:.4e}" for p in pps) + f"; "
+          f"{min(secs) * 1e3 / BENCH_STEPS:.4f} ms a step) beside the cell "
+          f"engine's {cell_pps:.4e} in [surface-bench] "
+          f"({max(pps) / cell_pps:.3f}x); device busy {busy:.2f} of "
+          f"{wall:.2f} us a step traced ({100 * busy / wall:.1f}%; {recs} "
+          f"device records, the port's kernels' equal to their launches "
+          f"{held}); peak device memory {peak_gb:.3f} GiB (tables "
+          f"included); {bmm:.0f} torch.bmm a step (4 passes x (1 band + "
+          f"{nfar} far buckets)), no copy or cast of a table; launches "
+          f"{launches} | {smi}")
+    del fA, fT
+
+    # each band pass at this shape: CUDA events around 20 calls, beside its
+    # byte bound, and the permuting copy of the state into lanes
+    t0 = time.time()
+    S = band_states(rng, BENCH_B, BENCH_N, dev)
+    Sb = eng.scatter(S)
+    Xb = eng.scatter(normal_cuda(rng, (BENCH_B, BENCH_N, 4), dev))
+    passes = {
+        "perception (md + w6)": (
+            lambda: BD.perceive_band_samples(eng, Sb, True, "bfloat16"),
+            [("md", 16 * BENCH_B, 2), ("w6", BENCH_B, 4)], 2),
+        "post-update mask (w6)": (
+            lambda: BD.mask_blur_band_samples(eng, Sb, True),
+            [("w6", BENCH_B, 4)], 1),
+        "diffusion blur (w6, K = 4)": (
+            lambda: BD.blur_band_samples(eng, Xb),
+            [("w6", 4 * BENCH_B, 4)], 1),
+        "state into lanes (bfloat16)": (
+            lambda: BD._to_lanes(Sb, eng.Tband.dtype), [], 0)}
+    with torch.no_grad():
+        for label, (fn, parts, npass) in passes.items():
+            ms = cuda_ms(fn, 20, 3)
+            dev_ms, recs = profiled_ms(fn, 5)
+            if parts:
+                work = [band_pass_work(eng, *p) for p in parts]
+                bound_ms, bound_by = bound(sum(w[0] for w in work),
+                                           sum(w[1] for w in work),
+                                           BF16_FLOPS)
+                extra = (f"bound {bound_ms:.4f} ms by {bound_by} "
+                         f"({100 * bound_ms / ms:.1f}% of it), "
+                         f"{npass * (1 + nfar)} torch.bmm a call")
+            else:
+                nbytes = Sb.numel() * (4 + eng.Tband.element_size())
+                extra = (f"bound {1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms by "
+                         f"bytes (float32 read, bfloat16 written)")
+            print(f"  {label}: {ms:.4f} ms by CUDA events (device time "
+                  f"{dev_ms:.4f} ms in one profile of 5 calls, {recs} "
+                  f"records), {extra}", flush=True)
+    phase("band-bench-passes", t0, "each band pass at the bench shape "
+          "(bfloat16 tables, B = 8), CUDA events around 20 calls after 3 "
+          "(host gaps included: the passes are host-bound) and the "
+          f"profiler's device time | {smi}")
+    return launches["sph_mlp_kernel"]
+
+
+def band_surface_cli_phase(dev, smi) -> dict:
+    """The test CLI's surface mode with --engine band on the procedural
+    mesh of [surface-cli], SURF_N points, SURF_STEPS steps: stripes (the
+    random seed, pre-diffused on a float32 band engine at radius 0.2) and
+    gecko (radial seeds): the trajectory, the PLY files, kernel 2.8's
+    launches and nothing else. Returns each run's 2.8 launches."""
+    t0 = time.time()
+    runs = {"stripes-random": STRIPES, "gecko-radial": GECKO}
+    every = 16
+    counts, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = write_mesh_obj(os.path.join(tmp, "bumpy.obj"))
+        for label, weights in runs.items():
+            out_dir = os.path.join(tmp, label)
+            reset_launches()
+            t1 = time.time()
+            rc = cli_test.main([
+                "--weights_json", weights, "--surface", obj,
+                "--surface_numpoints", str(SURF_N), "--steps",
+                str(SURF_STEPS), "--export_every", str(every), "--seed",
+                str(SEED), "--device", "cuda", "--output_dir", out_dir,
+                "--engine", "band"])
+            torch.cuda.synchronize()
+            secs = time.time() - t1
+            launches = read_launches()
+            if rc != 0:
+                fail(f"band surface CLI ({label}) returned {rc}")
+            if launches != {**NO_LAUNCHES, "sph_mlp_kernel": SURF_STEPS}:
+                fail(f"band surface CLI ({label}) launches {launches}")
+            counts[label] = launches["sph_mlp_kernel"]
+            (run,) = os.listdir(out_dir)
+            run = os.path.join(out_dir, run)
+            with np.load(os.path.join(run, "states.npz")) as z:
+                x, states = z["x"], z["states"]
+            if (x.shape != (SURF_N, 3)
+                    or states.shape != (SURF_STEPS + 1, SURF_N, 16)
+                    or not np.isfinite(states).all()
+                    or np.abs(x).max() > 1 + 1e-5):
+                fail(f"band surface CLI ({label}): shapes {x.shape} "
+                     f"{states.shape}, non-finite states or points off the "
+                     "normalized mesh")
+            names = sorted(f for f in os.listdir(run) if f.endswith(".ply"))
+            if names != [f"{i:04d}.ply"
+                         for i in range(0, SURF_STEPS + 1, every)]:
+                fail(f"band surface CLI ({label}) PLY files {names}")
+            for name in names:
+                pts, rgba = load_ply_points(os.path.join(run, name))
+                if not (np.array_equal(pts, x) and rgba.shape == (SURF_N,
+                                                                  4)):
+                    fail(f"band surface CLI ({label}) {name}: wrong points")
+            live = [float((np.abs(states[k]).max(-1) > 0).mean())
+                    for k in (0, SURF_STEPS)]
+            lines.append(f"{label} {secs:.2f} s, {len(names)} PLY files, "
+                         f"share of points not 0 at steps 0 and "
+                         f"{SURF_STEPS}: {live[0]:.4f} {live[1]:.4f}")
+    phase("band-surface-cli", t0, f"test CLI --surface --engine band on the "
+          f"procedural mesh, {SURF_N} points, {SURF_STEPS} steps: "
+          + "; ".join(lines) + f"; kernel 2.8 {SURF_STEPS} launches a run, "
+          f"no pair-table kernel | {smi}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2094,8 +2783,14 @@ def main() -> int:
     t0 = time.time()
     lib_path = _build.build(verbose=True)
     _build.load_library()
+    t1 = time.time()
+    native_path = native.build()
+    native.load_library()
+    native_s = time.time() - t1
     phase("build", t0, f"nvcc {' '.join(_build.NVCC_FLAGS)} -> "
-          f"{os.path.relpath(lib_path, ROOT)}")
+          f"{os.path.relpath(lib_path, ROOT)}; "
+          f"{' '.join(native.build_command(native_path))} (relative: "
+          f"{os.path.relpath(native_path, ROOT)}) in {native_s:.2f} s")
 
     # ---- kernels vs plain at the inference path's shapes --------------
     t0 = time.time()
@@ -2156,7 +2851,7 @@ def main() -> int:
         rc = cli_test.main([
             "--weights_json", GECKO, "--image_size", str(IMAGE),
             "--steps", str(STEPS), "--firerate", "0.5", "--seed", str(SEED),
-            "--output_dir", out_dir, "--device", "cuda",
+            "--output_dir", out_dir, "--device", "cuda", "--engine", "cells",
         ])
         torch.cuda.synchronize()
         infer_launches = read_launches()
@@ -2322,7 +3017,7 @@ def main() -> int:
         (weights,) = glob.glob(os.path.join(out_dir, "sphnca-*.json"))
         rc = cli_test.main(["--weights_json", weights, "--image_size",
                             str(IMAGE), "--steps", "8", "--device", "cuda",
-                            "--output_dir", out_dir])
+                            "--output_dir", out_dir, "--engine", "cells"])
         if rc != 0:
             fail(f"the trained weights did not run in the test CLI ({rc})")
         (run,) = glob.glob(os.path.join(out_dir, "sphnca-test-*"))
@@ -2727,7 +3422,17 @@ def main() -> int:
     sb_launches = surface_batched_phases(dev, smi, *scene)
     del scene
     cli_launches, cli_errs = surface_cli_phase(dev, smi)
-    bench = surface_bench_phase(dev, rng, smi)
+    bench, cell_pps = surface_bench_phase(dev, rng, smi)
+
+    # ---- the band engine: both CLIs' default, the trainer, the bench ------
+    bengines = band_build_phase(dev, smi)
+    band_mlp_errs = band_mlp_phase(dev, smi, bengines)
+    band = {"band-train": band_train_phase(dev, smi, bengines["train"], x2),
+            "band-inference": band_inference_phase(dev, smi, model, x),
+            "band-bench": band_bench_phase(dev, rng, smi, bengines["bench"],
+                                           cell_pps),
+            "band-surface-cli": band_surface_cli_phase(dev, smi)}
+    del bengines
 
     kernels = rows + rows_tab + [mlp_row]
     # the batched surface paths: launches of the batched rollout and of each
@@ -2746,6 +3451,14 @@ def main() -> int:
                 "launches_path": "surface-cli",
                 "max_abs_err": cli_errs[name]}
             row["bench"] = bench[name]
+        if name == "sph_mlp_kernel":
+            # the band paths run no pair-table kernel: 2.8 is their kernel
+            row["band"] = {"launches": band,
+                           "launches_path": ", ".join(band),
+                           "max_abs_err": {
+                               f"{label} {str(dtype)[6:]}": err
+                               for (label, dtype), err
+                               in band_mlp_errs.items()}}
     if len(kernels) != 8:
         fail(f"the kernels line has {len(kernels)} rows, expected 8")
     print(json.dumps({"kernels": kernels}), flush=True)

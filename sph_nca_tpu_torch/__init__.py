@@ -4,12 +4,15 @@ The counterpart of ``sph_nca_tpu`` (JAX/Pallas), written for an NVIDIA
 Hopper GPU. The layout mirrors the JAX package so each counterpart is easy
 to find:
 
-  ops/       SPH kernel functions, the cell engine, the pair-pass kernels
+  ops/       SPH kernel functions, the cell and band engines, the pair-pass
+             kernels
   csrc/      the hand-written sm_90a CUDA kernels (built with plain nvcc)
-  models/    the NCA model and the cell-engine step / rollouts
+  native/    the band engine's host build (sphgrid.cpp, built with g++)
+  models/    the NCA model, the step and the rollouts, the surface mode
+  training/  the trainer, pools and losses
   io/        JSON weight loading, and carrying JAX weights across
-  utils/     grids and seeds
-  cli/       the inference command line
+  utils/     grids, meshes and seeds
+  cli/       the training and inference command lines
 
 Every kernel has a plain PyTorch version beside it. A wrapper uses the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the kernel

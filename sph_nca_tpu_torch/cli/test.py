@@ -1,15 +1,19 @@
-"""Inference CLI of the port: image-mode and 3D-surface rollouts on the cell
-engine.
+"""Inference CLI of the port: image-mode and 3D-surface rollouts on the band or
+cell engine.
 
-Counterpart of ``sph_nca_tpu/cli/test.py`` for ``--engine cells``. Image mode:
+Counterpart of ``sph_nca_tpu/cli/test.py`` for ``--engine band`` (the
+default) and ``--engine cells``. Image mode:
 
     python -m sph_nca_tpu_torch.cli.test \
         --weights_json sph_nca_tpu/demo/web/weights/gecko.json \
         --image_size 128 --steps 128 --output_dir /tmp/sphnca
 
 writes ``<output_dir>/sphnca-test-<time>/states.npz`` (grid positions ``x``
-[N, 2] and the trajectory ``states`` [steps+1, N, F] in particle order). 3D
-surface mode:
+[N, 2] and the trajectory ``states`` [steps+1, N, F] in particle order). On
+the band engine it builds bfloat16 tables and runs the batched rollout
+(``models.cell_step.rollout_cells_batched``) at B = 1 with every state kept,
+as the JAX CLI does; on the cell engine the recompute kernels
+(``rollout_states_cells``). 3D surface mode:
 
     python -m sph_nca_tpu_torch.cli.test \
         --weights_json sph_nca_tpu/demo/web/weights/stripes.json \
@@ -19,9 +23,9 @@ surface mode:
 samples the mesh (normalized, 8x oversampled, farthest-point sampled on the
 device), seeds it (``--initial_feature radial``: ``--surface_numseed`` radial
 seeds; ``random``: a pre-diffused tangent field at radius 0.2 and uniform
-features), runs ``models.surface.rollout_mesh_batched_dual`` at B = 1 on a
-cell engine with bfloat16 pair tables at the model's h (the diffusion on a
-second engine at ``DIFFUSE_H`` = 0.1 when h differs), and writes
+features), runs ``models.surface.rollout_mesh_batched_dual`` at B = 1 on an
+engine with bfloat16 tables at the model's h (the diffusion on a second
+engine at ``DIFFUSE_H`` = 0.1 when h differs), and writes
 ``states.npz`` (``x`` [N, 3], ``states``) and one binary PLY point cloud per
 ``--export_every``-th step. Give an output directory outside the source tree:
 a 128x128, 128-step trajectory is ~135 MB.
@@ -32,11 +36,14 @@ drawn from a ``torch.Generator``: the JAX CLI's law, another stream); image
 models derive the opposite. ``--h`` overrides the model's h whenever it is
 given (the JAX CLI ignores an explicit ``--h 0.08``, its parser default).
 
-Runs poly6 models only: the cell engine's pair kernels hard-wire the poly6 /
-spiky pair math, and the Wendland models of the JAX package run on its band
-engine, which is not ported yet.
+The band engine (``ops/bands.py``) runs every smoothing kernel; the random
+seed pre-diffuses its tangents on a float32 band engine at radius 0.2, as the
+JAX CLI does. ``--engine cells`` runs poly6 models only (the cell engine's
+pair kernels hard-wire the poly6 / spiky pair math), with cell engines in
+the surface mode too, where the JAX CLI maps both engine names to band
+engines.
 
-Not ported yet: the band and graph engines, JAX checkpoints, PNG export.
+Not ported yet: the graph engine, JAX checkpoints, PNG export.
 """
 
 from __future__ import annotations
@@ -92,7 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--use_3d", type=str2bool, default=True)
     p.add_argument("--engine", choices=["band", "cells", "graph"],
-                   default="cells")
+                   default="band")
     p.add_argument("--device", type=str, default="cuda")
     return p
 
@@ -146,10 +153,33 @@ def surface_points(path: str, scale: float, numpoints: int,
     return pts[sel], nrm[sel], time.time() - t0
 
 
+def _describe(eng) -> str:
+    """One line of an engine's shape and table bytes."""
+    from ..ops.bands import BandEngine
+
+    if isinstance(eng, BandEngine):
+        band_b, far_b = eng.table_bytes()
+        widths = ", ".join(str(g.shape[1]) for g in eng.far_groups)
+        far = (f"{len(eng.far_tabs)} far buckets of {widths} groups"
+               if widths else "no far buckets")
+        return (f"blocks={eng.num_cells} P={eng.slots_per_cell}, {far}, "
+                f"{str(eng.Tband.dtype).split('.')[-1]} band + far tables "
+                f"{band_b / 1e6:.1f} + {far_b / 1e6:.1f} MB")
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (eng.blk_md, eng.blk_w6, eng.blk2_md, eng.blk2_w6)
+                 if t is not None)
+    return (f"C={eng.num_cells}, blocks x W {eng.blk_xs.shape[0]} x "
+            f"{eng.blk_xw.shape[2]} + {eng.blk2_xs.shape[0]} x "
+            f"{eng.blk2_xw.shape[2]}, {str(eng.blk_w6.dtype).split('.')[-1]} "
+            f"{'w6 table' if eng.blk_md is None else 'tables'} "
+            f"{nbytes / 1e6:.1f} MB")
+
+
 def run_surface(args, cfg, params, h, device, gen) -> str:
     """The 3D surface mode; returns the run's output directory."""
     from ..models.nca import to_rgba
     from ..models.surface import DIFFUSE_H, rollout_mesh_batched_dual
+    from ..ops.bands import build_band_engine
     from ..ops.cells import build_cell_engine
     from ..utils.meshes import save_ply
     from ..utils.seeds import surface_radial_seed, surface_random_seed
@@ -165,27 +195,27 @@ def run_surface(args, cfg, params, h, device, gen) -> str:
     print(f"surface: {x.shape[0]} points by farthest-point sampling in "
           f"{fps_s:.2f}s", flush=True)
 
-    def engine(radius, tables, w6_only):
+    def engine(radius, tables, w6_only, smoothing=cfg.smoothing):
         t1 = time.time()
-        eng = build_cell_engine(x_np, radius, pair_tables=tables,
-                                w6_only=w6_only, device=device)
-        nbytes = sum(t.numel() * t.element_size() for t in
-                     (eng.blk_md, eng.blk_w6, eng.blk2_md, eng.blk2_w6)
-                     if t is not None)
-        print(f"  engine h={radius}: C={eng.num_cells}, blocks x W "
-              f"{eng.blk_xs.shape[0]} x {eng.blk_xw.shape[2]} + "
-              f"{eng.blk2_xs.shape[0]} x {eng.blk2_xw.shape[2]}, {tables} "
-              f"{'w6 table' if w6_only else 'tables'} {nbytes / 1e6:.1f} "
-              f"MB, built in {time.time() - t1:.2f}s", flush=True)
+        if args.engine == "band":
+            eng = build_band_engine(x_np, radius, table_dtype=tables,
+                                    smoothing=smoothing, device=device)
+        else:
+            eng = build_cell_engine(x_np, radius, pair_tables=tables,
+                                    w6_only=w6_only, device=device)
+        print(f"  engine h={radius}: {_describe(eng)}, built in "
+              f"{time.time() - t1:.2f}s", flush=True)
         return eng
 
     # the JAX CLI's engines: bfloat16 tables at the model's h and at
-    # DIFFUSE_H, float32 at the seeding radius; the blur engines read only w6
+    # DIFFUSE_H, float32 at the seeding radius (a poly6 band engine, as the
+    # JAX CLI's; cell engines there read only w6)
     eng = engine(h, "bfloat16", False)
     if args.initial_feature == "random":
         A0, t0 = surface_random_seed(
             x, nrm, cfg.channels, rng, gen,
-            engine(SEED_RADIUS_RANDOM, "float32", True), PREDIFFUSE_PASSES)
+            engine(SEED_RADIUS_RANDOM, "float32", True, "poly6"),
+            PREDIFFUSE_PASSES)
     else:
         A0, t0 = surface_radial_seed(x, nrm, cfg.channels,
                                      args.surface_numseed, seed_radius, gen)
@@ -220,16 +250,18 @@ def _out_dir(args) -> str:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.engine != "cells":
-        raise SystemExit(f"--engine {args.engine} is not ported yet; "
-                         "use --engine cells")
+    if args.engine == "graph":
+        raise SystemExit("--engine graph is not ported yet; use --engine "
+                         "band or cells")
     if args.export_every <= 0:
         raise SystemExit("--export_every must be positive")
     if not args.surface and args.image_size <= 0:
         raise SystemExit("need --image_size or --surface")
 
     from .. import resolve_device
-    from ..models.cell_step import rollout_states_cells
+    from ..models.cell_step import rollout_cells_batched, rollout_states_cells
+    from ..ops.bands import build_band_engine
+    from ..ops.batched import batched_scatter
     from ..ops.cells import build_cell_engine
     from ..utils.geometry import grange
     from ..utils.seeds import plane_seed
@@ -238,9 +270,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, params, h = load_model(args, device)
-    if cfg.smoothing != "poly6":
+    if args.engine == "cells" and cfg.smoothing != "poly6":
         raise SystemExit(f"--engine cells: the cell engine runs poly6 "
-                         f"models only, not {cfg.smoothing!r}")
+                         f"models only, not {cfg.smoothing!r}; use --engine "
+                         "band")
     print(f"model: {cfg}, h={h}", flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -266,13 +299,29 @@ def main(argv=None) -> int:
                     generator=gen).to(device)
 
     t0 = time.time()
-    eng = build_cell_engine(x, h, period=period, device=device)
+    if args.engine == "band":
+        eng = build_band_engine(x, h, period=period, table_dtype="bfloat16",
+                                smoothing=cfg.smoothing, device=device)
+    else:
+        eng = build_cell_engine(x, h, period=period, device=device)
+    desc = (_describe(eng) if args.engine == "band"
+            else f"C={eng.num_cells}")
     print(f"image rollout: n={x.shape[0]}, {args.steps} steps, "
-          f"engine C={eng.num_cells} built in {time.time() - t0:.2f}s",
+          f"{args.engine} engine {desc} built in {time.time() - t0:.2f}s",
           flush=True)
     t0 = time.time()
-    states = rollout_states_cells(params, cfg, eng, A0, gen, args.steps, h,
-                                  fire_rate=args.firerate)
+    if args.engine == "band":
+        # the JAX CLI's band path: the batched rollout at B = 1, every state
+        # kept
+        with torch.no_grad():
+            _, coll = rollout_cells_batched(
+                params, cfg, eng, batched_scatter(eng, A0[None]), 1, gen,
+                args.steps, h, fire_rate=args.firerate,
+                collect_steps=range(args.steps + 1))
+            states = eng.gather_back(coll)
+    else:
+        states = rollout_states_cells(params, cfg, eng, A0, gen, args.steps,
+                                      h, fire_rate=args.firerate)
     states = states.cpu().numpy()
     print(f"rollout {time.time() - t0:.2f}s", flush=True)
 

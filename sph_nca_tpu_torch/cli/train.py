@@ -1,7 +1,8 @@
-"""Training CLI of the port: plane-mode MSE training on the cell engine.
+"""Training CLI of the port: plane-mode MSE training on the band or cell
+engine.
 
-Counterpart of ``sph_nca_tpu/cli/train.py`` for ``--loss mse_simple
---engine cells`` in plane mode, with the same flags and defaults:
+Counterpart of ``sph_nca_tpu/cli/train.py`` for ``--loss mse_simple`` in
+plane mode, with the same flags and defaults:
 
     python -m sph_nca_tpu_torch.cli.train --training_iter 2000 \
         --output_dir /tmp/sphnca-train
@@ -16,13 +17,16 @@ logs the loss every ``--log_every`` iterations and writes to ``--output_dir``:
   sphnca-<time>-<iters>.json  the trained weights, for ``cli.test``
 
 It runs ``--training_iter`` iterations (the JAX CLI runs one more, to
-checkpoint at the last). As the JAX CLI, it builds the cell engine with
-float32 pair tables, so the trainer takes the batched-lane rollout (the
-table kernels and the fused update-MLP kernel), and keeps the pool on the
-device (``DevicePool``) when it is under 4 GB (``--device_pool auto``; 1.07 GB
-at the defaults). Not ported yet: the OT and CLIP losses, the band and graph
-engines, surface mode, emoji targets, the random initial feature,
-checkpoints and resume.
+checkpoint at the last). As the JAX CLI, it builds the band engine with
+float32 tables by default (``--engine band``: curve-banded pair tables on the
+host, ``ops/bands.py``, any ``--smoothing_kernel``), or with ``--engine
+cells`` the cell engine with float32 pair tables (poly6 only); either way the
+trainer takes the batched-lane rollout (the band products or the table
+kernels, and the fused update-MLP kernel), and keeps the pool on the device
+(``DevicePool``) when it is under 4 GB (``--device_pool auto``; 1.07 GB at
+the defaults). Not ported yet: the OT and CLIP losses, the graph engine,
+surface mode, emoji targets, the random initial feature, checkpoints and
+resume.
 """
 
 from __future__ import annotations
@@ -74,7 +78,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden", type=int, default=256)
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--engine", choices=["band", "cells", "graph"],
-                   default="cells")
+                   default="band",
+                   help="band (curve-banded pair tables) or cells "
+                        "(cell-dense, pair-table kernels)")
+    p.add_argument("--smoothing_kernel",
+                   choices=["poly6", "wendlandC2", "wendlandC4"],
+                   default="poly6",
+                   help="SPH smoothing kernel; the band engine takes all "
+                        "three, cells poly6 only")
     p.add_argument("--device_pool", choices=["auto", "on", "off"],
                    default="auto",
                    help="keep the pool on the device (auto: when under 4 GB)")
@@ -87,9 +98,13 @@ def main(argv=None) -> int:
     if args.loss != "mse_simple":
         raise SystemExit(f"--loss {args.loss} is not ported yet; use "
                          "--loss mse_simple")
-    if args.engine != "cells":
-        raise SystemExit(f"--engine {args.engine} is not ported yet; use "
-                         "--engine cells")
+    if args.engine == "graph":
+        raise SystemExit("--engine graph is not ported yet; use --engine "
+                         "band or cells")
+    if args.engine == "cells" and args.smoothing_kernel != "poly6":
+        raise SystemExit(
+            "--engine cells is poly6-only (the pair kernels hard-wire the "
+            f"core); use --engine band for {args.smoothing_kernel}")
     if args.target:
         raise SystemExit("emoji targets (--target) are not ported yet; use "
                          "--img <file>")
@@ -99,6 +114,7 @@ def main(argv=None) -> int:
     from .. import resolve_device
     from ..io.weights_json import save_weights_json
     from ..models.nca import SPHNCAConfig, num_params
+    from ..ops.bands import build_band_engine
     from ..ops.cells import build_cell_engine
     from ..training.losses import MSELossConfig
     from ..training.pool import DevicePool, Pool
@@ -140,17 +156,28 @@ def main(argv=None) -> int:
         x = x2
         period = list(gsize) if args.wrap else None
     t0 = time.time()
-    # float32 pair tables send the trainer to the batched-lane rollout, as
-    # the JAX CLI does
-    eng = build_cell_engine(x, h, period=period, pair_tables="float32",
-                            device=device)
-    table_mb = sum(t.numel() * t.element_size() for t in (
-        eng.blk_md, eng.blk_w6, eng.blk2_md, eng.blk2_w6)) / 1e6
-    print(f"cell engine: n={x.shape[0]} C={eng.num_cells} "
-          f"M={eng.slots_per_cell} buckets {eng.blk_xs.shape[0]} + "
-          f"{eng.blk2_xs.shape[0]} blocks, float32 pair tables "
-          f"{table_mb:.1f} MB ({time.time() - t0:.2f}s"
-          f"{', periodic' if args.wrap else ''})", flush=True)
+    # float32 tables send the trainer to the batched-lane rollout, as the
+    # JAX CLI does on either engine
+    if args.engine == "band":
+        eng = build_band_engine(x, h, period=period,
+                                smoothing=args.smoothing_kernel,
+                                table_dtype="float32", device=device)
+        band_b, far_b = eng.table_bytes()
+        print(f"band engine: n={x.shape[0]} blocks={eng.num_cells} "
+              f"P={eng.slots_per_cell} far buckets {len(eng.far_tabs)}, "
+              f"float32 tables {band_b / 1e6:.1f} + {far_b / 1e6:.1f} MB "
+              f"({time.time() - t0:.2f}s"
+              f"{', periodic' if args.wrap else ''})", flush=True)
+    else:
+        eng = build_cell_engine(x, h, period=period, pair_tables="float32",
+                                device=device)
+        table_mb = sum(t.numel() * t.element_size() for t in (
+            eng.blk_md, eng.blk_w6, eng.blk2_md, eng.blk2_w6)) / 1e6
+        print(f"cell engine: n={x.shape[0]} C={eng.num_cells} "
+              f"M={eng.slots_per_cell} buckets {eng.blk_xs.shape[0]} + "
+              f"{eng.blk2_xs.shape[0]} blocks, float32 pair tables "
+              f"{table_mb:.1f} MB ({time.time() - t0:.2f}s"
+              f"{', periodic' if args.wrap else ''})", flush=True)
 
     model_cfg = SPHNCAConfig(
         channels=args.channels,
@@ -159,6 +186,7 @@ def main(argv=None) -> int:
         update_rule=args.nca_update,
         use_alpha=args.use_alpha,
         normalize_perception=norm_perception,
+        smoothing=args.smoothing_kernel,
     )
     loss_cfg = MSELossConfig(
         gmin=gmin, gsize=gsize, image_scale=args.target_size / m,

@@ -1,4 +1,4 @@
-"""NCA step and rollouts over the cell-dense engine (single device).
+"""NCA step and rollouts over the cell-dense and band engines (single device).
 
 Counterpart of ``sph_nca_tpu/models/cell_step.py`` (``use_pallas=True``, no
 mesh, one shard). Perception and both life masks go through the pair-pass
@@ -15,9 +15,13 @@ one geometry, each kernel launching once per bucket for the whole batch (the
 JAX trainer vmaps the per-sample rollout instead).
 
 The batched-lane path (``nca_step_cells_batched``, ``_update_core``,
-``rollout_cells_batched``; engines with pair tables) keeps the JAX package's
-lane layout [C, M, B*F] at its boundary and steps in [B, C, M, F] inside
-(``ops/batched.py``). Its update MLP is the fused kernel of
+``rollout_cells_batched``; cell engines with pair tables, or band engines)
+keeps the JAX package's lane layout [C, M, B*F] at its boundary and steps in
+[B, C, M, F] inside (``ops/batched.py``). Its perception and both life masks
+go through the engine seam of ``ops/batched.py``: on a cell engine the table
+kernels, on a band engine (``ops/bands.py``, C = blocks, M = rows) its
+library products, with the perception rounded to the MLP's dtype as the JAX
+package's band step rounds it. Its update MLP is the fused kernel of
 ``ops/mlp_kernel.py`` on per-sample weights with the perception scale folded
 into W1's gA rows (the JAX package's ``_update_core_pallas``). The JAX
 package's other two implementations of the same function, ``blockdiag`` and
@@ -265,25 +269,29 @@ def _update_core(params: MLPParams, cfg: SPHNCAConfig, SB2: torch.Tensor,
                            use_kernels).reshape(rows, b * f)
 
 
-def _step_samples(cfg: SPHNCAConfig, eng: CellEngine, weights,
+def _step_samples(cfg: SPHNCAConfig, eng, weights,
                   S: torch.Tensor, u: torch.Tensor, fire_rate: float,
                   use_kernels: bool,
                   perception_transform=None) -> torch.Tensor:
     """One batched step on S [B, C, M, F] given the MLP's weights
     (``_mlp_weights``) and the fire draws u [B, C, M]: perception (table
-    kernels 2.4 / 2.5), pre-mask, the update, the post-update mask
-    (detached). ``perception_transform`` maps the unscaled per-sample
-    d-major gradient ga [B, C, M, D*F] to features [B, C, M, >= 2F] whose
-    first 2F lanes feed the MLP (the surface rollout's tangent projection
-    returns just those two blocks)."""
-    ga, pre_sm = perceive_cells_dmajor(eng, S, cfg.use_alpha,
-                                       use_kernels=use_kernels)
+    kernels 2.4 / 2.5 on a cell engine, the band products on a band engine),
+    pre-mask, the update, the post-update mask (detached), each pass through
+    the engine seam of ``ops/batched.py``. ``perception_transform`` maps the
+    unscaled per-sample d-major gradient ga [B, C, M, D*F] to features
+    [B, C, M, >= 2F] whose first 2F lanes feed the MLP (the surface
+    rollout's tangent projection returns just those two blocks)."""
+    ydt = weights[0].dtype
+    ga, pre_sm = BT.perceive_samples(
+        eng, S, cfg.use_alpha,
+        out_dtype=None if ydt == torch.float32 else ydt,
+        use_kernels=use_kernels)
     if perception_transform is not None:
         ga = perception_transform(ga)
     prev_mask = pre_sm > ALIVE_THRESHOLD
     nS = _update_samples(cfg, weights, S, ga, u, fire_rate, use_kernels)
-    new_sm = mask_blur(eng, nS.detach(), use_alpha=cfg.use_alpha,
-                       use_kernels=use_kernels)
+    new_sm = BT.mask_blur_samples(eng, nS.detach(), cfg.use_alpha,
+                                  use_kernels=use_kernels)
     living = (prev_mask & (new_sm > ALIVE_THRESHOLD)).to(nS.dtype)
     return nS * living[..., None]
 
@@ -291,7 +299,7 @@ def _step_samples(cfg: SPHNCAConfig, eng: CellEngine, weights,
 def nca_step_cells_batched(
     params: MLPParams,
     cfg: SPHNCAConfig,
-    eng: CellEngine,
+    eng,
     SB: torch.Tensor,
     b: int,
     generator: torch.Generator,
@@ -310,8 +318,8 @@ def nca_step_cells_batched(
     weights (float32 sums). ``perception_transform`` maps the unscaled
     gradient lanes gaB [C, M, D*B*F] to d-major lane blocks [C, M, K*B*F],
     K >= 2 (it costs two layout copies a step; the batched rollouts hand
-    ``_step_samples`` a transform in the sample layout instead). Needs an
-    engine with pair tables, as the JAX package's.
+    ``_step_samples`` a transform in the sample layout instead). Needs a
+    band engine or a cell engine with pair tables, as the JAX package's.
     """
     BT.require_tables(eng)
     if fire_rate is None:
@@ -333,7 +341,7 @@ def nca_step_cells_batched(
 def rollout_cells_batched(
     params: MLPParams,
     cfg: SPHNCAConfig,
-    eng: CellEngine,
+    eng,
     SB0: torch.Tensor,
     b: int,
     generator: torch.Generator,

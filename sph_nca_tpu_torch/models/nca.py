@@ -12,7 +12,7 @@ Counterpart of ``sph_nca_tpu/models/nca.py``. One NCA step:
     nA         = where(U(0,1) <= fire_rate, nA, A)   # stochastic update
     new_mask   = blur(activity(nA) > 0.1) > 0.1
     nA        *= prev_mask & new_mask
-The cell-engine form of the step is ``models/cell_step.py``.
+The cell- and band-engine forms of the step are ``models/cell_step.py``.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ class SPHNCAConfig:
     use_alpha: bool = True
     # k in gA <- h * gA * k; <= 0 disables
     normalize_perception: float = -1.0
-    # SPH smoothing kernel name; the cell engine implements poly6 only
+    # SPH smoothing kernel name: the band engine takes poly6, wendlandC2 and
+    # wendlandC4; the cell engine implements poly6 only
     smoothing: str = "poly6"
 
     @property

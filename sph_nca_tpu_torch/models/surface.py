@@ -1,19 +1,24 @@
-"""3D-surface rollouts on the cell engine: tangent frames, tangent diffusion
-and tangent-space perception, for one rollout and for B rollouts at once.
+"""3D-surface rollouts on the cell and band engines: tangent frames, tangent
+diffusion and tangent-space perception, for one rollout and for B rollouts
+at once.
 
-Counterpart of the cell-engine part of ``sph_nca_tpu/models/surface.py``
-(``normalize``, ``orthogonalize``, ``project_tangent_space_cells``,
-``diffuse_cells`` and ``rollout_mesh_cells``; reference nca.py:302-381), and
-of its batched rollouts ``rollout_mesh_batched`` (:473) and
-``rollout_mesh_batched_dual`` (:602) with their pieces
+Counterpart of the cell- and band-engine parts of
+``sph_nca_tpu/models/surface.py`` (``normalize``, ``orthogonalize``,
+``project_tangent_space_cells``, ``diffuse_cells``, ``diffuse_band`` and
+``rollout_mesh_cells``; reference nca.py:302-381), and of its batched
+rollouts ``rollout_mesh_batched`` (:473) and ``rollout_mesh_batched_dual``
+(:602), on either engine, with their pieces
 (``normal_components``, ``_diffuse_td`` / ``_diffuse_weights`` /
 ``_diffuse_mt`` / ``_diffuse_combine``, ``_project_td`` and
 ``_finish_mesh_batched``). The JAX package's lane-layout wrappers
 ``diffuse_batched`` (:305) and ``project_tangent_space_lanes`` (:265) have
 no counterpart of their own: the port steps only in the sample layout, where
 ``_diffuse_td`` and ``_project_td`` compute the same functions.
-Every pair pass runs through the table kernels of ``ops/pair_kernel.py``, so
-the engine must be built with ``pair_tables``. ``rollout_mesh_cells`` and
+On a cell engine every pair pass runs through the table kernels of
+``ops/pair_kernel.py``, so the engine must be built with ``pair_tables``; on
+a band engine (``ops/bands.py``) through its library products, reached by
+the batched rollouts through the engine seam of ``ops/batched.py``.
+``rollout_mesh_cells`` and
 ``rollout_mesh_batched`` diffuse at the engine's h (the reference diffuses at
 ``DIFFUSE_H`` = 0.1, every shipped model's h; like the JAX package, the port
 does not enforce it); ``rollout_mesh_batched_dual`` diffuses on a second
@@ -23,16 +28,19 @@ The batched rollouts step in the port's sample layout: the state
 [B, C, M, F], tangents as three [B, C, M] components, normals as three
 loop-invariant [C, M] components. The JAX package fuses step t's diffusion
 into step t+1's perception pass (a TPU schedule; its docstring calls it the
-same function); the port diffuses at the end of each step, as the JAX dual
-rollout does, so one body serves both functions. Not ported: ``unroll`` (a
-``lax.scan`` knob) and the fused ``extra`` blur lanes (a cell engine has
-none in the JAX package either, ``ops/batched.py:261-263``).
+same function; on a band engine the blur rides the perception's smoothing
+product as ``extra`` lanes); the port diffuses at the end of each step, as
+the JAX dual rollout does, so one body serves both functions and both
+engines. Not ported: ``unroll`` (a ``lax.scan`` knob); the fused schedule's
+``extra`` lanes exist in ``ops/bands.perceive_band_batched`` but the
+rollouts do not use them.
 
 Numerics with ``mlp_dtype="bfloat16"``: the JAX package rounds the
 perception and the normals to bfloat16 before the projection and the
-re-orthogonalization; the port keeps both in float32 and rounds only the
-MLP's inputs (a documented deviation, as for the table kernels' right-hand
-sides).
+re-orthogonalization; the port rounds the perception on a band engine
+(as the JAX band step does), keeps it in float32 on a cell engine, keeps the
+normals in float32, and projects in float32 (a documented deviation, as for
+the table kernels' right-hand sides).
 
 The fire-rate mask is drawn per slot (and sample) from a ``torch.Generator``:
 the law of the JAX package, another stream, so trajectories match the JAX
@@ -48,6 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import batched as BT
+from ..ops.bands import blur_band
 from ..ops.cells import CellEngine
 from ..ops.pair_kernel import blur_cells
 from .cell_step import (
@@ -96,6 +105,23 @@ def diffuse_cells(eng: CellEngine, n: torch.Tensor, t: torch.Tensor,
     m = (1.0 - w_multiplier) + w * w_multiplier
     mt = torch.cat([m, m * t], dim=-1)  # [..., C, M, 4]
     mt2 = blur_cells(eng, mt, use_kernels=use_kernels)
+    t2 = mt2[..., 1:] / (1e-8 + mt2[..., :1])
+    t2 = t2 + (t - t2) * (w * lerp_multiplier)
+    return orthogonalize(n, t2)
+
+
+def diffuse_band(eng, n: torch.Tensor, t: torch.Tensor, A: torch.Tensor, *,
+                 lerp_multiplier: float = 1.0,
+                 w_multiplier: float = 1.0) -> torch.Tensor:
+    """The tangent diffusion (reference nca.py:312-323) in particle order
+    with the blur on a band engine built at the diffusion radius (the JAX
+    package's ``diffuse_band``): n, t [N, 3], A [N, >= 4] -> the new
+    tangents [N, 3]. The weights are the alpha lane, as in
+    ``diffuse_cells``."""
+    w = torch.clamp(A[..., 3:4], 0.0, 1.0)
+    m = (1.0 - w_multiplier) + w * w_multiplier
+    mt = torch.cat([m, m * t], dim=-1)  # [N, 4]
+    mt2 = eng.gather_back(blur_band(eng, eng.scatter(mt)))
     t2 = mt2[..., 1:] / (1e-8 + mt2[..., :1])
     t2 = t2 + (t - t2) * (w * lerp_multiplier)
     return orthogonalize(n, t2)
@@ -193,7 +219,7 @@ def _diffuse_combine(mt2: torch.Tensor, w: torch.Tensor, td, nd,
     return tuple(t / (1e-8 + norm) for t in t2d)
 
 
-def _slot_maps(eng: CellEngine, eng_d: CellEngine):
+def _slot_maps(eng, eng_d):
     """The static index pair between two engines' layouts of the same
     particles: ``to_d`` [C_d * M_d] gives each slot of ``eng_d`` the slot of
     ``eng`` that holds its particle, ``from_d`` [C * M] the reverse; a pad
@@ -212,7 +238,7 @@ def _slot_maps(eng: CellEngine, eng_d: CellEngine):
     return to_d, from_d
 
 
-def _permute(X: torch.Tensor, idx: torch.Tensor, eng_to: CellEngine):
+def _permute(X: torch.Tensor, idx: torch.Tensor, eng_to):
     """X [B, C, M, K] in one engine's layout -> [B, C', M', K] in
     ``eng_to``'s through an index of ``_slot_maps`` (pad slots get 0)."""
     b, c, m, k = X.shape
@@ -220,24 +246,25 @@ def _permute(X: torch.Tensor, idx: torch.Tensor, eng_to: CellEngine):
     return flat[:, idx].reshape(b, eng_to.num_cells, eng_to.slots_per_cell, k)
 
 
-def _diffuse_td(eng: CellEngine, nd, td, S: torch.Tensor, *,
+def _diffuse_td(eng, nd, td, S: torch.Tensor, *,
                 lerp_multiplier: float = 1.0, w_multiplier: float = 1.0,
                 use_kernels: bool = True,
                 dual=None) -> Tuple[torch.Tensor, ...]:
     """Batched tangent diffusion in the sample layout (the JAX package's
     ``_diffuse_td``, and its ``diffuse_batched`` without the lane layout):
     normals nd (three [C, M]), tangents td (three [B, C, M]), states S
-    [B, C, M, F] -> the new tangents (three [B, C, M]). The blur is the table blur (2.7, K = 4) at
-    ``eng``'s h or, with ``dual`` = (eng_d, to_d, from_d), on eng_d through
-    ``_slot_maps``' index pair."""
+    [B, C, M, F] -> the new tangents (three [B, C, M]). The blur (the table
+    blur 2.7, K = 4, on a cell engine; the band blur on a band engine) runs
+    at ``eng``'s h or, with ``dual`` = (eng_d, to_d, from_d), on eng_d
+    through ``_slot_maps``' index pair."""
     w = _diffuse_weights(S)
     mt = _diffuse_mt(w, td, w_multiplier)
     if dual is None:
-        mt2 = blur_cells(eng, mt, use_kernels=use_kernels)
+        mt2 = BT.blur_samples(eng, mt, use_kernels=use_kernels)
     else:
         eng_d, to_d, from_d = dual
-        mt2 = _permute(blur_cells(eng_d, _permute(mt, to_d, eng_d),
-                                  use_kernels=use_kernels), from_d, eng)
+        mt2 = _permute(BT.blur_samples(eng_d, _permute(mt, to_d, eng_d),
+                                       use_kernels=use_kernels), from_d, eng)
     return _diffuse_combine(mt2, w, td, nd, lerp_multiplier)
 
 
@@ -259,14 +286,14 @@ def _project_td(ga: torch.Tensor, nd, td,
                       + g[2] * e[2][..., None] for e in bases], dim=-1)
 
 
-def _finish_mesh_batched(eng: CellEngine, S: torch.Tensor, td):
+def _finish_mesh_batched(eng, S: torch.Tensor, td):
     """The rollouts' tail: the state [B, C, M, F] and tangents (three
     [B, C, M]) back to particle order, ([B, N, F], [B, N, 3])."""
     return eng.gather_back(S), eng.gather_back(torch.stack(td, dim=-1))
 
 
 def _rollout_mesh_samples(params: MLPParams, cfg: SPHNCAConfig,
-                          eng: CellEngine, eng_d: CellEngine,
+                          eng, eng_d,
                           A0: torch.Tensor, n: torch.Tensor, t0: torch.Tensor,
                           generator: torch.Generator, n_steps: int, h: float,
                           *, fire_rate, lerp_multiplier, w_multiplier,
@@ -275,7 +302,7 @@ def _rollout_mesh_samples(params: MLPParams, cfg: SPHNCAConfig,
     diffusion blur on ``eng_d`` (``eng`` itself, or another engine of the
     same particles reached through one static index pair)."""
     BT.require_tables(eng)
-    if eng_d.blk_w6 is None:
+    if not BT.has_w6(eng_d):
         raise ValueError("the diffusion engine needs pair_tables (the "
                          "diffusion blurs over its poly6 table)")
     if fire_rate is None:
@@ -317,7 +344,7 @@ def _rollout_mesh_samples(params: MLPParams, cfg: SPHNCAConfig,
 def rollout_mesh_batched(
     params: MLPParams,
     cfg: SPHNCAConfig,
-    eng: CellEngine,
+    eng,
     A0: torch.Tensor,
     n: torch.Tensor,
     t0: torch.Tensor,
@@ -333,11 +360,11 @@ def rollout_mesh_batched(
     collect_all: bool = False,
     use_kernels: bool = True,
 ):
-    """B surface rollouts on one engine (the JAX package's
-    ``rollout_mesh_batched``): per step, tangent-projected perception, the
-    update (the fused MLP kernel, ``mlp_dtype="bfloat16"`` on bfloat16
-    inputs), the life masks, then a detached per-sample tangent diffusion
-    at the engine's h.
+    """B surface rollouts on one engine, a cell engine with pair tables or a
+    band engine (the JAX package's ``rollout_mesh_batched``): per step,
+    tangent-projected perception, the update (the fused MLP kernel,
+    ``mlp_dtype="bfloat16"`` on bfloat16 inputs), the life masks, then a
+    detached per-sample tangent diffusion at the engine's h.
 
     A0 [B, N, F], shared normals n [N, 3], tangents t0 [B, N, 3], in
     particle order -> (final_A [B, N, F], final_T [B, N, 3]), and states
@@ -356,8 +383,8 @@ def rollout_mesh_batched(
 def rollout_mesh_batched_dual(
     params: MLPParams,
     cfg: SPHNCAConfig,
-    eng: CellEngine,
-    eng_d: CellEngine,
+    eng,
+    eng_d,
     A0: torch.Tensor,
     n: torch.Tensor,
     t0: torch.Tensor,
@@ -377,9 +404,10 @@ def rollout_mesh_batched_dual(
     ``eng_d`` (the JAX package's ``rollout_mesh_batched_dual``): the
     reference diffuses at ``DIFFUSE_H`` whatever the model's h (nca.py:357),
     so a model with h != 0.1 needs two neighbourhoods. ``eng_d`` is built
-    on the same particles, in the same order, with pair tables (its poly6
-    table is all the blur reads: ``build_cell_engine(..., w6_only=True)``
-    will do); ``eng_d is eng`` runs ``rollout_mesh_batched``."""
+    on the same particles, in the same order: a band engine, or a cell
+    engine with pair tables (its poly6 table is all the blur reads:
+    ``build_cell_engine(..., w6_only=True)`` will do); the two engines may
+    be of different kinds. ``eng_d is eng`` runs ``rollout_mesh_batched``."""
     return _rollout_mesh_samples(
         params, cfg, eng, eng_d, A0, n, t0, generator, n_steps, h,
         fire_rate=fire_rate, lerp_multiplier=lerp_multiplier,

@@ -1,5 +1,5 @@
-"""Plane-mode trainer on the cell engine (counterpart of the cell-engine
-paths of ``sph_nca_tpu/training/trainer.py``).
+"""Plane-mode trainer on the band and cell engines (counterpart of the band-
+and cell-engine paths of ``sph_nca_tpu/training/trainer.py``).
 
 One iteration: sample B states from the pool, rank them by per-sample loss
 and put a fresh seed in the worst one's place, roll the batch out for a
@@ -10,9 +10,10 @@ per-parameter gradient normalization g / (|g| + 1e-8) before Adam, whose
 learning rate falls linearly from lr to lr * lr_end_factor over
 lr_decay_steps iterations.
 
-As in the JAX trainer, an engine with pair tables (what the train CLI builds)
-takes the batched-lane rollout (``rollout_cells_batched``: table kernels and
-the fused update-MLP kernel); an engine without tables takes the recompute
+As in the JAX trainer, a band engine (the train CLI's default) or a cell
+engine with pair tables takes the batched-lane rollout
+(``rollout_cells_batched``: the band products or the table kernels, and the
+fused update-MLP kernel); a cell engine without tables takes the recompute
 kernels through ``rollout_cells`` on the batch. The rollout runs exactly n
 steps (the JAX trainer rounds its length up to a bucket and freezes the
 samples after n). With a ``DevicePool`` the rolled-out states go back to the
@@ -29,8 +30,7 @@ import torch
 
 from ..models.cell_step import rollout_cells, rollout_cells_batched
 from ..models.nca import MLPParams, SPHNCAConfig, init_params
-from ..ops.batched import batched_gather_back, batched_scatter
-from ..ops.cells import CellEngine
+from ..ops.batched import batched_gather_back, batched_scatter, has_tables
 from .losses import mse_loss, overflow_penalty, rgba_with_margin, target_at
 
 
@@ -126,7 +126,7 @@ class Trainer:
         self,
         model_cfg: SPHNCAConfig,
         train_cfg: TrainConfig,
-        eng: CellEngine,
+        eng,
         x: torch.Tensor,
         loss: LossBundle,
         h: float,
@@ -159,7 +159,7 @@ class Trainer:
     def _rollout(self, A0: torch.Tensor, n: int, collect):
         """(final [B, N, C], collected [S, B, N, C]) in particle order."""
         eng, bsz = self.eng, A0.shape[0]
-        if eng.blk_md is not None:
+        if has_tables(eng):
             final, coll = rollout_cells_batched(
                 self.params, self.model_cfg, eng, batched_scatter(eng, A0),
                 bsz, self.generator, n, self.h, n_steps=[n] * bsz,

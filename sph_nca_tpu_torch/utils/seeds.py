@@ -86,8 +86,8 @@ def surface_random_seed(x: torch.Tensor, normals: torch.Tensor,
     (``generator``); ``passes`` pre-diffusion passes of that tangent field
     at lerp 0 on unit activity; uniform features from ``generator``.
 
-    ``blur_engine`` is a cell engine on x with the poly6 table at the
-    seeding radius 0.2 (the JAX CLI blurs on a band engine at 0.2). The JAX
+    ``blur_engine`` is an engine on x at the seeding radius 0.2: a band
+    engine, as the JAX CLI's, or a cell engine with the poly6 table. The JAX
     CLI also adds radial seeds of radius 0.2 at the drawn points before it
     overwrites the state with the uniform draw; they change nothing and
     are left out. x, normals [N, 3] -> (A0 [N, channels], t0 [N, 3])."""
@@ -109,12 +109,19 @@ def surface_random_seed(x: torch.Tensor, normals: torch.Tensor,
 def prediffuse_tangents(eng, normals: torch.Tensor, t: torch.Tensor,
                         passes: int, *,
                         use_kernels: bool = True) -> torch.Tensor:
-    """``passes`` tangent diffusions at lerp 0 on unit activity, the blur
-    over ``eng``'s poly6 table (kernel 2.7): the random surface seed's
-    consistent tangent field (the JAX CLI's ``diffuse_band`` loop at radius
-    0.2). normals, t [N, 3] in particle order -> [N, 3]."""
-    from ..models.surface import diffuse_cells
+    """``passes`` tangent diffusions at lerp 0 on unit activity: the random
+    surface seed's consistent tangent field. On a band engine the JAX CLI's
+    ``diffuse_band`` loop, in particle order; on a cell engine the blur over
+    its poly6 table (kernel 2.7). normals, t [N, 3] in particle order ->
+    [N, 3]."""
+    from ..models.surface import diffuse_band, diffuse_cells
+    from ..ops.bands import BandEngine
 
+    if isinstance(eng, BandEngine):
+        ones = torch.ones(t.shape[0], 4, dtype=t.dtype, device=t.device)
+        for _ in range(passes):
+            t = diffuse_band(eng, normals, t, ones, lerp_multiplier=0.0)
+        return t
     nc, tc = eng.scatter(normals), eng.scatter(t)
     ones = eng.scatter(torch.ones(t.shape[0], 4, dtype=t.dtype,
                                   device=t.device))

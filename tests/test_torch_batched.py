@@ -183,6 +183,10 @@ def test_batched_ops_need_tables():
     with pytest.raises(ValueError, match="pair_tables"):
         TS.rollout_cells_batched(None, tcfg, eng, SB, 2,
                                  torch.Generator(), 1, 0.3)
+    teng = _engines("float32")[1]
+    SBt = torch.zeros(tuple(teng.xs.shape[:2]) + (2 * F,))
+    with pytest.raises(ValueError, match="out_dtype"):
+        TB.perceive_cells_batched(teng, SBt, 2, out_dtype="bfloat16")
 
 
 # ---- the update MLP --------------------------------------------------------

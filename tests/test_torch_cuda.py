@@ -873,3 +873,143 @@ def test_batched_surface_rollout_kernels_match_plain(cuda, dtype, dual):
     for k, p in zip(out[True], out[False]):
         assert torch.isfinite(k).all()
         assert float((k - p).abs().max()) <= 1e-4
+
+
+# ---- the band engine (ops/bands.py): library products, kernel 2.8 ----------
+
+
+def _band_pair(device, dtype, periodic):
+    """A band engine on the card and the same engine moved to the CPU (its
+    plain version): 900 points, h = 0.25, blocks of 16 rows and far groups
+    of 8, so the far buckets are exercised."""
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+
+    x = np.random.default_rng(5).uniform(-1, 1, (900, 3)).astype(np.float32)
+    eng = build_band_engine(x, 0.25, period=[2.0] * 3 if periodic else None,
+                            block_rows=16, far_group=8, table_dtype=dtype,
+                            device=device)
+    assert len(eng.far_tabs) > 0 and eng.device.type == "cuda"
+    return eng, eng.to("cpu")
+
+
+def _band_close(got, want, rtol):
+    got, want = got.detach().cpu().float(), want.detach().float()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    assert err <= rtol * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("dtype", TAB_DTYPES)
+def test_band_passes_match_plain(cuda, dtype, periodic):
+    """Each band pass on the card (torch.bmm on the table's strided column
+    slices, bfloat16 operands with float32 outputs; the far windows by one
+    gather a bucket, put back in block order by far_perm) against its plain
+    CPU version
+    (float32 products): the same sums in another order, 1e-5 of max; a
+    bfloat16 output 1e-2."""
+    from sph_nca_tpu_torch.ops import bands as BD
+
+    eng, cpu = _band_pair(cuda, dtype, periodic)
+    b, f = 3, 16
+    rng = np.random.default_rng(6)
+    X = torch.from_numpy(rng.normal(size=(eng.num_cells, 16, b * f)).astype(
+        np.float32))
+    X[..., 3::f] = torch.from_numpy(rng.uniform(0, 0.3, (eng.num_cells, 16,
+                                                         b)).astype(np.float32))
+    E = torch.from_numpy(rng.normal(size=(eng.num_cells, 16, 4 * b)).astype(
+        np.float32))
+    for use_alpha in (True, False):
+        for out_dtype in (None, "bfloat16"):
+            got = BD.perceive_band_batched(eng, X.to(cuda), b, use_alpha,
+                                           out_dtype=out_dtype)
+            want = BD.perceive_band_batched(cpu, X, b, use_alpha,
+                                            out_dtype=out_dtype)
+            assert all(g.device.type == "cuda" for g in got)
+            _band_close(got[0], want[0], 1e-2 if out_dtype else 1e-5)
+            for g, w in zip(got[1:], want[1:]):
+                _band_close(g, w, 1e-5)
+        _band_close(BD.mask_blur_band(eng, X.to(cuda), b, use_alpha),
+                    BD.mask_blur_band(cpu, X, b, use_alpha), 1e-5)
+    _band_close(BD.blur_band(eng, E.to(cuda)), BD.blur_band(cpu, E), 1e-5)
+    _band_close(BD.band_md_pass(eng, X.to(cuda)), BD.band_md_pass(cpu, X),
+                1e-5)
+    A = X[..., :f]
+    _band_close(BD.gradient_band(eng, A.to(cuda)), BD.gradient_band(cpu, A),
+                1e-5)
+    _band_close(eng.volume_consistency(), cpu.volume_consistency(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_band_perception_grad_matches_plain(cuda):
+    """The perception's gradient on the card (autograd over bmm, the rolls,
+    the concat and the far gather, whose backward is an atomic index add in
+    a run-dependent order) against the CPU's: 1e-5 of max."""
+    from sph_nca_tpu_torch.ops import bands as BD
+
+    eng, cpu = _band_pair(cuda, "float32", True)
+    rng = np.random.default_rng(7)
+    S = torch.from_numpy(rng.normal(size=(3, eng.num_cells, 16, 16)).astype(
+        np.float32))
+    W = torch.from_numpy(rng.normal(size=(3, eng.num_cells, 16, 48)).astype(
+        np.float32))
+    grads = []
+    for e, dev in ((eng, cuda), (cpu, "cpu")):
+        s = S.to(dev).requires_grad_(True)
+        ga, _ = BD.perceive_band_samples(e, s)
+        (ga * W.to(dev)).sum().backward()
+        grads.append(s.grad)
+    _band_close(grads[0], grads[1], 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mlp_dtype", [None, "bfloat16"])
+def test_band_step_launches_the_mlp_kernel_once(cuda, mlp_dtype):
+    """A batched step on a band engine on the card launches kernel 2.8 once
+    and no pair-table kernel, and matches the same step on the CPU engine
+    (1e-4 of max with a float32 MLP; with a bfloat16 MLP a hidden unit's
+    rounding may flip, 1e-2)."""
+    from sph_nca_tpu_torch.models.cell_step import nca_step_cells_batched
+    from sph_nca_tpu_torch.ops import batched as BT
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    eng, cpu = _band_pair(cuda, "bfloat16", False)
+    b = 4
+    rng = np.random.default_rng(8)
+    A = torch.from_numpy(rng.uniform(-0.5, 1.0, (b, 900, 16)).astype(
+        np.float32))
+    g = torch.Generator().manual_seed(1)
+    params = MLPParams(torch.randn(48, 256, generator=g) * 0.1,
+                       torch.zeros(256), torch.randn(256, 33, generator=g)
+                       * 0.1, torch.zeros(33))
+    cfg = SPHNCAConfig(fire_rate=1.0, normalize_perception=4.0)
+    wrappers = (PK.fwd_tab_bucket, PK.bwd_tab_bucket, PK.mask_tab_bucket,
+                PK.blur_bucket, PK.fwd_bucket, PK.mask_bucket, MK.mlp_forward)
+    counts = [w.launches for w in wrappers]
+    out = {}
+    for e, dev in ((eng, cuda), (cpu, "cpu")):
+        p = MLPParams(*(t.to(dev) for t in params))
+        out[dev == "cpu"] = BT.batched_gather_back(e, nca_step_cells_batched(
+            p, cfg, e, BT.batched_scatter(e, A.to(dev)), b,
+            torch.Generator(device=dev).manual_seed(0), 0.25,
+            mlp_dtype=mlp_dtype), b)
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == \
+        [0, 0, 0, 0, 0, 0, 1]
+    assert out[False].device.type == "cuda"
+    _band_close(out[False], out[True], 1e-2 if mlp_dtype else 1e-4)
+
+
+@pytest.mark.cuda
+def test_band_engine_has_no_cpu_fallback(cuda):
+    """A band engine on the card runs its passes on the card and refuses
+    states on the CPU instead of carrying on there."""
+    from sph_nca_tpu_torch.ops import bands as BD
+
+    eng, _ = _band_pair(cuda, "float32", False)
+    X = torch.zeros(eng.num_cells, 16, 16)
+    assert BD.blur_band(eng, X.to(cuda)).device.type == "cuda"
+    with pytest.raises(RuntimeError):
+        BD.blur_band(eng, X)
+    with pytest.raises(ValueError, match="no route"):
+        BD._pair_dot(eng.Tband.to("meta"), X.to("meta"))

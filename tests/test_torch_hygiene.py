@@ -166,8 +166,9 @@ def test_build_is_keyed_by_source_hash():
 
 def test_non_poly6_models_are_refused(tmp_path):
     """The cell engine's pair kernels hard-wire the poly6 / spiky pair math:
-    a Wendland model makes the test CLI exit before it builds anything, and
-    build_cell_engine refuses other kernels, as the JAX package does."""
+    a Wendland model makes the test CLI exit on --engine cells before it
+    builds anything, and build_cell_engine refuses other kernels, as the JAX
+    package does."""
     import json
 
     from sph_nca_tpu_torch.cli import test as cli_test
@@ -182,7 +183,7 @@ def test_non_poly6_models_are_refused(tmp_path):
     with pytest.raises(SystemExit, match="poly6"):
         cli_test.main(["--weights_json", str(weights), "--output_dir",
                        str(out), "--device", "cpu", "--image_size", "8",
-                       "--steps", "1"])
+                       "--steps", "1", "--engine", "cells"])
     assert os.listdir(out) == []
     x = torch.rand(64, 2)
     with pytest.raises(NotImplementedError, match="poly6/spiky only"):

@@ -170,7 +170,8 @@ def test_cli_writes_trajectory(tmp_path):
         assert np.isfinite(z["states"]).all()
 
 
-@pytest.mark.parametrize("argv", [["--engine", "band"],
+@pytest.mark.parametrize("argv", [["--engine", "graph", "--surface",
+                                   "mesh.obj"],
                                   ["--engine", "graph"]])
 def test_cli_names_unported_modes(tmp_path, argv):
     with pytest.raises(SystemExit, match="not ported"):

@@ -411,8 +411,8 @@ def test_device_pool_draws_match_jax(randomized):
 
 
 def test_train_cli_builds_tables_and_device_pool(tmp_path, monkeypatch):
-    """The train CLI builds float32 pair tables and a device pool, as the
-    JAX CLI does at its defaults, so the trainer takes the batched path;
+    """With --engine cells the train CLI builds float32 pair tables and a
+    device pool, as the JAX CLI does, so the trainer takes the batched path;
     --device_pool off keeps the host pool."""
     import sph_nca_tpu_torch.ops.cells as cells_mod
     import sph_nca_tpu_torch.training.trainer as trainer_mod
@@ -441,7 +441,7 @@ def test_train_cli_builds_tables_and_device_pool(tmp_path, monkeypatch):
     argv = ["--device", "cpu", "--image_size", "12", "--h", "0.3",
             "--training_iter", "2", "--batch_size", "2", "--pool_size", "4",
             "--steps_range", "2,3", "--steps_increment", "1", "--hidden",
-            "16", "--log_every", "1"]
+            "16", "--log_every", "1", "--engine", "cells"]
     assert cli_train.main(argv + ["--output_dir", str(tmp_path / "a")]) == 0
     assert cli_train.main(argv + ["--output_dir", str(tmp_path / "b"),
                                   "--device_pool", "off"]) == 0
@@ -477,7 +477,7 @@ def test_train_cli_weights_run_in_test_cli(tmp_path):
         assert np.isfinite(z["states"]).all()
 
 
-@pytest.mark.parametrize("argv", [["--engine", "band"], ["--loss", "ot"],
+@pytest.mark.parametrize("argv", [["--engine", "graph"], ["--loss", "ot"],
                                   ["--target", "x"],
                                   ["--initial_feature", "random"]])
 def test_train_cli_names_unported_modes(tmp_path, argv):
