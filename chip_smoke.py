@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
-toolkit and g++. Eleven main paths, each driven through its entry point with
+toolkit and g++. Sixteen main paths, each driven through its entry point with
 every launch counter set to 0 just before it and read just after:
 
   inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
@@ -46,7 +46,22 @@ every launch counter set to 0 just before it and read just after:
   band-bench  bench.py's configuration on the band engine, as the JAX
              package runs it;
   band-surface-cli  ``cli.test --surface --engine band`` on the procedural
-             mesh, the random and the radial seeds.
+             mesh, the random and the radial seeds;
+  texture-train  exemplar-texture training, ``cli.train --loss ot`` (the
+             Gabor features) at runs/ot_gabor_dotted's configuration (64x64
+             wrapped plane, h = 0.08, 16 channels, 256 hidden, batch 4 from
+             a pool of 128, 24-36-step rollouts) on the in-repo exemplar
+             (sph_nca_tpu_torch/assets/dotted_synth_64.npy), band engine,
+             200 iterations with a checkpoint every 100, then
+             ``--resume auto`` for 20 more;
+  texture-cells  the same run on the cell engine, 20 iterations;
+  texture-cli  ``cli.test --checkpoint`` on the trained checkpoint, image
+             and surface mode, both engines;
+  texture-eval  ``cli.eval --texture true`` on the JAX package's
+             800-iteration checkpoint of that run (assets/ot_gabor_dotted_800);
+  eval       ``cli.eval`` (the density study) on the JAX package's face
+             model (assets/gecko_full_8000, target assets/face_target_64.npy)
+             at 0.5 / 1 / 2 / 4x, 160-step rollouts.
 The cell-engine paths above pass ``--engine cells`` to the CLIs.
 
 Phases, each printing one line with its wall time:
@@ -172,9 +187,36 @@ Phases, each printing one line with its wall time:
                  the permuting copy of the state into lanes (band-bench-
                  passes)
   band-surface-cli  the two runs' files and launches
+  texture-train  the losses at iterations 0 / 50 / 100 / 150 beside the JAX
+                 CLI's (the one at 150 within 2x of JAX's), ms an iteration,
+                 kernel 2.8's launches, the checkpoints (the last read back
+                 bit-equal, one resume sidecar), the resumed run's
+                 iterations and launches
+  texture-cells  finite losses; 2.4 / 2.5 / 2.6 / 2.8 launches as the drawn
+                 schedule implies
+  texture-cli    each run's states (shape, finite, the random seed the
+                 texture mode derives) and launches: 2.8 on the band engine,
+                 2.1 / 2.3 on the cell engine's image mode, 2.4 / 2.6 / 2.7
+                 / 2.8 on its surface mode
+  texture-cli-check  the texture CLI's surface engines rebuilt from its
+                 points: 2.4 / 2.6 / 2.7 / 2.8 vs plain, 16 steps from the
+                 cells run's final state, as surface-cli-check
+  texture-kernels  each kernel vs plain at the texture paths' shapes: 2.1 /
+                 2.3 on the periodic 64x64 cell engine (B = 1 and 4), 2.4-
+                 2.7 on its float32 tables (B = 1 and 4), 2.7 on the
+                 6,400-point surface's pre-diffusion engine, 2.8 at the
+                 lead shapes of texture-train / -cells / -cli and of the
+                 eval CLIs' largest grids
+  texture-eval   the baselines against texture_eval_800.json (1e-5), every
+                 cell's spectrum and colour L1 below half the blur4x anchor,
+                 the gaps to the JAX package's six cells
+  eval           PSNR / SSIM at each density beside the JAX package's; at 1x
+                 over seeds 0-7, mean PSNR >= 25 dB and SSIM >= 0.88
 Then one JSON line describing the eight kernels (2.4, 2.6, 2.7 and 2.8 also
 with their launches on the batched surface paths and their numbers at the
-bench shape; 2.8 also with its launches and errors on the band paths), and
+bench shape; 2.8 also with its launches and errors on the band paths; all
+but 2.2 with their launches and errors on the texture paths, under
+``texture``), and
 as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. Without a card it exits non-zero and prints no
 result.
@@ -183,7 +225,9 @@ result.
 rollout steps, of 16 batched surface and bench steps (the band engine's
 too), of 16 inference rollout steps and of one full-depth training
 iteration on each training path (the band engine's too), with device time
-by kernel and the device's busy share.
+by kernel and the device's busy share, and [texture-profile]: one
+full-depth OT iteration against its loss terms alone (wall and device ms,
+the largest kernels).
 """
 
 from __future__ import annotations
@@ -200,6 +244,7 @@ import time
 import numpy as np
 import torch
 
+from sph_nca_tpu_torch.cli import eval as cli_eval
 from sph_nca_tpu_torch.cli import test as cli_test
 from sph_nca_tpu_torch.cli import train as cli_train
 from sph_nca_tpu_torch import native
@@ -491,6 +536,49 @@ def rel_err(got, want, real):
         diff, mag = diff.amax(-1), mag.amax(-1)
     err = float(diff[..., real].max())
     return err, err / max(float(mag[..., real].max()), 1e-30)
+
+
+def check_recompute(eng, S) -> dict:
+    """sph_fwd_kernel and sph_mask_kernel against their plain versions on
+    each non-empty bucket of ``eng`` (no tables) for S [C, M, 16] or
+    [B, C, M, 16], use_alpha on and off: gA within GA_RTOL and sm within
+    SM_RTOL of max over the real rows. Returns the largest absolute error
+    per kernel."""
+    scal = PK.scal_vec(eng)
+    errs = {"sph_fwd_kernel": 0.0, "sph_mask_kernel": 0.0}
+    lead = f"B={S.shape[0]} " if S.dim() == 4 else ""
+    for bucket in (1, 2):
+        xs_b, ab, xw_b, vw_b, wc = bucket_args(eng, S, bucket)
+        if xs_b.shape[0] == 0:
+            continue
+        real = real_rows(eng, bucket)
+        for use_alpha in (True, False):
+            ga_k, sm_k = PK.fwd_bucket(scal, xs_b, ab, xw_b, vw_b, S, wc,
+                                       use_alpha=use_alpha)
+            ga_p, sm_p = PK.fwd_bucket_plain(scal, xs_b, ab, xw_b, vw_b, S,
+                                             wc, use_alpha=use_alpha)
+            mk = PK.mask_bucket(scal, xs_b, xw_b, vw_b, S, wc,
+                                use_alpha=use_alpha)
+            mp = PK.mask_bucket_plain(scal, xs_b, xw_b, vw_b, S, wc,
+                                      use_alpha=use_alpha)
+            torch.cuda.synchronize()
+            ga_abs, ga_rel = rel_err(ga_k, ga_p, real)
+            sm_abs, sm_rel = rel_err(sm_k, sm_p, real)
+            mk_abs, mk_rel = rel_err(mk, mp, real)
+            print(f"  {lead}bucket {bucket} use_alpha={use_alpha}: fwd gA "
+                  f"max abs {ga_abs:.3e} (rel to max {ga_rel:.3e}), fwd sm "
+                  f"max abs {sm_abs:.3e} (rel {sm_rel:.3e}); mask sm max abs "
+                  f"{mk_abs:.3e} (rel {mk_rel:.3e})", flush=True)
+            errs["sph_fwd_kernel"] = max(errs["sph_fwd_kernel"], ga_abs,
+                                         sm_abs)
+            errs["sph_mask_kernel"] = max(errs["sph_mask_kernel"], mk_abs)
+            if not (ga_rel <= GA_RTOL and sm_rel <= SM_RTOL
+                    and mk_rel <= SM_RTOL):
+                fail(f"kernel vs plain out of tolerance ({lead}bucket "
+                     f"{bucket}, use_alpha={use_alpha}): gA {ga_rel:.3e} > "
+                     f"{GA_RTOL} or sm {sm_rel:.3e} / {mk_rel:.3e} > "
+                     f"{SM_RTOL}")
+    return errs
 
 
 def work(eng, bsz: int, f: int = 16):
@@ -872,21 +960,22 @@ def normal_cuda(rng, shape, dev):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
 
-def check_tab_kernels(eng, rng, dev) -> dict:
+def check_tab_kernels(eng, rng, dev, sizes=(1, SURF_B)) -> dict:
     """Each table kernel against its plain version on ``eng``: fwd, bwd,
-    mask and blur (F = 4) at B = 1 and B = SURF_B, the mask and the blur also
-    at MASK_RAGGED_B, use_alpha on and off; each output within TAB_RTOL of
-    the plain version's largest |value| over all rows; one launch of B > 1
-    samples equal to B launches of one; pad rows exactly 0. Returns the
-    largest absolute error per kernel."""
+    mask and blur (F = 4) at each B in ``sizes`` (1 and larger), the mask
+    and the blur also at MASK_RAGGED_B, use_alpha on and off; each output
+    within TAB_RTOL of the plain version's largest |value| over all rows;
+    one launch of B > 1 samples equal to B launches of one; pad rows exactly
+    0. Returns the largest absolute error per kernel."""
     c, m, d = eng.xs.shape
     scal = PK.scal_vec(eng)
     real = (eng.vs > 0).reshape(-1, 64)
     vs, gs = eng.vs.reshape(-1, 64), eng.gsum.reshape(-1, 64, d)
-    SB = normal_cuda(rng, (SURF_B, c, m, 16), dev)
-    GB = normal_cuda(rng, (SURF_B, c, m, d * 16), dev)
+    big = max(sizes)
+    SB = normal_cuda(rng, (big, c, m, 16), dev)
+    GB = normal_cuda(rng, (big, c, m, d * 16), dev)
     X = normal_cuda(rng, (c, m, 4), dev)
-    XB = normal_cuda(rng, (max(SURF_B, *MASK_RAGGED_B), c, m, 4), dev)
+    XB = normal_cuda(rng, (max(big, *MASK_RAGGED_B), c, m, 4), dev)
     errs = dict.fromkeys(TAB_KERNELS, 0.0)
     worst = dict.fromkeys(TAB_KERNELS, 0.0)  # relative to max |plain|
 
@@ -905,7 +994,7 @@ def check_tab_kernels(eng, rng, dev) -> dict:
     same = True
     for lo, hi, wc, vw, md, w6 in tab_buckets(eng):
         rr = real[lo:hi]
-        for bsz in (1, SURF_B):
+        for bsz in sizes:
             S, G = SB[:bsz], GB[:bsz]
             ab = S.reshape(bsz, -1, 64, 16)[:, lo:hi]
             gb = G.reshape(bsz, -1, 64, d * 16)[:, lo:hi]
@@ -952,7 +1041,7 @@ def check_tab_kernels(eng, rng, dev) -> dict:
                              and torch.equal(mk1, mk[b])
                              and torch.equal(dk1, dk[b]))
     if not same:
-        fail(f"a B = {SURF_B} table launch differs from B = 1 launches")
+        fail(f"a B = {big} table launch differs from B = 1 launches")
     # the mask's and the blur's other sample tiles: a ragged tile, full
     # tiles and a ragged one
     SM = normal_cuda(rng, (max(MASK_RAGGED_B), c, m, 16), dev)
@@ -980,7 +1069,7 @@ def check_tab_kernels(eng, rng, dev) -> dict:
     const_field(eng, dev)
     print("  " + ", ".join(f"{n} max abs {errs[n]:.3e} (rel to max "
                            f"{worst[n]:.3e})" for n in TAB_KERNELS)
-          + f"; B = {SURF_B} launch == {SURF_B} B = 1 launches (the mask "
+          + f"; B = {big} launch == {big} B = 1 launches (the mask "
           f"and the blur also at B = "
           f"{' and '.join(map(str, MASK_RAGGED_B))}): {same}; pad rows "
           "exactly 0", flush=True)
@@ -1496,6 +1585,29 @@ def surface_batched_phases(dev, smi, stripes, scfg, seng, xsph, nsph,
     return out
 
 
+def check_blur(eng, rng, dev, sizes) -> tuple:
+    """sph_blur_tab_kernel against its plain version on each bucket of a w6
+    engine (the random seed's pre-diffusion engine) at each B in ``sizes``;
+    pad rows exactly 0. Returns (max abs, max rel to max |plain|)."""
+    c, m, _ = eng.xs.shape
+    scal = PK.scal_vec(eng)
+    real = (eng.vs > 0).reshape(-1, 64)
+    err = rel = 0.0
+    for bsz in sizes:
+        X = normal_cuda(rng, (bsz, c, m, 4), dev)
+        for lo, hi, wc, vw, _, w6 in tab_buckets(eng):
+            got = PK.blur_bucket(scal, vw, X, wc, w6)
+            want = PK.blur_bucket_plain(scal, vw, X, wc, w6)
+            torch.cuda.synchronize()
+            e = float((got - want).abs().max())
+            err = max(err, e)
+            rel = max(rel, e / max(float(want.abs().max()), 1e-30))
+            if not bool((got[:, ~real[lo:hi]] == 0).all()):
+                fail("sph_blur_tab_kernel: nonzero pad rows on the "
+                     "pre-diffusion engine")
+    return err, rel
+
+
 def surface_cli_phase(dev, smi):
     """The test CLI's surface mode on a procedural mesh, SURF_N points,
     SURF_STEPS steps: stripes with the random seed, gecko with radial seeds,
@@ -1566,22 +1678,8 @@ def surface_cli_phase(dev, smi):
     torch.cuda.synchronize()
     build_s = time.time() - t1
     st = tab_stats(peng)
-    rng = np.random.default_rng(SEED)
-    c, m, _ = peng.xs.shape
-    scal = PK.scal_vec(peng)
-    real = (peng.vs > 0).reshape(-1, 64)
-    err = rel = 0.0
-    for bsz in (1, SURF_B):
-        X = normal_cuda(rng, (bsz, c, m, 4), dev)
-        for lo, hi, wc, vw, _, w6 in tab_buckets(peng):
-            got = PK.blur_bucket(scal, vw, X, wc, w6)
-            want = PK.blur_bucket_plain(scal, vw, X, wc, w6)
-            torch.cuda.synchronize()
-            e = float((got - want).abs().max())
-            err = max(err, e)
-            rel = max(rel, e / max(float(want.abs().max()), 1e-30))
-            if not bool((got[:, ~real[lo:hi]] == 0).all()):
-                fail("sph_blur_tab_kernel: nonzero pad rows at radius 0.2")
+    err, rel = check_blur(peng, np.random.default_rng(SEED), dev,
+                          (1, SURF_B))
     # every engine here has both window-size buckets (the tables phase
     # checks the sphere's; the pre-diffusion engine's is checked here)
     if len(st["buckets"]) != 2 or min(nb for nb, _ in st["buckets"]) == 0:
@@ -1611,7 +1709,8 @@ def surface_cli_phase(dev, smi):
     return counts, cli_engine_checks(dev, smi, runs, x, nrm, peng, finals)
 
 
-def cli_engine_checks(dev, smi, runs, x, nrm, peng, finals) -> dict:
+def cli_engine_checks(dev, smi, runs, x, nrm, peng, finals,
+                      phase_name: str = "surface-cli-check") -> dict:
     """The surface CLI's own engines, rebuilt from the same points as the
     CLI builds them (bfloat16 tables at each run's h; for h != DIFFUSE_H a
     bfloat16 w6-only diffusion engine at DIFFUSE_H), each run's kernels
@@ -1698,7 +1797,7 @@ def cli_engine_checks(dev, smi, runs, x, nrm, peng, finals) -> dict:
                  f"rollout {gap:.3e}")
     for line in lines:
         print(f"  {line}", flush=True)
-    phase("surface-cli-check", t0, "the CLI's engines rebuilt from its "
+    phase(phase_name, t0, "the CLI's engines rebuilt from its "
           f"points: the table kernels at B = 1 within {TAB_RTOL} of max, the "
           f"float32 MLP within {MLP_RTOL[torch.float32]} of max, "
           f"{CHECK_STEPS} rollout steps at fire_rate 1.0 from each run's "
@@ -2759,6 +2858,607 @@ def band_surface_cli_phase(dev, smi) -> dict:
     return counts
 
 
+# ---- the texture slice: OT training, checkpoints, resume, the eval CLI ------
+
+ASSETS = os.path.join(ROOT, "sph_nca_tpu_torch", "assets")
+DOTTED = os.path.join(ASSETS, "dotted_synth_64.npy")
+OT_CHECKPOINT = os.path.join(ASSETS, "ot_gabor_dotted_800")
+FACE = os.path.join(ASSETS, "face_target_64.npy")
+FACE_CHECKPOINT = os.path.join(ASSETS, "gecko_full_8000")
+# runs/ot_gabor_dotted's configuration (its meta.json): 64x64 wrapped plane,
+# h = 0.08, batch 4 from a pool of 128, rollouts of 24-36 steps
+TEX_SIDE, TEX_TARGET, TEX_B, TEX_POOL, TEX_RANGE = 64, 64, 4, 128, "24,36"
+TEX_ITERS, TEX_EVERY, TEX_RESUME, TEX_CELL_ITERS = 200, 100, 20, 20
+# the JAX CLI's losses on this configuration, runs/ot_gabor_dotted/
+# metrics-08181219.jsonl (iterations 0 and 50 re-run with the JAX CLI on
+# a CPU: 1.024338, 0.109115); the port draws its own streams, so levels are
+# compared: the loss at 150 within TEX_LOSS_FACTOR of JAX's
+TEX_JAX_LOSSES = {0: 1.0243384838104248, 50: 0.10901100933551788,
+                  100: 0.07447541505098343, 150: 0.06828755885362625}
+TEX_BAR_ITER, TEX_LOSS_FACTOR = 150, 2.0
+TEX_CLI_STEPS, TEX_SURF_N = 128, 6400
+# runs/ot_gabor_dotted/texture_eval_800.json: the JAX package's texture_eval
+# of the 800-iteration checkpoint ((density, jitter) -> spectrum, colour L1)
+TEX_EVAL_JAX = {(1.0, 0.0): (0.2961973424283603, 0.24593098958333326),
+                (1.0, 0.5): (0.36008814826826985, 0.25992838541666663),
+                (2.0, 0.0): (0.2633585477389265, 0.24169921874999994),
+                (2.0, 0.5): (0.3456058416238888, 0.25113932291666663),
+                (4.0, 0.0): (0.2769807731177595, 0.25781249999999994),
+                (4.0, 0.5): (0.25359899143638015, 0.26139322916666663)}
+TEX_EVAL_BASELINES = {
+    "baseline_self": (7.112366251504909e-17, 0.0),
+    "baseline_blur4x": (0.8638397292696647, 1.104817708333333),
+    "baseline_gray": (0.9999999999999853, 1.956217447916666),
+    "baseline_noise": (0.7509533156481754, 1.2749023437499998)}
+BASELINE_ATOL = 1e-5
+TEX_EVAL_STEPS = 96  # the eval CLI's default
+# the face model's density study: 160-step rollouts (RESULTS.md), seed 0
+# at 0.5 / 1 / 2 / 4x, then 1x at seeds 0-7
+EVAL_STEPS, EVAL_SEEDS = 160, 8
+EVAL_DENSITIES = (0.5, 1.0, 2.0, 4.0)
+# runs/gecko_full/eval_sweep.json (2026-08-16): PSNR dB, SSIM per density
+EVAL_RECORDED = {0.5: (21.347944741351306, 0.8193509798527966),
+                 1.0: (27.016395319582784, 0.9079157069314032),
+                 2.0: (23.338156600325934, 0.867937599047272),
+                 4.0: (24.41996414852287, 0.8873406030438604)}
+# the JAX eval CLI today (python -m sph_nca_tpu.cli.eval --checkpoint
+# runs/gecko_full/sphnca-08162133-8000 --steps 160 --seed s, on a CPU): seed
+# 0 at each density, and 1x at seeds 0-7. No --steps reproduces
+# eval_sweep.json (96 / 128 / 160 give 24.21 / 24.33 / 24.38 dB at 1x, seed
+# 0): the fire draws map to other particles since that sweep; 1x spans
+# 24.38-27.44 dB over the seeds
+EVAL_JAX_SEED0 = {0.5: (19.772, 0.7594), 1.0: (24.376, 0.8873),
+                  2.0: (24.068, 0.8798), 4.0: (24.326, 0.8892)}
+EVAL_JAX_1X = [(24.376, 0.8873), (27.437, 0.9128), (26.550, 0.9039),
+               (25.232, 0.8888), (24.787, 0.8792), (26.336, 0.9028),
+               (24.612, 0.8812), (26.292, 0.9035)]
+# the bar at 1x, held by the mean over the seeds (one draw of the JAX
+# package's own falls below it: seed 0, 24.38 dB)
+EVAL_PSNR_MIN, EVAL_SSIM_MIN = 25.0, 0.88
+
+
+def texture_train_argv(out_dir: str, iters: int, engine: str = "band",
+                       extra=()) -> list:
+    """The train CLI at runs/ot_gabor_dotted's configuration on the card."""
+    return ["--device", "cuda", "--seed", str(SEED), "--loss", "ot",
+            "--texture_features", "gabor", "--img", DOTTED,
+            "--image_size", str(TEX_SIDE), "--target_size", str(TEX_TARGET),
+            "--wrap", "true", "--use_alpha", "false", "--initial_feature",
+            "random", "--h", str(TRAIN_H), "--batch_size", str(TEX_B),
+            "--pool_size", str(TEX_POOL), "--steps_range", TEX_RANGE,
+            "--channels", "16", "--hidden", "256", "--log_every", "50",
+            "--checkpoint_every", str(TEX_EVERY), "--training_iter",
+            str(iters), "--engine", engine, "--output_dir", out_dir] + list(
+                extra)
+
+
+def metrics_rows(out_dir: str) -> dict:
+    """iteration -> metrics row, over every metrics file of a run (a
+    resumed run appends, or starts a file of its own minute)."""
+    rows = {}
+    for path in sorted(glob.glob(os.path.join(out_dir, "metrics-*.jsonl"))):
+        with open(path) as f:
+            for line in f:
+                r = json.loads(line)
+                rows[r["iter"]] = r
+    return rows
+
+
+def texture_train_phase(dev, smi, out_dir: str):
+    """[texture-train]: TEX_ITERS iterations of OT training on the band
+    engine with a checkpoint every TEX_EVERY, then ``--resume auto`` for
+    TEX_RESUME more. Returns (the last checkpoint, 2.8's launches)."""
+    from sph_nca_tpu_torch.io import msgpack
+    from sph_nca_tpu_torch.io.checkpoint import (
+        has_resume_state,
+        load_checkpoint,
+        load_resume_state,
+    )
+
+    t0 = time.time()
+    reset_launches()
+    rc = cli_train.main(texture_train_argv(out_dir, TEX_ITERS))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if rc != 0:
+        fail(f"texture train CLI returned {rc}")
+    rows = metrics_rows(out_dir)
+    if sorted(rows) != list(range(TEX_ITERS)):
+        fail(f"texture training wrote iterations {sorted(rows)[:5]}...")
+    losses = [rows[i]["loss"] for i in range(TEX_ITERS)]
+    steps = [rows[i]["steps"] for i in range(TEX_ITERS)]
+    want = expected_train_launches(steps, 0, tables=True)
+    secs = [rows[i]["seconds"] for i in range(TEX_ITERS)]
+    full_ms = 1e3 * float(np.median(secs[TEX_ITERS // 2:]))
+    print("  loss at " + ", ".join(
+        f"{i}: {losses[i]:.4f} (JAX {TEX_JAX_LOSSES[i]:.4f})"
+        for i in sorted(TEX_JAX_LOSSES)) + f"; at {TEX_ITERS - 1}: "
+        f"{losses[-1]:.4f}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"texture training losses not finite: {losses}")
+    bar = TEX_LOSS_FACTOR * TEX_JAX_LOSSES[TEX_BAR_ITER]
+    if not losses[TEX_BAR_ITER] <= bar:
+        fail(f"texture loss at {TEX_BAR_ITER} {losses[TEX_BAR_ITER]:.4f} > "
+             f"{TEX_LOSS_FACTOR} x JAX's {TEX_JAX_LOSSES[TEX_BAR_ITER]:.4f}")
+    if launches != want:
+        fail(f"texture training launches {launches}, expected {want}")
+
+    # the checkpoints: the last reads back bit-equal (the codec re-encodes
+    # its bytes; its params equal the weights JSON's), carries Adam's count
+    # and the port's sidecar; the first's sidecar was pruned
+    cks = sorted(glob.glob(os.path.join(out_dir, "sphnca-*-*[0-9]")))
+    names = [os.path.basename(p).rsplit("-", 1)[1] for p in cks]
+    if names != [f"{s:04d}" for s in range(TEX_EVERY, TEX_ITERS + 1,
+                                           TEX_EVERY)]:
+        fail(f"texture checkpoints {names}")
+    last = cks[-1]
+    with open(os.path.join(last, "checkpoint.msgpack"), "rb") as f:
+        raw = f.read()
+    ck = load_checkpoint(last, device=dev)
+    weights = load_weights_json(last + ".json", device=dev)
+    if (msgpack.packb(msgpack.unpackb(raw)) != raw
+            or not all(torch.equal(a, b) for a, b in zip(ck["params"],
+                                                          weights.params))
+            or ck["step"] != TEX_ITERS
+            or int(ck["opt_state"]["1"]["0"]["count"]) != TEX_ITERS
+            or ck["meta"]["extra"]["mode"] != "texture"
+            or weights.mode != "texture"):
+        fail("the texture checkpoint does not read back bit-equal")
+    if (not load_resume_state(last)["port"]
+            or any(has_resume_state(p) for p in cks[:-1])):
+        fail("texture checkpoints: the sidecar is not the last one's only")
+
+    # resume from the last checkpoint
+    reset_launches()
+    t1 = time.time()
+    rc = cli_train.main(texture_train_argv(
+        out_dir, TEX_ITERS + TEX_RESUME, extra=("--resume", "auto")))
+    torch.cuda.synchronize()
+    resume_s = time.time() - t1
+    rlaunches = read_launches()
+    if rc != 0:
+        fail(f"texture train CLI --resume auto returned {rc}")
+    rows = metrics_rows(out_dir)
+    resumed = list(range(TEX_ITERS, TEX_ITERS + TEX_RESUME))
+    if sorted(rows) != list(range(TEX_ITERS + TEX_RESUME)):
+        fail(f"the resumed run wrote iterations {sorted(rows)[-5:]}")
+    rlosses = [rows[i]["loss"] for i in resumed]
+    rwant = expected_train_launches([rows[i]["steps"] for i in resumed], 0,
+                                    tables=True)
+    if not all(np.isfinite(rlosses)) or rlaunches != rwant:
+        fail(f"resumed texture training: losses {rlosses}, launches "
+             f"{rlaunches}, expected {rwant}")
+    phase("texture-train", t0, f"train CLI --loss ot (gabor) at "
+          f"runs/ot_gabor_dotted's configuration ({TEX_SIDE}x{TEX_SIDE} "
+          f"wrapped, B={TEX_B}, pool {TEX_POOL}, steps {TEX_RANGE}, band "
+          f"engine): {TEX_ITERS} iterations, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, median {full_ms:.1f} ms an iteration over "
+          f"iterations {TEX_ITERS // 2}-{TEX_ITERS - 1} (mean rollout "
+          f"{np.mean(steps[TEX_ITERS // 2:]):.1f} steps), {sum(secs):.1f} s "
+          f"in all; kernel 2.8 {launches['sph_mlp_kernel']} launches as "
+          f"expected; checkpoints at {', '.join(names)}, the last read back "
+          f"bit-equal; --resume auto: {TEX_RESUME} more iterations in "
+          f"{resume_s:.1f} s, losses {rlosses[0]:.4f} .. {rlosses[-1]:.4f}, "
+          f"2.8 {rlaunches['sph_mlp_kernel']} launches | {smi}")
+    return last, launches["sph_mlp_kernel"] + rlaunches["sph_mlp_kernel"]
+
+
+def texture_cells_phase(dev, smi, out_dir: str) -> dict:
+    """[texture-cells]: TEX_CELL_ITERS iterations of the same run on the cell
+    engine with float32 pair tables: the OT gradient through 2.4 / 2.5 /
+    2.6 / 2.8. Returns the launches."""
+    t0 = time.time()
+    x2 = grange((TEX_SIDE, TEX_SIDE), (-1.0, -1.0), (2.0, 2.0)).reshape(-1, 2)
+    eng = build_cell_engine(torch.nn.functional.pad(x2, (0, 1)), TRAIN_H,
+                            period=[2.0, 2.0, 2.0], pair_tables="float32",
+                            device=dev)
+    nbk = sum(1 for nb, _ in tab_stats(eng)["buckets"] if nb > 0)
+    del eng
+    reset_launches()
+    rc = cli_train.main(texture_train_argv(out_dir, TEX_CELL_ITERS,
+                                           engine="cells"))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if rc != 0:
+        fail(f"texture train CLI --engine cells returned {rc}")
+    rows = metrics_rows(out_dir)
+    losses = [rows[i]["loss"] for i in range(TEX_CELL_ITERS)]
+    want = expected_train_launches(
+        [rows[i]["steps"] for i in range(TEX_CELL_ITERS)], nbk, tables=True)
+    if not all(np.isfinite(losses)) or launches != want:
+        fail(f"texture training on cells: losses {losses}, launches "
+             f"{launches}, expected {want}")
+    phase("texture-cells", t0, f"train CLI --loss ot --engine cells (float32 "
+          f"pair tables, {nbk} buckets), {TEX_CELL_ITERS} iterations: losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches} as "
+          f"expected | {smi}")
+    return launches
+
+
+def texture_cli_phase(dev, smi, ck: str) -> dict:
+    """[texture-cli]: the test CLI on the trained texture checkpoint, image
+    mode (its 64x64 plane) and --surface (the procedural mesh, TEX_SURF_N
+    points), on both engines, TEX_CLI_STEPS steps each: the checkpoint's
+    texture mode (periodic plane, no alpha, the random seed), finite states,
+    launch counts. Returns ({run: launches}, the cells surface run's final
+    state)."""
+    t0 = time.time()
+    n_img = TEX_SIDE * TEX_SIDE
+    x2 = grange((TEX_SIDE, TEX_SIDE), (-1.0, -1.0), (2.0, 2.0)).reshape(-1, 2)
+    reng = build_cell_engine(torch.nn.functional.pad(x2, (0, 1)), TRAIN_H,
+                             period=[2.0, 2.0, 2.0], device=dev)
+    nbk = int(reng.blk_xs.shape[0] > 0) + int(reng.blk2_xs.shape[0] > 0)
+    del reng
+    counts, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = write_mesh_obj(os.path.join(tmp, "bumpy.obj"))
+        for label, extra, n in (
+                ("image-band", ["--image_size", str(TEX_SIDE)], n_img),
+                ("image-cells", ["--image_size", str(TEX_SIDE), "--engine",
+                                 "cells"], n_img),
+                ("surface-band", ["--surface", obj, "--surface_numpoints",
+                                  str(TEX_SURF_N), "--export_every", "64"],
+                 TEX_SURF_N),
+                ("surface-cells", ["--surface", obj, "--surface_numpoints",
+                                   str(TEX_SURF_N), "--export_every", "64",
+                                   "--engine", "cells"], TEX_SURF_N)):
+            out = os.path.join(tmp, label)
+            reset_launches()
+            t1 = time.time()
+            rc = cli_test.main(["--checkpoint", ck, "--steps",
+                                str(TEX_CLI_STEPS), "--seed", str(SEED),
+                                "--device", "cuda", "--output_dir", out]
+                               + extra)
+            torch.cuda.synchronize()
+            secs = time.time() - t1
+            got = read_launches()
+            if rc != 0:
+                fail(f"test CLI --checkpoint ({label}) returned {rc}")
+            (run,) = os.listdir(out)
+            with np.load(os.path.join(out, run, "states.npz")) as z:
+                states = z["states"]
+            a0 = states[0]
+            if (states.shape != (TEX_CLI_STEPS + 1, n, 16)
+                    or not np.isfinite(states).all()
+                    or not (0 <= a0).all() or not (a0 < 1).all()
+                    or a0.std() < 0.2):
+                fail(f"test CLI --checkpoint ({label}): states "
+                     f"{states.shape}, not finite or not the random seed")
+            if label == "image-cells":
+                want = {**NO_LAUNCHES,
+                        "sph_fwd_kernel": nbk * TEX_CLI_STEPS,
+                        "sph_mask_kernel": nbk * TEX_CLI_STEPS}
+                ok = got == want
+            elif label == "surface-cells":
+                per = got["sph_fwd_tab_kernel"] // TEX_CLI_STEPS
+                ok = (got["sph_mlp_kernel"] == TEX_CLI_STEPS and per > 0
+                      and got["sph_fwd_tab_kernel"] == per * TEX_CLI_STEPS
+                      and got["sph_mask_tab_kernel"]
+                      == got["sph_fwd_tab_kernel"]
+                      and got["sph_blur_tab_kernel"] > 0
+                      and all(got[k] == 0 for k in KERNELS)
+                      and got["sph_bwd_tab_kernel"] == 0)
+            else:
+                ok = got == {**NO_LAUNCHES, "sph_mlp_kernel": TEX_CLI_STEPS}
+            if not ok:
+                fail(f"test CLI --checkpoint ({label}) launches {got}")
+            counts[label] = got
+            if label == "surface-cells":
+                final = states[-1]
+            lines.append(f"{label} {secs:.2f} s, std of the state {a0.std():.3f}"
+                         f" -> {states[-1].std():.3f}")
+    phase("texture-cli", t0, f"test CLI --checkpoint <texture-train's "
+          f"{TEX_ITERS}>, {TEX_CLI_STEPS} steps, the checkpoint's texture "
+          f"mode (periodic plane, no alpha, random seed): "
+          + "; ".join(lines) + f"; launches {counts} | {smi}")
+    return counts, final
+
+
+def texture_kernels_phase(dev, smi, ck: str, final) -> dict:
+    """[texture-kernels]: each kernel against its plain version at the
+    shapes the texture paths give it. 2.1 / 2.3 on the test CLI's periodic
+    64x64 cell engine (no tables) at B = 1 and TEX_B; 2.4-2.7 on the train
+    CLI's (float32 pair tables) at B = 1 and TEX_B; on the texture CLI's
+    TEX_SURF_N-point surface the blur on the random seed's pre-diffusion
+    engine and ``cli_engine_checks`` (2.4 / 2.6 / 2.7 / 2.8 on its engines,
+    16 steps from ``final``); 2.8 at the lead shapes of texture-train,
+    texture-cells, the band runs of texture-cli and the largest grids of
+    texture-eval and eval. Returns {kernel: {path: max abs error}}."""
+    from sph_nca_tpu_torch.io.checkpoint import load_checkpoint
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 3)
+    period = [2.0, 2.0, 2.0]
+    x2 = grange((TEX_SIDE, TEX_SIDE), (-1.0, -1.0), (2.0, 2.0)).reshape(-1, 2)
+    x = torch.nn.functional.pad(x2, (0, 1))
+    reng = build_cell_engine(x, TRAIN_H, period=period, device=dev)
+    c, m = reng.num_cells, reng.slots_per_cell
+    rc = {}
+    for bsz in (1, TEX_B):
+        lead = (c, m) if bsz == 1 else (bsz, c, m)
+        for name, err in check_recompute(
+                reng, normal_cuda(rng, (*lead, 16), dev)).items():
+            rc[name] = max(rc.get(name, 0.0), err)
+    const_field(reng, dev)
+    del reng
+    teng = build_cell_engine(x, TRAIN_H, period=period, pair_tables="float32",
+                             device=dev)
+    tab = check_tab_kernels(teng, rng, dev, sizes=(1, TEX_B))
+    cell_lead = (TEX_B, teng.num_cells, teng.slots_per_cell)
+    del teng
+
+    with tempfile.TemporaryDirectory() as tmp:
+        xs, nrm, _ = cli_test.surface_points(
+            write_mesh_obj(os.path.join(tmp, "bumpy.obj")), 1.0, TEX_SURF_N,
+            np.random.default_rng(SEED), dev)
+    peng = build_cell_engine(xs, cli_test.SEED_RADIUS_RANDOM,
+                             pair_tables="float32", w6_only=True, device=dev)
+    blur, blur_rel = check_blur(peng, rng, dev, (1,))
+    if not blur_rel <= TAB_RTOL:
+        fail(f"sph_blur_tab_kernel vs plain on the texture surface's "
+             f"pre-diffusion engine: {blur_rel:.3e}")
+    surf = cli_engine_checks(dev, smi, {"texture-surface": (ck + ".json", [])},
+                             xs, nrm, peng, {"texture-surface": final},
+                             phase_name="texture-cli-check")
+    del peng
+
+    def band_lead(points, h, side_period, bsz=1):
+        eng = build_band_engine(points, h, period=side_period,
+                                table_dtype="float32", device=dev)
+        return (bsz, eng.num_cells, eng.slots_per_cell)
+
+    # the eval CLI's largest grids: base size (the training image_size)
+    # times the root of the largest density
+    face = load_checkpoint(FACE_CHECKPOINT, device=dev)
+    face_base = int(face["meta"]["extra"]["args"]["image_size"])
+    big = {"texture-eval": (TEX_SIDE, max(d for d, _ in TEX_EVAL_JAX),
+                            TRAIN_H, period),
+           "eval": (face_base, max(EVAL_DENSITIES), face["h"], None)}
+    x_np = x.numpy()
+    shapes = {"texture-train": band_lead(x_np, TRAIN_H, period, TEX_B),
+              "texture-cells": cell_lead,
+              "texture-cli image-band": band_lead(x_np, TRAIN_H, period),
+              "texture-cli surface-band": band_lead(xs, TRAIN_H, None)}
+    for label, (base, dens, h, per) in big.items():
+        side = int(round(base * dens ** 0.5))
+        g = grange((side, side), (-1.0, -1.0), (2.0, 2.0)).reshape(-1, 2)
+        shapes[f"{label} {side}x{side}"] = band_lead(
+            torch.nn.functional.pad(g, (0, 1)).numpy(), h, per)
+    mlp = mlp_shape_checks(dev, shapes)
+
+    out = {name: {"texture-cli image-cells": err} for name, err in rc.items()}
+    for name in ("sph_fwd_tab_kernel", "sph_mask_tab_kernel"):
+        out[name] = {"texture-cells": tab[name],
+                     "texture-cli surface-cells": surf[name]}
+    out["sph_bwd_tab_kernel"] = {"texture-cells": tab["sph_bwd_tab_kernel"]}
+    out["sph_blur_tab_kernel"] = {
+        "texture-cli surface-cells pre-diffusion": blur,
+        "texture-cli surface-cells diffusion": surf["sph_blur_tab_kernel"]}
+    out["sph_mlp_kernel"] = {f"{label} {str(dtype)[6:]}": err
+                             for (label, dtype), err in mlp.items()}
+    out["sph_mlp_kernel"]["texture-cli surface-cells float32"] = surf[
+        "sph_mlp_kernel"]
+    phase("texture-kernels", t0, f"the kernels at the texture paths' shapes: "
+          f"2.1 / 2.3 on the periodic {TEX_SIDE}x{TEX_SIDE} cell engine (no "
+          f"tables, B = 1 and {TEX_B}) within gA {GA_RTOL} / sm {SM_RTOL} of "
+          f"max; 2.4-2.7 on it with float32 tables (B = 1 and {TEX_B}), the "
+          f"blur on the {TEX_SURF_N}-point surface's pre-diffusion engine "
+          f"within {TAB_RTOL}; 2.8 at "
+          + ", ".join(f"{label} {lead}" for label, lead in shapes.items())
+          + f" within {MLP_RTOL[torch.float32]} / "
+          f"{MLP_RTOL[torch.bfloat16]} of max (float32 / bfloat16) | {smi}")
+    return out
+
+
+def texture_eval_phase(dev, smi) -> int:
+    """[texture-eval]: ``cli.eval --texture true`` on the JAX package's
+    800-iteration checkpoint and exemplar (assets): the baselines equal
+    texture_eval_800.json's, every sweep cell's spectrum and colour L1 below
+    half the blur4x anchor. Returns 2.8's launches."""
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "texture.json")
+        reset_launches()
+        rc = cli_eval.main(["--texture", "true", "--checkpoint",
+                            OT_CHECKPOINT, "--img", DOTTED, "--out", out,
+                            "--device", "cuda", "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if rc != 0:
+            fail(f"eval CLI --texture returned {rc}")
+        with open(out) as f:
+            res = json.load(f)
+    cells = {(r["density"], r["jitter"]): (r["spectrum_l1"], r["color_l1"])
+             for r in res["sweep"]}
+    if sorted(cells) != sorted(TEX_EVAL_JAX):
+        fail(f"texture eval cells {sorted(cells)}")
+    gap = max(abs(res[k][key] - v[i]) for k, v in TEX_EVAL_BASELINES.items()
+              for i, key in enumerate(("spectrum_l1", "color_l1")))
+    if not gap <= BASELINE_ATOL:
+        fail(f"texture eval baselines {gap:.3e} from texture_eval_800.json")
+    blur = TEX_EVAL_BASELINES["baseline_blur4x"]
+    spec_max = max(v[0] for v in cells.values())
+    color_max = max(v[1] for v in cells.values())
+    for key, (s, c) in sorted(cells.items()):
+        js, jc = TEX_EVAL_JAX[key]
+        print(f"  density {key[0]:.0f} jitter {key[1]:.1f}: spectrum L1 "
+              f"{s:.4f} (JAX {js:.4f}, gap {s - js:+.4f}), colour L1 "
+              f"{c:.4f} (JAX {jc:.4f}, gap {c - jc:+.4f})", flush=True)
+    want = {**NO_LAUNCHES, "sph_mlp_kernel": TEX_EVAL_STEPS * len(cells)}
+    if launches != want:
+        fail(f"texture eval launches {launches}, expected {want}")
+    if not (spec_max < blur[0] / 2 and color_max < blur[1] / 2):
+        fail(f"texture eval: worst cell {spec_max:.4f} / {color_max:.4f}, "
+             f"bar {blur[0] / 2:.4f} / {blur[1] / 2:.4f}")
+    phase("texture-eval", t0, f"eval CLI --texture true on "
+          f"assets/ot_gabor_dotted_800 ({len(cells)} cells, "
+          f"{TEX_EVAL_STEPS} steps): baselines within {gap:.2e} of "
+          f"texture_eval_800.json; worst cell spectrum {spec_max:.4f}, colour "
+          f"{color_max:.4f} (bar: half the blur4x anchor, {blur[0] / 2:.4f} / "
+          f"{blur[1] / 2:.4f}; JAX's worst {max(v[0] for v in TEX_EVAL_JAX.values()):.4f}"
+          f" / {max(v[1] for v in TEX_EVAL_JAX.values()):.4f}); kernel 2.8 "
+          f"{launches['sph_mlp_kernel']} launches | {smi}")
+    return launches["sph_mlp_kernel"]
+
+
+def eval_phase(dev, smi) -> int:
+    """[eval]: ``cli.eval`` on the face model (assets/gecko_full_8000) and
+    its target at 0.5 / 1 / 2 / 4x, EVAL_STEPS steps, seed 0; then 1x at
+    seeds 0 .. EVAL_SEEDS - 1, held to the bar by the mean. Returns 2.8's
+    launches."""
+    t0 = time.time()
+    launches, by_seed, sweep = 0, [], None
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in range(EVAL_SEEDS):
+            out = os.path.join(tmp, f"sweep{seed}.json")
+            dens = EVAL_DENSITIES if seed == 0 else (1.0,)
+            reset_launches()
+            rc = cli_eval.main(["--checkpoint", FACE_CHECKPOINT, "--img",
+                                FACE, "--steps", str(EVAL_STEPS),
+                                "--densities", ",".join(map(str, dens)),
+                                "--seed", str(seed), "--out", out,
+                                "--device", "cuda"])
+            torch.cuda.synchronize()
+            got = read_launches()
+            if rc != 0:
+                fail(f"eval CLI (seed {seed}) returned {rc}")
+            if got != {**NO_LAUNCHES,
+                       "sph_mlp_kernel": EVAL_STEPS * len(dens)}:
+                fail(f"eval CLI (seed {seed}) launches {got}")
+            launches += got["sph_mlp_kernel"]
+            with open(out) as f:
+                rows = {r["density"]: r for r in json.load(f)}
+            if seed == 0:
+                sweep = rows
+            by_seed.append((rows[1.0]["psnr"], rows[1.0]["ssim"]))
+    for d in EVAL_DENSITIES:
+        r = sweep[d]
+        print(f"  {d}x ({r['n_particles']} particles): PSNR {r['psnr']:.2f} "
+              f"dB, SSIM {r['ssim']:.4f}; JAX today {EVAL_JAX_SEED0[d][0]:.2f}"
+              f" / {EVAL_JAX_SEED0[d][1]:.4f}; eval_sweep.json "
+              f"{EVAL_RECORDED[d][0]:.2f} / {EVAL_RECORDED[d][1]:.4f}",
+              flush=True)
+    print("  1x by seed: " + ", ".join(
+        f"{s}: {p:.2f} / {q:.4f} (JAX {EVAL_JAX_1X[s][0]:.2f} / "
+        f"{EVAL_JAX_1X[s][1]:.4f})" for s, (p, q) in enumerate(by_seed)),
+        flush=True)
+    psnr_mean = float(np.mean([p for p, _ in by_seed]))
+    ssim_mean = float(np.mean([q for _, q in by_seed]))
+    jax_psnr = float(np.mean([p for p, _ in EVAL_JAX_1X]))
+    jax_ssim = float(np.mean([q for _, q in EVAL_JAX_1X]))
+    if not all(np.isfinite(v) for row in sweep.values()
+               for v in (row["psnr"], row["ssim"])):
+        fail(f"eval: non-finite PSNR / SSIM {sweep}")
+    if not (psnr_mean >= EVAL_PSNR_MIN and ssim_mean >= EVAL_SSIM_MIN):
+        fail(f"eval at 1x: mean PSNR {psnr_mean:.2f} dB / SSIM "
+             f"{ssim_mean:.4f} over {EVAL_SEEDS} seeds, bar "
+             f"{EVAL_PSNR_MIN} / {EVAL_SSIM_MIN}")
+    phase("eval", t0, f"eval CLI on assets/gecko_full_8000 + "
+          f"face_target_64.npy, {EVAL_STEPS}-step rollouts: 1x mean over "
+          f"seeds 0-{EVAL_SEEDS - 1} PSNR {psnr_mean:.2f} dB, SSIM "
+          f"{ssim_mean:.4f} (JAX today {jax_psnr:.2f} / {jax_ssim:.4f}; bar "
+          f"{EVAL_PSNR_MIN} / {EVAL_SSIM_MIN}); kernel 2.8 {launches} "
+          f"launches | {smi}")
+    return launches
+
+
+def texture_profile_phase(dev, smi) -> None:
+    """[texture-profile]: where a full-depth OT training iteration's time
+    goes: one iteration of the train CLI's trainer (band engine, the
+    Gabor loss, B = TEX_B, 36 steps) against its loss terms alone (the
+    ranking, the final state and the aux states' losses and their backward,
+    on states of the same shapes): wall ms by the host clock, device ms from
+    torch.profiler kernel records, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+    from sph_nca_tpu_torch.training.features import (
+        gabor_texture_features,
+        resize_image,
+    )
+    from sph_nca_tpu_torch.training.losses import OTLossConfig
+    from sph_nca_tpu_torch.training.pool import DevicePool
+    from sph_nca_tpu_torch.training.trainer import (
+        TrainConfig,
+        Trainer,
+        make_ot_bundle,
+    )
+    from sph_nca_tpu_torch.utils.image import load_image
+
+    t0 = time.time()
+    h, side = TRAIN_H, TEX_SIDE
+    x2 = grange((side, side), (-1.0, -1.0), (2.0, 2.0)).reshape(-1, 2)
+    eng = build_band_engine(torch.nn.functional.pad(x2, (0, 1)), h,
+                            period=[2.0, 2.0, 2.0], table_dtype="float32",
+                            device=dev)
+    img = resize_image(torch.from_numpy(load_image(DOTTED, TEX_TARGET)).to(
+        dev), (side, side))
+    bundle = make_ot_bundle(img, gabor_texture_features(device=dev),
+                            OTLossConfig(image_size=side, use_alpha=False))
+    cfg = SPHNCAConfig(channels=16, hidden=256, use_alpha=False,
+                       normalize_perception=1.0 / h)
+    tcfg = TrainConfig(batch_size=TEX_B, pool_size=16, steps_range=(36, 37),
+                       steps_increment=0, seed=SEED)
+    trainer = Trainer(cfg, tcfg, eng, x2, bundle, h)
+    pool = DevicePool(x2.numpy(), np.zeros((side * side, 16), np.float32),
+                      16, randomized_feat=True,
+                      rng=np.random.default_rng(SEED), device=dev)
+
+    def iteration():
+        trainer.run_iteration(1, pool)
+
+    def loss_terms():
+        gen = trainer.loss_generator
+        A = torch.rand((5, TEX_B, side * side, 16), device=dev)
+        with torch.no_grad():
+            bundle.per_sample(trainer.x, A[0], gen)
+        A.requires_grad_(True)
+        total = bundle.batch_total(trainer.x, A[0], gen)
+        for s in range(1, 5):
+            total = total + 0.1 * bundle.batch_total(trainer.x, A[s], gen)
+        total.backward()
+
+    out = {}
+    for label, fn in (("iteration", iteration), ("loss", loss_terms)):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t1 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.time() - t1))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0)), ev.count,
+                 ev.key) for ev in prof.key_averages()
+                if ev.device_type != torch.autograd.DeviceType.CPU]
+        kern = [k for k in kern if k[0] > 0]
+        out[label] = (float(np.median(walls)), sum(k[0] for k in kern) / 1e3,
+                      sum(k[1] for k in kern), sorted(kern, reverse=True))
+    it_wall, it_dev, it_n, it_kern = out["iteration"]
+    ls_wall, ls_dev, ls_n, ls_kern = out["loss"]
+    for label, kern in (("iteration", it_kern), ("loss terms", ls_kern)):
+        print(f"  largest kernels of the {label}: " + "; ".join(
+            f"{us / 1e3:.2f} ms x{n} {key[:48]}" for us, n, key in kern[:6]),
+            flush=True)
+    ro_dev, ro_wall = it_dev - ls_dev, it_wall - ls_wall
+    phase("texture-profile", t0, f"one OT training iteration (band engine, "
+          f"gabor, B={TEX_B}, {trainer.last_steps} BPTT steps): "
+          f"{it_wall:.1f} ms wall, {it_dev:.1f} ms device in {it_n} kernels "
+          f"({100 * it_dev / it_wall:.1f}% busy); its loss terms alone "
+          f"(ranking, final + 4 aux, backward): {ls_wall:.1f} ms wall, "
+          f"{ls_dev:.1f} ms device in {ls_n} kernels; the rest (rollout, "
+          f"its backward, the pool, the optimizer): {ro_wall:.1f} ms wall, "
+          f"{ro_dev:.1f} ms device; host-bound share of the iteration "
+          f"{100 * (1 - it_dev / it_wall):.1f}% | {smi}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2812,34 +3512,7 @@ def main() -> int:
         size=(eng.num_cells, eng.slots_per_cell, model.cfg.channels)
     ).astype(np.float32)).to(dev)
     errs = {name: 0.0 for name in KERNELS}  # inference shapes
-    for bucket in (1, 2):
-        xs_b, ab, xw_b, vw_b, wc = bucket_args(eng, S, bucket)
-        real = real_rows(eng, bucket)
-        for use_alpha in (True, False):
-            ga_k, sm_k = PK.fwd_bucket(scal, xs_b, ab, xw_b, vw_b, S, wc,
-                                       use_alpha=use_alpha)
-            ga_p, sm_p = PK.fwd_bucket_plain(scal, xs_b, ab, xw_b, vw_b, S,
-                                             wc, use_alpha=use_alpha)
-            mk = PK.mask_bucket(scal, xs_b, xw_b, vw_b, S, wc,
-                                use_alpha=use_alpha)
-            mp = PK.mask_bucket_plain(scal, xs_b, xw_b, vw_b, S, wc,
-                                      use_alpha=use_alpha)
-            torch.cuda.synchronize()
-            ga_abs, ga_rel = rel_err(ga_k, ga_p, real)
-            sm_abs, sm_rel = rel_err(sm_k, sm_p, real)
-            mk_abs, mk_rel = rel_err(mk, mp, real)
-            print(f"  bucket {bucket} use_alpha={use_alpha}: fwd gA max abs "
-                  f"{ga_abs:.3e} (rel to max {ga_rel:.3e}), fwd sm max abs "
-                  f"{sm_abs:.3e} (rel {sm_rel:.3e}); mask sm max abs "
-                  f"{mk_abs:.3e} (rel {mk_rel:.3e})", flush=True)
-            errs["sph_fwd_kernel"] = max(errs["sph_fwd_kernel"], ga_abs,
-                                         sm_abs)
-            errs["sph_mask_kernel"] = max(errs["sph_mask_kernel"], mk_abs)
-            if not (ga_rel <= GA_RTOL and sm_rel <= SM_RTOL
-                    and mk_rel <= SM_RTOL):
-                fail(f"kernel vs plain out of tolerance (bucket {bucket}, "
-                     f"use_alpha={use_alpha}): gA {ga_rel:.3e} > {GA_RTOL} "
-                     f"or sm {sm_rel:.3e} / {mk_rel:.3e} > {SM_RTOL}")
+    errs.update(check_recompute(eng, S))
     const_field(eng, dev)
     phase("kernels", t0, f"kernel == plain within gA {GA_RTOL} and sm "
           f"{SM_RTOL} of max, a constant field cancels, at {shapes}")
@@ -3434,7 +4107,35 @@ def main() -> int:
             "band-surface-cli": band_surface_cli_phase(dev, smi)}
     del bengines
 
+    # ---- the texture slice: OT training, checkpoints, the test / eval CLIs
+    with tempfile.TemporaryDirectory() as tex_dir:
+        ck, tex_train = texture_train_phase(dev, smi,
+                                            os.path.join(tex_dir, "band"))
+        texture = {"texture-train": {"sph_mlp_kernel": tex_train},
+                   "texture-cells": texture_cells_phase(
+                       dev, smi, os.path.join(tex_dir, "cells"))}
+        cli_counts, final = texture_cli_phase(dev, smi, ck)
+        texture.update({f"texture-cli {label}": c
+                        for label, c in cli_counts.items()})
+        tex_errs = texture_kernels_phase(dev, smi, ck, final)
+    texture["texture-eval"] = {"sph_mlp_kernel": texture_eval_phase(dev, smi)}
+    texture["eval"] = {"sph_mlp_kernel": eval_phase(dev, smi)}
+    if "--profile" in sys.argv[1:]:
+        texture_profile_phase(dev, smi)
+
     kernels = rows + rows_tab + [mlp_row]
+    # the texture paths' launches, by path
+    for row in kernels:
+        counts = {path: c[row["name"]] for path, c in texture.items()
+                  if c.get(row["name"], 0)}
+        if counts:
+            row["texture"] = {"launches": counts,
+                              "launches_path": ", ".join(counts),
+                              "max_abs_err": tex_errs.get(row["name"], {})}
+    missing = [row["name"] for row in kernels if "texture" not in row
+               and row["name"] != "sph_bwd_kernel"]
+    if missing:
+        fail(f"the texture paths launched no {missing}")
     # the batched surface paths: launches of the batched rollout and of each
     # surface CLI run, and the bench shape's numbers
     for row in kernels:

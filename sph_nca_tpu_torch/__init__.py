@@ -9,10 +9,14 @@ to find:
   csrc/      the hand-written sm_90a CUDA kernels (built with plain nvcc)
   native/    the band engine's host build (sphgrid.cpp, built with g++)
   models/    the NCA model, the step and the rollouts, the surface mode
-  training/  the trainer, pools and losses
-  io/        JSON weight loading, and carrying JAX weights across
-  utils/     grids, meshes and seeds
-  cli/       the training and inference command lines
+  training/  the trainer, pools, losses and texture features
+  io/        JSON weights, checkpoints (the JAX package's layout, a
+             flax-free msgpack codec), carrying JAX weights across
+  utils/     grids, meshes, seeds and targets
+  eval.py    PSNR / SSIM, the density sweep, texture statistics
+  cli/       the training, inference and evaluation command lines
+  assets/    targets and two of the JAX package's checkpoints, for the
+             card's machine (no PIL, no runs/)
 
 Every kernel has a plain PyTorch version beside it. A wrapper uses the plain
 version only for tensors on the CPU; for a CUDA tensor it launches the kernel

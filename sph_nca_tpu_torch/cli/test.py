@@ -30,7 +30,9 @@ engine at ``DIFFUSE_H`` = 0.1 when h differs), and writes
 ``--export_every``-th step. Give an output directory outside the source tree:
 a 128x128, 128-step trajectory is ~135 MB.
 
-Texture-mode models (``mode: texture``) derive ``--wrap`` (a periodic plane
+The model comes from ``--weights_json`` or ``--checkpoint`` (a checkpoint
+directory of either package: ``io/checkpoint.py``). Texture-mode models
+(``mode: texture`` in the JSON, ``meta.extra.mode`` in a checkpoint) derive ``--wrap`` (a periodic plane
 in image mode), no alpha and ``--initial_feature random`` (uniform features
 drawn from a ``torch.Generator``: the JAX CLI's law, another stream); image
 models derive the opposite. ``--h`` overrides the model's h whenever it is
@@ -43,7 +45,7 @@ pair kernels hard-wire the poly6 / spiky pair math), with cell engines in
 the surface mode too, where the JAX CLI maps both engine names to band
 engines.
 
-Not ported yet: the graph engine, JAX checkpoints, PNG export.
+Not ported yet: the graph engine, PNG export.
 """
 
 from __future__ import annotations
@@ -75,7 +77,9 @@ def str2bool(v) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--weights_json", type=str, required=True,
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="checkpoint directory (either package's)")
+    p.add_argument("--weights_json", type=str, default="",
                    help="web-demo JSON weights")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--initial_feature", choices=["radial", "random"],
@@ -105,24 +109,35 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def load_model(args, device):
+    """(cfg, params, h) of ``--weights_json`` or ``--checkpoint``; the
+    model's mode (the JSON's ``mode``, a checkpoint's ``meta.extra.mode``)
+    sets the defaults of --use_alpha, --wrap and --initial_feature."""
+    from ..io.checkpoint import load_checkpoint
     from ..io.weights_json import load_weights_json
 
-    m = load_weights_json(args.weights_json, device=device)
-    cfg, h = m.cfg, m.h
+    if args.weights_json:
+        m = load_weights_json(args.weights_json, device=device)
+        cfg, params, h, mode = m.cfg, m.params, m.h, m.mode
+    elif args.checkpoint:
+        ck = load_checkpoint(args.checkpoint, device=device)
+        cfg, params, h = ck["model_cfg"], ck["params"], ck["h"]
+        mode = ck["meta"].get("extra", {}).get("mode", "image")
+    else:
+        raise SystemExit("need --checkpoint or --weights_json")
     # mode-dependent defaults, as the JAX CLI derives them
     if args.use_alpha is None:
-        args.use_alpha = m.mode == "image"
+        args.use_alpha = mode == "image"
     if args.wrap is None:
-        args.wrap = m.mode != "image"
+        args.wrap = mode != "image"
     if args.initial_feature is None:
-        args.initial_feature = "radial" if m.mode == "image" else "random"
+        args.initial_feature = "radial" if mode == "image" else "random"
     overrides = {"fire_rate": args.firerate, "use_alpha": args.use_alpha}
     if args.nca_normalize_perception > 0:
         overrides["normalize_perception"] = args.nca_normalize_perception
     cfg = dataclasses.replace(cfg, **overrides)
     if args.h is not None:
         h = args.h  # explicit override for cross-discretization rollouts
-    return cfg, m.params, h
+    return cfg, params, h
 
 
 def surface_points(path: str, scale: float, numpoints: int,

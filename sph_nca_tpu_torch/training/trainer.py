@@ -18,31 +18,58 @@ kernels through ``rollout_cells`` on the batch. The rollout runs exactly n
 steps (the JAX trainer rounds its length up to a bucket and freezes the
 samples after n). With a ``DevicePool`` the rolled-out states go back to the
 pool on the device.
+
+Draws: the step schedule and the aux states from ``numpy.random.
+default_rng(seed)`` (the JAX trainer's host draws); the fire masks from
+``Trainer.generator`` and the losses' draws (the OT subsamples of the
+ranking and of every loss term, in that order) from ``Trainer.
+loss_generator``, both ``torch.Generator`` on the device (the JAX trainer
+splits its key into rank, rollout and loss keys: the same laws, other
+streams). ``rng_state`` / ``set_rng_state`` and ``opt_state_tree`` /
+``load_opt_state`` carry all of it through a checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Tuple
+import warnings
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..io.checkpoint import adam_from_optax, adam_to_optax
 from ..models.cell_step import rollout_cells, rollout_cells_batched
 from ..models.nca import MLPParams, SPHNCAConfig, init_params
 from ..ops.batched import batched_gather_back, batched_scatter, has_tables
-from .losses import mse_loss, overflow_penalty, rgba_with_margin, target_at
+from .losses import (
+    OTLossConfig,
+    mse_loss,
+    ot_loss,
+    overflow_penalty,
+    rgba_with_margin,
+    target_at,
+)
+
+# the loss generator's seed is the trainer's seed plus this offset, so its
+# stream is not the fire masks'
+LOSS_SEED_OFFSET = 1 << 32
 
 
 class LossBundle(NamedTuple):
     """Loss functions for one training mode.
 
-    per_sample(x, A [B, N, C]) -> [B]   (pool ranking and reporting)
-    batch_total(x, A [B, N, C]) -> scalar  (the trained objective)
+    per_sample(x, A [B, N, C], generator) -> [B]   (pool ranking and
+        reporting)
+    batch_total(x, A [B, N, C], generator) -> scalar  (the trained
+        objective)
+
+    ``generator`` is the trainer's loss generator; the MSE bundle draws
+    nothing and ignores it.
     """
 
-    per_sample: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-    batch_total: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    per_sample: Callable[..., torch.Tensor]
+    batch_total: Callable[..., torch.Tensor]
 
 
 def make_mse_bundle(img: torch.Tensor, mse_cfg) -> LossBundle:
@@ -50,15 +77,34 @@ def make_mse_bundle(img: torch.Tensor, mse_cfg) -> LossBundle:
     packed batch: mean over samples of the MSE plus w * the overflow SUMMED
     over samples."""
 
-    def per_sample(x, A):
+    def per_sample(x, A, generator=None):
         return mse_loss(x, A, img, mse_cfg)
 
-    def batch_total(x, A_batch):
+    def batch_total(x, A_batch, generator=None):
         img_x = target_at(x, img, mse_cfg)
         rgba = rgba_with_margin(A_batch, mse_cfg.use_alpha, margin=None)
         mse_b = torch.mean((rgba - img_x) ** 2, dim=(-2, -1))
         of_b = overflow_penalty(A_batch)
         return torch.mean(mse_b) + mse_cfg.overflow_weight * torch.sum(of_b)
+
+    return LossBundle(per_sample=per_sample, batch_total=batch_total)
+
+
+def make_ot_bundle(target_img: torch.Tensor, feature_fn,
+                   ot_cfg: OTLossConfig) -> LossBundle:
+    """Exemplar-mode losses: ``target_img`` [H, W, >=3] is the exemplar on
+    the particle grid; its features are computed once, without a gradient.
+    The trained objective is the mean of the per-sample losses."""
+    target_rgb = target_img[..., :3]
+    with torch.no_grad():
+        target_feats = [f[0] for f in feature_fn(target_rgb[None])]
+
+    def per_sample(x, A, generator):
+        return ot_loss(x, A, target_feats, target_rgb, feature_fn, generator,
+                       ot_cfg)
+
+    def batch_total(x, A_batch, generator):
+        return torch.mean(per_sample(x, A_batch, generator))
 
     return LossBundle(per_sample=per_sample, batch_total=batch_total)
 
@@ -70,13 +116,33 @@ def normalize_grads_(params) -> None:
             p.grad.div_(torch.linalg.vector_norm(p.grad) + 1e-8)
 
 
+def linear_lr_factor(count: int, end_factor: float,
+                     decay_steps: int) -> float:
+    """The learning-rate factor after ``count`` updates: 1 falling linearly
+    to ``end_factor`` over ``decay_steps`` (optax's ``linear_schedule``)."""
+    return 1.0 + (end_factor - 1.0) * min(count, decay_steps) / decay_steps
+
+
 def make_optimizer(params, lr: float = 3e-3, *, end_factor: float = 0.1,
                    decay_steps: int = 2000):
-    """Adam and its LinearLR(1 -> end_factor over decay_steps) schedule."""
+    """Adam and its linear schedule (1 -> end_factor over decay_steps). The
+    schedule is a ``LambdaLR`` in closed form, so its learning rate at a
+    position depends on the position alone: a checkpoint's update count
+    restores it exactly."""
     opt = torch.optim.Adam(params, lr=lr)
-    sched = torch.optim.lr_scheduler.LinearLR(
-        opt, start_factor=1.0, end_factor=end_factor, total_iters=decay_steps)
+    sched = torch.optim.lr_scheduler.LambdaLR(
+        opt, lambda k: linear_lr_factor(k, end_factor, decay_steps))
     return opt, sched
+
+
+def set_schedule_position(sched, count: int) -> None:
+    """Put a ``make_optimizer`` schedule after ``count`` updates."""
+    sched.last_epoch = count - 1
+    with warnings.catch_warnings():
+        # the step-order warning is about a training loop; this moves the
+        # schedule to a position, before the restored optimizer's next step
+        warnings.filterwarnings("ignore", message="Detected call of")
+        sched.step()
 
 
 def progressive_steps(i: int, steps_range: Tuple[int, int],
@@ -144,6 +210,8 @@ class Trainer:
         self.np_rng = np.random.default_rng(train_cfg.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(train_cfg.seed)
+        self.loss_generator = torch.Generator(device=self.device)
+        self.loss_generator.manual_seed(train_cfg.seed + LOSS_SEED_OFFSET)
         if params is None:
             params = init_params(
                 model_cfg, torch.Generator().manual_seed(train_cfg.seed),
@@ -155,6 +223,32 @@ class Trainer:
             end_factor=train_cfg.lr_end_factor,
             decay_steps=train_cfg.lr_decay_steps)
         self.last_steps = 0  # rollout length of the last iteration
+
+    # -- checkpoint and resume state ----------------------------------------
+
+    def rng_state(self) -> Dict[str, Any]:
+        """The host stream's state and the device generators' states (uint8
+        tensors), for an exact resume."""
+        return {"np_rng": self.np_rng.bit_generator.state,
+                "torch": {"fire": self.generator.get_state(),
+                          "loss": self.loss_generator.get_state()}}
+
+    def set_rng_state(self, np_rng_state, torch_states) -> None:
+        self.np_rng.bit_generator.state = np_rng_state
+        self.generator.set_state(torch_states["fire"])
+        self.loss_generator.set_state(torch_states["loss"])
+
+    def opt_state_tree(self) -> dict:
+        """Adam's state in the layout of the JAX trainer's optax state (see
+        ``io.checkpoint.adam_to_optax``)."""
+        return adam_to_optax(self.optimizer, self.params,
+                             self.cfg.normalize_grads)
+
+    def load_opt_state(self, tree: dict) -> None:
+        """Restore Adam's state and the schedule's position from an optax
+        state tree (a checkpoint's ``opt_state``)."""
+        count = adam_from_optax(self.optimizer, self.params, tree)
+        set_schedule_position(self.scheduler, count)
 
     def _rollout(self, A0: torch.Tensor, n: int, collect):
         """(final [B, N, C], collected [S, B, N, C]) in particle order."""
@@ -184,19 +278,20 @@ class Trainer:
         self.last_steps = n
 
         A0 = torch.as_tensor(A0, device=self.device)
+        gen = self.loss_generator
         with torch.no_grad():
             # replace-worst: rank by per-sample loss, descending and stable,
             # and swap the worst for a fresh seed
-            order = torch.argsort(-self.loss.per_sample(self.x, A0),
+            order = torch.argsort(-self.loss.per_sample(self.x, A0, gen),
                                   stable=True)
         A0 = A0[order]
         A0[0] = seed_A if torch.is_tensor(seed_A) else torch.tensor(seed_A)
 
         final, collected = self._rollout(A0, n, collect)
-        total = self.loss.batch_total(self.x, final)
+        total = self.loss.batch_total(self.x, final, gen)
         for s in range(cfg.aux_states):
             total = total + cfg.aux_weight * self.loss.batch_total(
-                self.x, collected[s])
+                self.x, collected[s], gen)
 
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()

@@ -1013,3 +1013,66 @@ def test_band_engine_has_no_cpu_fallback(cuda):
         BD.blur_band(eng, X)
     with pytest.raises(ValueError, match="no route"):
         BD._pair_dot(eng.Tband.to("meta"), X.to("meta"))
+
+
+# ---- the OT loss (library calls: cuDNN convolutions, cuBLAS products) ----
+
+
+def _ot_inputs(side, b, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(-0.2, 1.2, (b, side * side, 16)).astype(np.float32)
+    target = rng.random((side, side, 3)).astype(np.float32)
+    return torch.from_numpy(A), torch.from_numpy(target)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gabor", "vgg_random"])
+def test_ot_loss_and_grad_on_card_match_cpu(cuda, kind):
+    """The OT loss and its gradient with respect to the states on the card
+    against the CPU, fp32 (TF32 off): 1e-5 of the loss, 1e-4 of the largest
+    |g|. At side 32 every feature set has at most 1024 rows, so the
+    subsample draws do not enter."""
+    from sph_nca_tpu_torch.training import losses as TL
+    from sph_nca_tpu_torch.training.features import get_texture_features
+
+    torch.backends.cudnn.allow_tf32 = False
+    side = 32
+    A, target = _ot_inputs(side, 3, seed=5)
+    cfg = TL.OTLossConfig(image_size=side, use_alpha=False)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        fn = get_texture_features(kind, device=dev)
+        t = target.to(dev)
+        with torch.no_grad():
+            feats = [f[0] for f in fn(t[None])]
+        a = A.to(dev).requires_grad_(True)
+        loss = TL.ot_loss(None, a, feats, t, fn,
+                          torch.Generator(device=dev).manual_seed(0), cfg)
+        loss.sum().backward()
+        assert loss.device.type == dev.type
+        out[dev.type] = (loss.detach().cpu(), a.grad.cpu())
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert torch.allclose(lg, lc, rtol=1e-5, atol=0)
+    assert float((gg - gc).abs().max()) <= 1e-4 * float(gc.abs().max())
+
+
+@pytest.mark.cuda
+def test_ot_subsample_draws_on_the_card(cuda):
+    """Above 1024 rows the loss draws its subsample from a generator on
+    the card: the same seed gives the same loss, another seed another."""
+    from sph_nca_tpu_torch.training import losses as TL
+    from sph_nca_tpu_torch.training.features import gabor_texture_features
+
+    side = 40
+    A, target = _ot_inputs(side, 2, seed=6)
+    fn = gabor_texture_features(device=cuda)
+    t = target.to(cuda)
+    feats = [f[0] for f in fn(t[None])]
+    cfg = TL.OTLossConfig(image_size=side, use_alpha=False)
+
+    def loss(seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return TL.ot_loss(None, A.to(cuda), feats, t, fn, gen, cfg)
+
+    assert torch.equal(loss(0), loss(0))
+    assert not torch.equal(loss(0), loss(1))

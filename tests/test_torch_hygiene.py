@@ -1,7 +1,7 @@
 """Rules of the port that no parity test sees:
 
-* nothing in sph_nca_tpu_torch/ or chip_smoke.py imports JAX or the JAX
-  package (the GPU machine has no JAX);
+* nothing in sph_nca_tpu_torch/ or chip_smoke.py imports JAX, flax, the
+  msgpack package or the JAX package (the GPU machine has none of them);
 * the kernels are built with plain nvcc, never through
   torch.utils.cpp_extension or against torch/extension.h;
 * entry points run on the card unless asked for the CPU, and raise when no
@@ -42,7 +42,8 @@ def _imported_modules(path: Path):
 def test_port_imports_no_jax(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "flax", "optax", "sph_nca_tpu"), (
+        assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                           "ml_dtypes", "sph_nca_tpu"), (
             f"{path.relative_to(ROOT)} imports {mod}")
 
 
@@ -193,3 +194,22 @@ def test_non_poly6_models_are_refused(tmp_path):
                           device="cpu")
     with pytest.raises(ValueError, match="pair_tables"):
         build_cell_engine(x, 0.25, pair_tables="float16", device="cpu")
+
+
+def test_texture_entry_points_raise_without_card(no_card, tmp_path):
+    """The eval CLI, checkpoint loading and the test CLI's --checkpoint run
+    on the card by default, and raise when there is none."""
+    from sph_nca_tpu_torch.cli import eval as cli_eval
+    from sph_nca_tpu_torch.cli import test as cli_test
+    from sph_nca_tpu_torch.io.checkpoint import load_checkpoint
+
+    ck = str(PORT / "assets" / "gecko_full_8000")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(ck)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_eval.main(["--checkpoint", ck])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_test.main(["--checkpoint", ck, "--output_dir", str(tmp_path)])
+    assert os.listdir(tmp_path) == []
+    assert load_checkpoint(ck, device="cpu")["params"].w1.device.type == \
+        "cpu"

@@ -477,14 +477,18 @@ def test_train_cli_weights_run_in_test_cli(tmp_path):
         assert np.isfinite(z["states"]).all()
 
 
-@pytest.mark.parametrize("argv", [["--engine", "graph"], ["--loss", "ot"],
+@pytest.mark.parametrize("argv", [["--engine", "graph"],
+                                  ["--loss", "clip_multiscale"],
                                   ["--target", "x"],
-                                  ["--initial_feature", "random"]])
+                                  ["--optimizer", "SGD"]])
 def test_train_cli_names_unported_modes(tmp_path, argv):
-    with pytest.raises(SystemExit, match="not ported"):
+    """Each entry of the CLI's NOT_PORTED table refuses, by name."""
+    with pytest.raises(SystemExit, match="not ported") as e:
         cli_train.main(["--device", "cpu", "--output_dir", str(tmp_path)]
                        + argv)
     assert os.listdir(tmp_path) == []
+    assert str(e.value).startswith(argv[0])
+    assert len(cli_train.NOT_PORTED) == 4
 
 
 @pytest.mark.parametrize("mode", ["RGBA", "RGB", "L"])
