@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
-toolkit and g++. Sixteen main paths, each driven through its entry point with
+toolkit and g++. Twenty main paths, each driven through its entry point with
 every launch counter set to 0 just before it and read just after:
 
   inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
@@ -61,8 +61,19 @@ every launch counter set to 0 just before it and read just after:
              800-iteration checkpoint of that run (assets/ot_gabor_dotted_800);
   eval       ``cli.eval`` (the density study) on the JAX package's face
              model (assets/gecko_full_8000, target assets/face_target_64.npy)
-             at 0.5 / 1 / 2 / 4x, 160-step rollouts.
-The cell-engine paths above pass ``--engine cells`` to the CLIs.
+             at 0.5 / 1 / 2 / 4x, 160-step rollouts;
+  graph-inference  ``cli.test --engine graph``: the gecko on the fixed-K
+             graph engine (neighbour lists built on the card), 128x128,
+             128 steps;
+  graph-train  ``cli.train --engine graph`` at the JAX train CLI's
+             defaults, 20 iterations and 2 at full depth;
+  graph-surface-cli  ``cli.test --surface --engine graph`` on the
+             procedural mesh, the random and the radial seeds;
+  graph-rebuild  ``models.rollout.rollout_rebuild`` (the lists rebuilt
+             every step) on the gecko's grid, still and drifting.
+The cell-engine paths above pass ``--engine cells`` to the CLIs. The graph
+paths are plain PyTorch (as the JAX package's are XLA): they launch no
+kernel of the port, and the script checks that every counter stays 0.
 
 Phases, each printing one line with its wall time:
 
@@ -212,6 +223,23 @@ Phases, each printing one line with its wall time:
                  the gaps to the JAX package's six cells
   eval           PSNR / SSIM at each density beside the JAX package's; at 1x
                  over seeds 0-7, mean PSNR >= 25 dB and SSIM >= 0.88
+  graph-build    graphs built on the card for the gecko's grid, the train
+                 CLI's and a periodic 64x64: exact lists, each row's
+                 neighbour set equal to the native true pairs, weights
+                 against a float64 build; K, capacities, bytes, seconds
+  graph-ops      on 2,000 points: the general ops against the dense oracle,
+                 the graph ops against the general ops, the float32
+                 gradient in x and A against a float64 one
+  graph-inference  the gecko grows as on the cell engine (alive share within
+                 0.03), no kernel launched; ms a step; 16 steps at
+                 fire_rate 1.0 against the cell engine's kernels
+  graph-train    falling losses, no kernel launched; ms a full-depth
+                 iteration and peak memory; a 4-step BPTT gradient against
+                 the cell engine's batched path (1e-4 of max)
+  graph-surface-cli  the two runs' files, no kernel launched; 16 steps from
+                 each run's final state against the cell engine (1e-4)
+  graph-rebuild  the rebuild without motion equals the static rollout; with
+                 a drift it stays finite and every list exact
 Then one JSON line describing the eight kernels (2.4, 2.6, 2.7 and 2.8 also
 with their launches on the batched surface paths and their numbers at the
 bench shape; 2.8 also with its launches and errors on the band paths; all
@@ -3459,6 +3487,540 @@ def texture_profile_phase(dev, smi) -> None:
           f"{100 * (1 - it_dev / it_wall):.1f}% | {smi}")
 
 
+# ---- the graph engine: fixed-K neighbour lists, plain PyTorch ----------------
+
+# the graph paths launch no kernel of the port: every wrapper's counter stays
+# 0 through them. Their checks: the build's neighbour sets equal the native
+# true pairs; float32 volumes and weights against a float64 build of the same
+# lists, the ops against the dense oracle and the general ops, and the float32
+# gradient in x against a float64 one, each within GRAPH_RTOL of max (float32
+# sums in other orders; TF32 off); rollouts against the cell engine within
+# ROLLOUT_ATOL (the states) or of max (GRAPH_GRAD_RTOL, a 4-step BPTT
+# gradient); the rebuild without motion equals the static rollout within
+# GRAPH_RTOL of max
+GRAPH_RTOL = 1e-5
+GRAPH_GRAD_RTOL = 1e-4
+GRAPH_OPS_N, GRAPH_OPS_H = 2000, 0.15
+GRAPH_TRAIN_ITERS, GRAPH_REBUILD_STEPS, GRAPH_GRAD_STEPS = 20, 16, 4
+
+
+def graph_launches_zero(label: str) -> None:
+    launches = read_launches()
+    if launches != NO_LAUNCHES:
+        fail(f"{label} launched kernels of the port: {launches}")
+
+
+def plane_points(side: int, use_3d: bool = True):
+    """The CLIs' particle plane: (x [N, 3] padded with z = 0, x2 [N, 2])."""
+    x2 = grange((side, side), (-1.0, -1.0), (2.0, 2.0)).reshape(-1, 2)
+    return (torch.nn.functional.pad(x2, (0, 1)) if use_3d else x2), x2
+
+
+def graph_build_phase(dev, smi) -> dict:
+    """[graph-build]: suggest_capacity and build_graph on the card for the
+    gecko's grid (128x128, h = 0.1), the train CLI's (128x128 in 3D,
+    h = 0.08) and a periodic 64x64 (h = 0.08, period 2): exact lists on the
+    first build, each row's neighbour set equal to the native true pairs,
+    volumes and weights within GRAPH_RTOL of max of a float64 build of the
+    same lists (gv_sum against the largest |gv|: on a regular grid the sum
+    cancels to ~0). Returns the graphs by label."""
+    t0 = time.time()
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    gecko_h = load_weights_json(GECKO, device="cpu").h
+    cases = {"gecko": (IMAGE, gecko_h, None),
+             "train": (IMAGE, TRAIN_H, None),
+             "periodic": (64, TRAIN_H, [2.0, 2.0, 2.0])}
+    graphs, lines = {}, []
+    for label, (side, h, period) in cases.items():
+        x = plane_points(side)[0]
+        dims = HG.default_dims(h)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        mpc, k = HG.suggest_capacity(x, h, dims, period=period)
+        t2 = time.time()
+        xd = x.to(dev)
+        nl = HG.build_neighbor_list(xd, h, dims, max_per_cell=mpc, k=k,
+                                    period=period)
+        g = HG.graph_from_neighbor_list(xd, h, nl, period=period)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        dropped = int(nl.num_dropped)
+        if dropped != 0:
+            fail(f"graph build ({label}) dropped {dropped} neighbours")
+        # each row's neighbour set against the native true pairs (which
+        # take positions canonical to one period), as sorted (row,
+        # neighbour) keys
+        xc = x.numpy().astype(np.float64)
+        if period is not None:
+            xc = xc - np.floor(xc / period) * period
+        pi, pj = native.true_pairs(xc, h, period)[:2]
+        n = x.shape[0]
+        want = np.sort(pi.astype(np.int64) * n + pj)
+        idx, valid = g.idx.cpu().numpy(), g.valid.cpu().numpy()
+        rows = np.nonzero(valid)[0].astype(np.int64)
+        got = np.sort(rows * n + idx[valid])
+        if not np.array_equal(got, want):
+            fail(f"graph build ({label}): neighbour sets differ from the "
+                 f"native true pairs ({got.size} against {want.size} pairs)")
+        g64 = HG.graph_from_neighbor_list(xd.double(), h, nl, period=period)
+        # gv_sum against the scale of its terms: on a regular grid it
+        # cancels to ~0
+        gaps = {name: float((getattr(g, name).double()
+                             - getattr(g64, name)).abs().max()
+                            / getattr(g64, scale).abs().max())
+                for name, scale in (("v", "v"), ("wv", "wv"), ("gv", "gv"),
+                                    ("gv_sum", "gv"))}
+        if not max(gaps.values()) <= GRAPH_RTOL:
+            fail(f"graph build ({label}) against float64: {gaps}")
+        del g64
+        graphs[label] = g
+        lines.append(
+            f"{label} N={n} h={h}{' periodic' if period else ''}: "
+            f"max_per_cell={mpc} K={k}, {valid.sum(1).max()} neighbours at "
+            f"most, {valid.sum() / n:.1f} a particle, {g.nbytes() / 1e6:.1f} "
+            f"MB; capacity {t2 - t1:.3f} s (host), lists and weights "
+            f"{t3 - t2:.3f} s (card); float64 gap "
+            f"{max(gaps.values()):.3e} of max")
+    for line in lines:
+        print(f"  {line}", flush=True)
+    phase("graph-build", t0, "graph engines built on the card: exact lists "
+          f"equal to the native true pairs, weights within {GRAPH_RTOL} of "
+          f"max of a float64 build | {smi}")
+    return graphs
+
+
+def graph_ops_phase(dev, smi) -> None:
+    """[graph-ops]: on GRAPH_OPS_N random points on the card, the general
+    neighbour ops against the dense oracle, the graph ops against the
+    general ops, and the float32 gradient in x (and A) of a scalar of the
+    general gradient and blur against a float64 autograd, within GRAPH_RTOL
+    of max."""
+    t0 = time.time()
+    from sph_nca_tpu_torch.ops import dense as DN
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+    from sph_nca_tpu_torch.ops import neighbor_ops as NO
+
+    rng = np.random.default_rng(SEED + 5)
+    x = rng.uniform(-1, 1, (GRAPH_OPS_N, 3)).astype(np.float32)
+    x[:, 2] *= 0.1
+    h, period = GRAPH_OPS_H, None
+    dims = HG.default_dims(h)
+    mpc, k = HG.suggest_capacity(x, h, dims)
+    xd = torch.from_numpy(x).to(dev)
+    nl = HG.build_neighbor_list(xd, h, dims, max_per_cell=mpc, k=k)
+    g = HG.graph_from_neighbor_list(xd, h, nl)
+    A = normal_cuda(rng, (GRAPH_OPS_N, 16), dev)
+    V = normal_cuda(rng, (GRAPH_OPS_N, 16, 3), dev)
+    R = normal_cuda(rng, (GRAPH_OPS_N, 16, 3), dev)
+    gaps = {}
+
+    def hold(name, got, want):
+        gaps[name] = float((got.double() - want.double()).abs().max()
+                           / want.double().abs().max())
+
+    v = NO.volume(xd, h, nl)
+    hold("volume vs dense", v, DN.volume(xd, h))
+    for name, op, dop, inp in (("gradient", NO.gradient, DN.gradient, A),
+                               ("divergence", NO.divergence, DN.divergence,
+                                V),
+                               ("blur", NO.blur, DN.blur, A)):
+        hold(f"{name} vs dense", op(xd, v, inp, h, nl), dop(xd, v, inp, h))
+    if not torch.equal(NO.count(xd, h, nl), DN.count(xd, h)):
+        fail("graph ops: neighbour counts differ from the dense count")
+    hold("graph_gradient vs general", NO.graph_gradient(g, A),
+         NO.gradient(xd, g.v, A, h, nl))
+    hold("graph_blur vs general", NO.graph_blur(g, A),
+         NO.blur(xd, g.v, A, h, nl))
+    hold("graph_divergence vs general", NO.graph_divergence(g, V),
+         NO.divergence(xd, g.v, V, h, nl))
+    grads = {}
+    for dt in (torch.float32, torch.float64):
+        xg = xd.to(dt).clone().requires_grad_(True)
+        Ag = A.to(dt).clone().requires_grad_(True)
+        vg = NO.volume(xg, h, nl)
+        (torch.sum(NO.gradient(xg, vg, Ag, h, nl) * R.to(dt))
+         + torch.sum(NO.blur(xg, vg, Ag, h, nl) * R[..., 0].to(dt))
+         ).backward()
+        grads[dt] = (xg.grad, Ag.grad)
+    hold("d/dx vs float64", grads[torch.float32][0], grads[torch.float64][0])
+    hold("d/dA vs float64", grads[torch.float32][1], grads[torch.float64][1])
+    torch.cuda.synchronize()
+    print("  " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()),
+          flush=True)
+    if not max(gaps.values()) <= GRAPH_RTOL:
+        fail(f"graph ops out of tolerance: {gaps}")
+    phase("graph-ops", t0, f"{GRAPH_OPS_N} points, h={h}, K={k}: general "
+          f"ops == dense, graph ops == general ops, float32 gradients == "
+          f"float64, within {GRAPH_RTOL} of max | {smi}")
+
+
+def graph_inference_phase(dev, smi, alive_cells: float) -> dict:
+    """[graph-inference]: the test CLI's image mode with --engine graph on
+    the gecko (IMAGE x IMAGE, STEPS steps, fire_rate 0.5): no kernel
+    launched, the gecko grows to within ALIVE_ATOL of the cell-engine CLI's
+    alive share (same seed, another fire stream); ms per step of
+    rollout_states on the CLI's graph; CHECK_STEPS steps at fire_rate 1.0
+    against the cell engine's rollout through kernels 2.1 / 2.3 (ROLLOUT_ATOL
+    of max)."""
+    t0 = time.time()
+    from sph_nca_tpu_torch.models.rollout import rollout_states
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_launches()
+        t1 = time.time()
+        rc = cli_test.main([
+            "--weights_json", GECKO, "--image_size", str(IMAGE), "--steps",
+            str(STEPS), "--firerate", "0.5", "--seed", str(SEED),
+            "--output_dir", out_dir, "--device", "cuda", "--engine",
+            "graph"])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t1
+        graph_launches_zero("the graph test CLI")
+        if rc != 0:
+            fail(f"graph test CLI returned {rc}")
+        (run,) = os.listdir(out_dir)
+        with np.load(os.path.join(out_dir, run, "states.npz")) as z:
+            states = z["states"]
+    if (states.shape != (STEPS + 1, IMAGE * IMAGE, 16)
+            or not np.isfinite(states).all()):
+        fail(f"graph test CLI trajectory {states.shape}, finite "
+             f"{np.isfinite(states).all()}")
+    alive0 = float((states[0][:, 3] > 0.1).mean())
+    alive = float((states[-1][:, 3] > 0.1).mean())
+    if not (alive0 < alive < 0.5 and abs(alive - alive_cells) <= ALIVE_ATOL):
+        fail(f"the graph gecko: alive {alive0} -> {alive}, cell engine "
+             f"{alive_cells}")
+
+    model = load_weights_json(GECKO, device=dev)
+    h = model.h
+    x, x2 = plane_points(IMAGE)
+    dims = HG.default_dims(h)
+    mpc, k = HG.suggest_capacity(x, h, dims)
+    g = HG.build_graph(x.to(dev), h, dims, max_per_cell=mpc, k=k)
+    A0 = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                    radius=h).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        rollout_states(model.params, model.cfg, g, A0, gen, 4, h)  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.time()
+        rollout_states(model.params, model.cfg, g, A0, gen, STEPS, h)
+        torch.cuda.synchronize()
+        step_ms = (time.time() - t1) * 1e3 / STEPS
+        cfg1 = dataclasses.replace(model.cfg, fire_rate=1.0)
+        got = rollout_states(model.params, cfg1, g, A0, gen, CHECK_STEPS,
+                             h)[-1]
+        eng = build_cell_engine(x, h, device=dev)
+        want = eng.gather_back(rollout_cells(
+            model.params, cfg1, eng, eng.scatter(A0), gen, CHECK_STEPS, h))
+    gap = float((got - want).abs().max() / want.abs().max())
+    phase("graph-inference", t0, f"test CLI --engine graph, gecko {IMAGE}x"
+          f"{IMAGE}, {STEPS} steps at fire_rate 0.5 in {cli_s:.2f} s, no "
+          f"kernel launched: alive {alive0:.4f} -> {alive:.4f} (cell engine "
+          f"{alive_cells:.4f}, limit {ALIVE_ATOL}); rollout_states "
+          f"{step_ms:.4f} ms a step (host clock around synchronize, K={g.k}, "
+          f"{g.nbytes() / 1e6:.1f} MB); {CHECK_STEPS} steps at fire_rate 1.0 "
+          f"against the cell engine (kernels 2.1 / 2.3): {gap:.3e} of max "
+          f"(limit {ROLLOUT_ATOL}) | {smi}")
+    if not gap <= ROLLOUT_ATOL:
+        fail(f"graph rollout departs from the cell engine's by {gap:.3e}")
+    return {"step_ms": step_ms, "alive": alive}
+
+
+def graph_train_phase(dev, smi) -> dict:
+    """[graph-train]: the train CLI with --engine graph at the JAX train
+    CLI's defaults (128x128 in 3D, h = 0.08, batch 8, pool 1024, 32-48
+    steps after the warm-up) for GRAPH_TRAIN_ITERS iterations (the loss
+    falls; no kernel launched) and DEPTH_ITERS at full depth (ms an
+    iteration, peak memory); then a GRAPH_GRAD_STEPS-step BPTT gradient at
+    fire_rate 1.0 (the gecko from the seed, B = 8) against the cell engine's
+    batched path on float32 tables (kernels 2.4-2.6, 2.8) within
+    GRAPH_GRAD_RTOL of max (and, printed, against the graph in float64)."""
+    t0 = time.time()
+    from sph_nca_tpu_torch.models.rollout import rollout_batch
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_launches()
+        rows = run_train_cli(out_dir, ["--training_iter",
+                                       str(GRAPH_TRAIN_ITERS)],
+                             engine="graph")
+        graph_launches_zero("the graph train CLI")
+    losses = [r["loss"] for r in rows]
+    if not (len(losses) == GRAPH_TRAIN_ITERS and np.isfinite(losses).all()
+            and np.mean(losses[-5:]) < np.mean(losses[:5])):
+        fail(f"graph train CLI losses {losses}")
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.reset_peak_memory_stats()
+        deep = run_train_cli(out_dir, ["--training_iter", str(DEPTH_ITERS),
+                                       "--steps_increment", "0"],
+                             engine="graph")
+        peak = torch.cuda.max_memory_allocated()
+    iter_ms = [1e3 * r["seconds"] for r in deep]
+
+    # the gecko model from the train CLI's seed (radius h) on its grid:
+    # few states near the alive threshold, so the two engines' float32
+    # rounding flips no life mask (random dense states flip some in 4 steps)
+    h = TRAIN_H
+    x, x2 = plane_points(IMAGE)
+    dims = HG.default_dims(h)
+    mpc, k = HG.suggest_capacity(x, h, dims)
+    g = HG.build_graph(x.to(dev), h, dims, max_per_cell=mpc, k=k)
+    model = load_weights_json(GECKO, device=dev)
+    cfg = dataclasses.replace(model.cfg, fire_rate=1.0)
+    p0 = model.params
+    A0 = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                    radius=h).to(dev)
+    A0 = A0.expand(TRAIN_B, -1, -1).contiguous()
+    W = normal_cuda(np.random.default_rng(SEED + 6), tuple(A0.shape), dev)
+    eng = build_cell_engine(x, h, pair_tables="float32", device=dev)
+    grads = {}
+    for label in ("graph", "graph float64", "cells"):
+        dt = torch.float64 if label == "graph float64" else torch.float32
+        p = type(p0)(*(t.to(dt).clone().requires_grad_(True) for t in p0))
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        if label.startswith("graph"):
+            gl = g if dt == torch.float32 else HG.graph_from_neighbor_list(
+                x.to(dev, dt), h, HG.NeighborList(g.idx, g.valid, None))
+            final = rollout_batch(p, cfg, gl, A0.to(dt), gen,
+                                  GRAPH_GRAD_STEPS, h).final
+        else:
+            final = batched_gather_back(eng, rollout_cells_batched(
+                p, cfg, eng, batched_scatter(eng, A0), TRAIN_B, gen,
+                GRAPH_GRAD_STEPS, h), TRAIN_B)
+        torch.sum(final * W.to(dt)).backward()
+        grads[label] = [t.grad.double() for t in p]
+    if not all(float(b.abs().max()) > 0 for b in grads["cells"]):
+        fail("graph-train: a parameter gradient of the check is 0")
+    gaps = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(grads["graph"], grads["cells"])]
+    gaps64 = [float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(grads["graph"], grads["graph float64"])]
+    phase("graph-train", t0, f"train CLI --engine graph, {GRAPH_TRAIN_ITERS} "
+          f"iterations: loss {np.mean(losses[:5]):.4f} -> "
+          f"{np.mean(losses[-5:]):.4f} (mean of the first / last 5), no "
+          f"kernel launched; {DEPTH_ITERS} full-depth iterations (steps "
+          f"{[r['steps'] for r in deep]}): "
+          + ", ".join(f"{ms:.1f}" for ms in iter_ms)
+          + f" ms (host clock), peak memory {peak / 2**30:.2f} GiB; K={g.k}; "
+          f"{GRAPH_GRAD_STEPS}-step BPTT gradient at fire_rate 1.0 (the "
+          f"gecko from the seed, B={TRAIN_B}) against the cell engine's "
+          f"batched path: "
+          + ", ".join(f"{n} {v:.3e}" for n, v in zip(p0._fields, gaps))
+          + f" of max (limit {GRAPH_GRAD_RTOL}); against the graph in "
+          f"float64: " + ", ".join(f"{v:.3e}" for v in gaps64) + f" | {smi}")
+    if not max(gaps) <= GRAPH_GRAD_RTOL:
+        fail(f"graph BPTT gradient departs from the cell engine's: {gaps}")
+    return {"iter_ms": iter_ms, "peak_bytes": peak}
+
+
+def graph_surface_cli_phase(dev, smi) -> None:
+    """[graph-surface-cli]: cli.test --surface --engine graph on the
+    procedural mesh, SURF_N points, SURF_STEPS steps: stripes (the random
+    seed, pre-diffused on a float32 band engine at radius 0.2) and gecko
+    (radial seeds): the files, no kernel launched; then the engine-to-
+    engine check: CHECK_STEPS steps at fire_rate 1.0 from each run's final
+    state with the random seed's tangent field, rollout_mesh on the CLI's
+    graphs and the cell engine's rollout_mesh_batched_dual (float32 tables,
+    the table kernels, a float32 MLP), each within ROLLOUT_ATOL (states and
+    tangents) of the same rollout on the graphs in float64; their distance
+    to each other is printed (the texture model's steps amplify each
+    engine's rounding: 1.02e-04 in 16 steps on an H100)."""
+    t0 = time.time()
+    from sph_nca_tpu_torch.models.surface import DIFFUSE_DIMS, rollout_mesh
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    runs = {"stripes-random": STRIPES, "gecko-radial": GECKO}
+    every = 16
+    finals, lines = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = write_mesh_obj(os.path.join(tmp, "bumpy.obj"))
+        for label, weights in runs.items():
+            out_dir = os.path.join(tmp, label)
+            reset_launches()
+            t1 = time.time()
+            rc = cli_test.main([
+                "--weights_json", weights, "--surface", obj,
+                "--surface_numpoints", str(SURF_N), "--steps",
+                str(SURF_STEPS), "--export_every", str(every), "--seed",
+                str(SEED), "--device", "cuda", "--output_dir", out_dir,
+                "--engine", "graph"])
+            torch.cuda.synchronize()
+            secs = time.time() - t1
+            graph_launches_zero(f"the graph surface CLI ({label})")
+            if rc != 0:
+                fail(f"graph surface CLI ({label}) returned {rc}")
+            (run,) = os.listdir(out_dir)
+            run = os.path.join(out_dir, run)
+            with np.load(os.path.join(run, "states.npz")) as z:
+                x, states = z["x"], z["states"]
+            if (x.shape != (SURF_N, 3)
+                    or states.shape != (SURF_STEPS + 1, SURF_N, 16)
+                    or not np.isfinite(states).all()
+                    or np.abs(x).max() > 1 + 1e-5):
+                fail(f"graph surface CLI ({label}): shapes {x.shape} "
+                     f"{states.shape}, non-finite states or points off the "
+                     "normalized mesh")
+            names = sorted(f for f in os.listdir(run) if f.endswith(".ply"))
+            if names != [f"{i:04d}.ply"
+                         for i in range(0, SURF_STEPS + 1, every)]:
+                fail(f"graph surface CLI ({label}) PLY files {names}")
+            for name in names:
+                pts, rgba = load_ply_points(os.path.join(run, name))
+                if not (np.array_equal(pts, x)
+                        and rgba.shape == (SURF_N, 4)):
+                    fail(f"graph surface CLI ({label}) {name}: wrong points")
+            finals[label] = states[-1]
+            live = [float((np.abs(states[k]).max(-1) > 0).mean())
+                    for k in (0, SURF_STEPS)]
+            lines.append(f"{label} {secs:.2f} s, {len(names)} PLY files, "
+                         f"share of points not 0 at steps 0 and "
+                         f"{SURF_STEPS}: {live[0]:.4f} {live[1]:.4f}")
+        xs, nrm, _ = cli_test.surface_points(
+            obj, 1.0, SURF_N, np.random.default_rng(SEED), dev)
+    if not np.array_equal(xs, x):
+        fail("graph surface CLI: the points differ from surface_points'")
+    xt, nt = torch.from_numpy(xs).to(dev), torch.from_numpy(nrm).to(dev)
+    with torch.no_grad():
+        peng = build_cell_engine(xs, cli_test.SEED_RADIUS_RANDOM,
+                                 pair_tables="float32", w6_only=True,
+                                 device=dev)
+        t_seed = surface_random_seed(
+            xt, nt, 16, np.random.default_rng(SEED),
+            torch.Generator(device=dev).manual_seed(SEED), peng,
+            cli_test.PREDIFFUSE_PASSES)[1]
+        del peng
+        for label, weights in runs.items():
+            model = load_weights_json(weights, device=dev)
+            h = model.h
+            cfg = dataclasses.replace(model.cfg, fire_rate=1.0,
+                                      use_alpha=model.mode == "image")
+            g = cli_test.graph_engine(xt, h, HG.default_dims(h), None,
+                                      cfg.smoothing)
+            gd = (g if abs(h - DIFFUSE_H) < 1e-9 else cli_test.graph_engine(
+                xt, DIFFUSE_H, DIFFUSE_DIMS, None, cfg.smoothing))
+            eng = build_cell_engine(xs, h, pair_tables="float32", device=dev)
+            A = torch.from_numpy(finals[label]).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            out = {"graph": rollout_mesh(model.params, cfg, g, gd, A, nt,
+                                         t_seed, gen, CHECK_STEPS, h)[:2]}
+            cA, cT = rollout_mesh_batched_dual(
+                model.params, cfg, eng, eng, A[None], nt, t_seed[None], gen,
+                CHECK_STEPS, h)
+            out["cells"] = (cA[0], cT[0])
+            # the reference: the same rollout on the graphs in float64
+            def f64(e, r):
+                return HG.graph_from_neighbor_list(
+                    xt.double(), r, HG.NeighborList(e.idx, e.valid, None),
+                    smoothing=cfg.smoothing)
+
+            g64 = f64(g, h)
+            gd64 = g64 if gd is g else f64(gd, DIFFUSE_H)
+            ref = rollout_mesh(
+                type(model.params)(*(t.double() for t in model.params)),
+                cfg, g64, gd64, A.double(), nt.double(), t_seed.double(),
+                gen, CHECK_STEPS, h)[:2]
+
+            def dist(a, b):
+                return max(float((a[0].double() - b[0]).abs().max()),
+                           float((a[1].double() - b[1]).abs().max()))
+
+            gaps = {k: dist(v, ref) for k, v in out.items()}
+            pair = dist(out["graph"], [t.double() for t in out["cells"]])
+            lines.append(f"{label}: K={g.k}, {CHECK_STEPS} steps from the "
+                         f"final state, states and tangents against float64 "
+                         f"graphs: graph {gaps['graph']:.3e}, cell engine "
+                         f"{gaps['cells']:.3e}; graph against the cell "
+                         f"engine {pair:.3e}")
+            if not max(gaps.values()) <= ROLLOUT_ATOL:
+                fail(f"graph surface rollout ({label}): {gaps} from the "
+                     "float64 rollout")
+            del g, gd, eng, g64, gd64
+    for line in lines:
+        print(f"  {line}", flush=True)
+    phase("graph-surface-cli", t0, f"test CLI --surface --engine graph on "
+          f"the procedural mesh, {SURF_N} points, {SURF_STEPS} steps, no "
+          f"kernel launched; {CHECK_STEPS} steps at fire_rate 1.0 on the "
+          f"graphs and on the cell engine, each within {ROLLOUT_ATOL} of "
+          f"the float64 graphs' | {smi}")
+
+
+def graph_rebuild_phase(dev, smi) -> None:
+    """[graph-rebuild]: rollout_rebuild on the gecko's grid (IMAGE x IMAGE
+    in 3D, GRAPH_REBUILD_STEPS steps at fire_rate 1.0): without motion it
+    equals rollout_states on the static graph within GRAPH_RTOL of max; with
+    the drift x + 0.01 sin(3 x reversed) (tests/test_rollout.py) it stays
+    finite, every list exact at capacities sized for the drifted positions
+    (the largest suggest_capacity over the trajectory)."""
+    t0 = time.time()
+    from sph_nca_tpu_torch.models.rollout import rollout_rebuild, rollout_states
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    model = load_weights_json(GECKO, device=dev)
+    h = model.h
+    cfg = dataclasses.replace(model.cfg, fire_rate=1.0)
+    x, x2 = plane_points(IMAGE)
+    xd = x.to(dev)
+    A0 = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                    radius=h).to(dev)
+    dims = HG.default_dims(h)
+
+    def drift(x, A, t):
+        return x + 0.01 * torch.sin(3.0 * x.flip(-1))
+
+    caps, xt = [], xd
+    for t in range(GRAPH_REBUILD_STEPS + 1):
+        caps.append(HG.suggest_capacity(xt, h, dims))
+        xt = drift(xt, None, t)
+    mpc, k = max(c[0] for c in caps), max(c[1] for c in caps)
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        _, _, still, dropped0 = rollout_rebuild(
+            model.params, cfg, xd, A0, gen, GRAPH_REBUILD_STEPS, h, dims,
+            max_per_cell=mpc, k=k)
+        g = HG.build_graph(xd, h, dims, max_per_cell=mpc, k=k)
+        static = rollout_states(model.params, cfg, g, A0, gen,
+                                GRAPH_REBUILD_STEPS, h)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        xf, Af, moved, dropped = rollout_rebuild(
+            model.params, cfg, xd, A0, gen, GRAPH_REBUILD_STEPS, h, dims,
+            max_per_cell=mpc, k=k, advect=drift)
+        torch.cuda.synchronize()
+        moved_ms = (time.time() - t1) * 1e3 / GRAPH_REBUILD_STEPS
+    gap = float((still - static).abs().max() / static.abs().max())
+    shift = float((xf - xd).norm(dim=-1).max())
+    ok = (gap <= GRAPH_RTOL and bool(torch.isfinite(moved).all())
+          and int(dropped0.abs().sum()) == 0 and int(dropped.abs().sum()) == 0)
+    phase("graph-rebuild", t0, f"rollout_rebuild, gecko {IMAGE}x{IMAGE}, "
+          f"{GRAPH_REBUILD_STEPS} steps at fire_rate 1.0, capacities "
+          f"{mpc} / {k}: without motion vs rollout_states {gap:.3e} of max "
+          f"(limit {GRAPH_RTOL}); drifting (largest shift {shift:.4f}): "
+          f"finite {bool(torch.isfinite(moved).all())}, dropped per step "
+          f"{dropped.tolist()}, {moved_ms:.2f} ms a step with its rebuild "
+          f"(host clock) | {smi}")
+    if not ok:
+        fail("graph rebuild: static gap, non-finite states or dropped "
+             "neighbours")
+
+
+def graph_phases(dev, smi, alive_cells: float) -> dict:
+    """The graph engine's phases in order; returns their numbers and
+    seconds."""
+    t0 = time.time()
+    graph_build_phase(dev, smi)
+    graph_ops_phase(dev, smi)
+    out = {"inference": graph_inference_phase(dev, smi, alive_cells),
+           "train": graph_train_phase(dev, smi)}
+    graph_surface_cli_phase(dev, smi)
+    graph_rebuild_phase(dev, smi)
+    out["seconds"] = time.time() - t0
+    phase("graph", t0, "the graph engine's phases together")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4122,6 +4684,9 @@ def main() -> int:
     texture["eval"] = {"sph_mlp_kernel": eval_phase(dev, smi)}
     if "--profile" in sys.argv[1:]:
         texture_profile_phase(dev, smi)
+
+    # ---- the graph engine: the oracle tier, no kernel of the port ---------
+    graph_phases(dev, smi, alive)
 
     kernels = rows + rows_tab + [mlp_row]
     # the texture paths' launches, by path

@@ -4,8 +4,9 @@ The counterpart of ``sph_nca_tpu`` (JAX/Pallas), written for an NVIDIA
 Hopper GPU. The layout mirrors the JAX package so each counterpart is easy
 to find:
 
-  ops/       SPH kernel functions, the cell and band engines, the pair-pass
-             kernels
+  ops/       SPH kernel functions, the cell, band and graph engines (the
+             graph: fixed-K neighbour lists, the dense oracle), the
+             pair-pass kernels
   csrc/      the hand-written sm_90a CUDA kernels (built with plain nvcc)
   native/    the band engine's host build (sphgrid.cpp, built with g++)
   models/    the NCA model, the step and the rollouts, the surface mode

@@ -1,8 +1,8 @@
-"""Inference CLI of the port: image-mode and 3D-surface rollouts on the band or
-cell engine.
+"""Inference CLI of the port: image-mode and 3D-surface rollouts on the band,
+cell or graph engine.
 
 Counterpart of ``sph_nca_tpu/cli/test.py`` for ``--engine band`` (the
-default) and ``--engine cells``. Image mode:
+default), ``--engine cells`` and ``--engine graph``. Image mode:
 
     python -m sph_nca_tpu_torch.cli.test \
         --weights_json sph_nca_tpu/demo/web/weights/gecko.json \
@@ -13,7 +13,9 @@ writes ``<output_dir>/sphnca-test-<time>/states.npz`` (grid positions ``x``
 the band engine it builds bfloat16 tables and runs the batched rollout
 (``models.cell_step.rollout_cells_batched``) at B = 1 with every state kept,
 as the JAX CLI does; on the cell engine the recompute kernels
-(``rollout_states_cells``). 3D surface mode:
+(``rollout_states_cells``); on the graph engine (``ops/hashgrid.py``: fixed-K
+neighbour lists built on the device, capacities from the native grid
+analyzer) ``models.rollout.rollout_states``, plain PyTorch. 3D surface mode:
 
     python -m sph_nca_tpu_torch.cli.test \
         --weights_json sph_nca_tpu/demo/web/weights/stripes.json \
@@ -25,7 +27,9 @@ device), seeds it (``--initial_feature radial``: ``--surface_numseed`` radial
 seeds; ``random``: a pre-diffused tangent field at radius 0.2 and uniform
 features), runs ``models.surface.rollout_mesh_batched_dual`` at B = 1 on an
 engine with bfloat16 tables at the model's h (the diffusion on a second
-engine at ``DIFFUSE_H`` = 0.1 when h differs), and writes
+engine at ``DIFFUSE_H`` = 0.1 when h differs; with ``--engine graph``,
+``models.surface.rollout_mesh`` on a model graph and a diffusion graph at
+``DIFFUSE_H`` / ``DIFFUSE_DIMS``), and writes
 ``states.npz`` (``x`` [N, 3], ``states``) and one binary PLY point cloud per
 ``--export_every``-th step. Give an output directory outside the source tree:
 a 128x128, 128-step trajectory is ~135 MB.
@@ -38,14 +42,16 @@ drawn from a ``torch.Generator``: the JAX CLI's law, another stream); image
 models derive the opposite. ``--h`` overrides the model's h whenever it is
 given (the JAX CLI ignores an explicit ``--h 0.08``, its parser default).
 
-The band engine (``ops/bands.py``) runs every smoothing kernel; the random
-seed pre-diffuses its tangents on a float32 band engine at radius 0.2, as the
-JAX CLI does. ``--engine cells`` runs poly6 models only (the cell engine's
-pair kernels hard-wire the poly6 / spiky pair math), with cell engines in
-the surface mode too, where the JAX CLI maps both engine names to band
-engines.
+The band and graph engines run every smoothing kernel (the graphs are built
+with the model's, where the JAX CLI builds its graphs with poly6, the
+kernel of both shipped models); the random seed pre-diffuses its tangents on
+a float32 band engine at radius 0.2, as the JAX CLI does, also with
+``--engine graph``. ``--engine cells`` runs poly6 models only (the cell
+engine's pair kernels hard-wire the poly6 / spiky pair math), with cell
+engines in the surface mode too, where the JAX CLI maps both engine names to
+band engines.
 
-Not ported yet: the graph engine, PNG export.
+Not ported yet: PNG export.
 """
 
 from __future__ import annotations
@@ -168,10 +174,25 @@ def surface_points(path: str, scale: float, numpoints: int,
     return pts[sel], nrm[sel], time.time() - t0
 
 
+def graph_engine(x: torch.Tensor, h: float, dims, period, smoothing):
+    """The graph engine of ``--engine graph`` on x's device: capacities from
+    the native grid analyzer, then ``build_graph`` (exact lists)."""
+    from ..ops.hashgrid import build_graph, suggest_capacity
+
+    mpc, k = suggest_capacity(x, h, dims, period=period)
+    return build_graph(x, h, dims, max_per_cell=mpc, k=k, period=period,
+                       smoothing=smoothing)
+
+
 def _describe(eng) -> str:
     """One line of an engine's shape and table bytes."""
     from ..ops.bands import BandEngine
+    from ..ops.hashgrid import SPHGraph
 
+    if isinstance(eng, SPHGraph):
+        return (f"graph N={eng.n} K={eng.k}, "
+                f"{int(eng.valid.sum()) / eng.n:.1f} neighbours a particle, "
+                f"{eng.nbytes() / 1e6:.1f} MB")
     if isinstance(eng, BandEngine):
         band_b, far_b = eng.table_bytes()
         widths = ", ".join(str(g.shape[1]) for g in eng.far_groups)
@@ -193,9 +214,15 @@ def _describe(eng) -> str:
 def run_surface(args, cfg, params, h, device, gen) -> str:
     """The 3D surface mode; returns the run's output directory."""
     from ..models.nca import to_rgba
-    from ..models.surface import DIFFUSE_H, rollout_mesh_batched_dual
+    from ..models.surface import (
+        DIFFUSE_DIMS,
+        DIFFUSE_H,
+        rollout_mesh,
+        rollout_mesh_batched_dual,
+    )
     from ..ops.bands import build_band_engine
     from ..ops.cells import build_cell_engine
+    from ..ops.hashgrid import default_dims
     from ..utils.meshes import save_ply
     from ..utils.seeds import surface_radial_seed, surface_random_seed
 
@@ -210,22 +237,30 @@ def run_surface(args, cfg, params, h, device, gen) -> str:
     print(f"surface: {x.shape[0]} points by farthest-point sampling in "
           f"{fps_s:.2f}s", flush=True)
 
-    def engine(radius, tables, w6_only, smoothing=cfg.smoothing):
+    def engine(radius, tables, w6_only, smoothing=cfg.smoothing, dims=None):
+        """A graph (``dims`` cells per axis) with --engine graph, else a band
+        or cell engine with ``tables``."""
         t1 = time.time()
-        if args.engine == "band":
-            eng = build_band_engine(x_np, radius, table_dtype=tables,
-                                    smoothing=smoothing, device=device)
-        else:
+        if dims is not None:
+            eng = graph_engine(x, radius, dims, None, smoothing)
+        elif args.engine == "cells":
             eng = build_cell_engine(x_np, radius, pair_tables=tables,
                                     w6_only=w6_only, device=device)
+        else:
+            eng = build_band_engine(x_np, radius, table_dtype=tables,
+                                    smoothing=smoothing, device=device)
         print(f"  engine h={radius}: {_describe(eng)}, built in "
               f"{time.time() - t1:.2f}s", flush=True)
         return eng
 
     # the JAX CLI's engines: bfloat16 tables at the model's h and at
-    # DIFFUSE_H, float32 at the seeding radius (a poly6 band engine, as the
-    # JAX CLI's; cell engines there read only w6)
-    eng = engine(h, "bfloat16", False)
+    # DIFFUSE_H (graphs with --engine graph, the diffusion graph on
+    # DIFFUSE_DIMS cells), float32 at the seeding radius (a poly6 band
+    # engine, as the JAX CLI's, also for --engine graph; cell engines there
+    # read only w6)
+    graph = args.engine == "graph"
+    eng = engine(h, "bfloat16", False,
+                 dims=default_dims(h) if graph else None)
     if args.initial_feature == "random":
         A0, t0 = surface_random_seed(
             x, nrm, cfg.channels, rng, gen,
@@ -235,17 +270,24 @@ def run_surface(args, cfg, params, h, device, gen) -> str:
         A0, t0 = surface_radial_seed(x, nrm, cfg.channels,
                                      args.surface_numseed, seed_radius, gen)
     eng_d = (eng if abs(h - DIFFUSE_H) < 1e-9
-             else engine(DIFFUSE_H, "bfloat16", True))
+             else engine(DIFFUSE_H, "bfloat16", True,
+                         dims=DIFFUSE_DIMS if graph else None))
     print(f"surface rollout: n={x.shape[0]}, {args.steps} steps"
           + ("" if eng_d is eng else f", diffusion at h={DIFFUSE_H}"),
           flush=True)
     t1 = time.time()
     with torch.no_grad():
-        _, _, states = rollout_mesh_batched_dual(
-            params, cfg, eng, eng_d, A0[None], nrm, t0[None], gen,
-            args.steps, h, fire_rate=args.firerate, collect_all=True)
-        rgba = to_rgba(states[::args.export_every, 0], cfg.use_alpha)
-    states = states[:, 0].cpu().numpy()
+        if graph:
+            _, _, states = rollout_mesh(
+                params, cfg, eng, eng_d, A0, nrm, t0, gen, args.steps, h,
+                fire_rate=args.firerate, collect_all=True)
+        else:
+            _, _, states = rollout_mesh_batched_dual(
+                params, cfg, eng, eng_d, A0[None], nrm, t0[None], gen,
+                args.steps, h, fire_rate=args.firerate, collect_all=True)
+            states = states[:, 0]
+        rgba = to_rgba(states[::args.export_every], cfg.use_alpha)
+    states = states.cpu().numpy()
     rgba = rgba.cpu().numpy()
     print(f"rollout {time.time() - t1:.2f}s", flush=True)
 
@@ -265,9 +307,6 @@ def _out_dir(args) -> str:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.engine == "graph":
-        raise SystemExit("--engine graph is not ported yet; use --engine "
-                         "band or cells")
     if args.export_every <= 0:
         raise SystemExit("--export_every must be positive")
     if not args.surface and args.image_size <= 0:
@@ -275,9 +314,11 @@ def main(argv=None) -> int:
 
     from .. import resolve_device
     from ..models.cell_step import rollout_cells_batched, rollout_states_cells
+    from ..models.rollout import rollout_states
     from ..ops.bands import build_band_engine
     from ..ops.batched import batched_scatter
     from ..ops.cells import build_cell_engine
+    from ..ops.hashgrid import default_dims
     from ..utils.geometry import grange
     from ..utils.seeds import plane_seed
 
@@ -317,10 +358,13 @@ def main(argv=None) -> int:
     if args.engine == "band":
         eng = build_band_engine(x, h, period=period, table_dtype="bfloat16",
                                 smoothing=cfg.smoothing, device=device)
+    elif args.engine == "graph":
+        eng = graph_engine(x.to(device), h, default_dims(h), period,
+                           cfg.smoothing)
     else:
         eng = build_cell_engine(x, h, period=period, device=device)
-    desc = (_describe(eng) if args.engine == "band"
-            else f"C={eng.num_cells}")
+    desc = (f"C={eng.num_cells}" if args.engine == "cells"
+            else _describe(eng))
     print(f"image rollout: n={x.shape[0]}, {args.steps} steps, "
           f"{args.engine} engine {desc} built in {time.time() - t0:.2f}s",
           flush=True)
@@ -334,6 +378,10 @@ def main(argv=None) -> int:
                 args.steps, h, fire_rate=args.firerate,
                 collect_steps=range(args.steps + 1))
             states = eng.gather_back(coll)
+    elif args.engine == "graph":
+        with torch.no_grad():
+            states = rollout_states(params, cfg, eng, A0, gen, args.steps, h,
+                                    fire_rate=args.firerate)
     else:
         states = rollout_states_cells(params, cfg, eng, A0, gen, args.steps,
                                       h, fire_rate=args.firerate)

@@ -1,5 +1,5 @@
 """Training CLI of the port: plane-mode MSE and exemplar (OT) training on the
-band or cell engine, with checkpoints and resume.
+band, cell or graph engine, with checkpoints and resume.
 
 Counterpart of ``sph_nca_tpu/cli/train.py``, with the same flags and
 defaults:
@@ -48,7 +48,11 @@ engine with float32 tables by default (``--engine band``: curve-banded pair
 tables on the host, ``ops/bands.py``, any ``--smoothing_kernel``), or with
 ``--engine cells`` the cell engine with float32 pair tables (poly6 only);
 either way the trainer takes the batched-lane rollout (the band products or
-the table kernels, and the fused update-MLP kernel), and keeps the pool on
+the table kernels, and the fused update-MLP kernel). ``--engine graph``
+builds the fixed-K graph engine on the device (``ops/hashgrid.py``: capacities
+from the native grid analyzer, then ``build_graph`` with the smoothing
+kernel), which the trainer rolls out in plain PyTorch
+(``models.rollout.rollout_batch``). The trainer keeps the pool on
 the device (``DevicePool``) when it is under 4 GB (``--device_pool auto``;
 1.07 GB at the defaults). What is not ported yet is refused by name
 (``NOT_PORTED``).
@@ -71,8 +75,6 @@ from .test import str2bool
 NOT_PORTED = (
     ("--loss clip_multiscale", lambda a: a.loss == "clip_multiscale",
      "use --loss mse_simple or ot"),
-    ("--engine graph", lambda a: a.engine == "graph",
-     "use --engine band or cells"),
     ("--target (emoji targets)", lambda a: bool(a.target),
      "use --img <file>"),
     ("--optimizer other than Adam", lambda a: a.optimizer.lower() != "adam",
@@ -143,13 +145,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--engine", choices=["band", "cells", "graph"],
                    default="band",
-                   help="band (curve-banded pair tables) or cells "
-                        "(cell-dense, pair-table kernels)")
+                   help="band (curve-banded pair tables), cells "
+                        "(cell-dense, pair-table kernels) or graph (fixed-K "
+                        "neighbour lists)")
     p.add_argument("--smoothing_kernel",
                    choices=["poly6", "wendlandC2", "wendlandC4"],
                    default="poly6",
-                   help="SPH smoothing kernel; the band engine takes all "
-                        "three, cells poly6 only")
+                   help="SPH smoothing kernel; the band and graph "
+                        "engines take all three, cells poly6 only")
     p.add_argument("--resume", type=str, default="",
                    help="checkpoint directory to resume from, or 'auto': "
                         "the latest resumable one in --output_dir")
@@ -178,12 +181,24 @@ def _rss_gb() -> float:
 
 
 def _build_engine(args, x, h, period, device):
-    """The float32-table engine that sends the trainer to the batched-lane
-    rollout, as the JAX CLI builds it on either engine."""
+    """The engine as the JAX CLI builds it: on the band and cell engines the
+    float32 tables that send the trainer to the batched-lane rollout, or the
+    graph engine."""
     from ..ops.bands import build_band_engine
     from ..ops.cells import build_cell_engine
+    from ..ops.hashgrid import build_graph, default_dims, suggest_capacity
 
     t0 = time.time()
+    if args.engine == "graph":
+        dims = default_dims(h)
+        mpc, k = suggest_capacity(x, h, dims, period=period)
+        graph = build_graph(x.to(device), h, dims, max_per_cell=mpc, k=k,
+                            period=period, smoothing=args.smoothing_kernel)
+        nd = int(graph.valid.sum())
+        print(f"graph: n={x.shape[0]} k={graph.k} max_per_cell={mpc} "
+              f"({time.time() - t0:.1f}s, avg {nd / x.shape[0]:.1f} nbrs"
+              f"{', periodic' if args.wrap else ''})", flush=True)
+        return graph
     if args.engine == "band":
         eng = build_band_engine(x, h, period=period,
                                 smoothing=args.smoothing_kernel,

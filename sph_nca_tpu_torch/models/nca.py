@@ -12,18 +12,37 @@ Counterpart of ``sph_nca_tpu/models/nca.py``. One NCA step:
     nA         = where(U(0,1) <= fire_rate, nA, A)   # stochastic update
     new_mask   = blur(activity(nA) > 0.1) > 0.1
     nA        *= prev_mask & new_mask
-The cell- and band-engine forms of the step are ``models/cell_step.py``.
+``nca_step`` is that step on the fixed-K graph engine (``ops/hashgrid.
+SPHGraph``): one cloud [N, C] or a batch [B, N, C] on one graph, the batch
+contracted as lanes (``ops/neighbor_ops.py``), the update MLP in plain
+float32 (``apply_mlp``). The graph path reaches no CUDA kernel of the port:
+the JAX package's graph step is XLA gathers and einsums too. The cell- and
+band-engine forms of the step are ``models/cell_step.py``.
+
+The fire mask is drawn per particle (and sample) from a ``torch.Generator``:
+the JAX package's Bernoulli(fire_rate) law, another stream, so trajectories
+match the JAX package exactly only at fire_rate == 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from .. import resolve_device
+from ..ops.hashgrid import SPHGraph
+from ..ops.neighbor_ops import (
+    blur_lanes,
+    from_lanes,
+    gather_rows,
+    gradient_lanes,
+    graph_blur,
+    graph_gradient,
+    to_lanes,
+)
 
 DEFAULT_CHANNELS = 16
 DEFAULT_HIDDEN = 256
@@ -119,3 +138,93 @@ def to_rgba(A: torch.Tensor, use_alpha: bool = True) -> torch.Tensor:
     """rgb = A[..., :3], a = activity."""
     return torch.cat([A[..., :3], cell_activity(A, use_alpha)[..., None]],
                      dim=-1)
+
+
+def life_mask(graph: SPHGraph, activity: torch.Tensor) -> torch.Tensor:
+    """blur(activity > 0.1) > 0.1 on the graph, stop-gradient: activity
+    [..., N] -> bool [..., N]."""
+    m = (activity.detach() > ALIVE_THRESHOLD).to(graph.wv.dtype)[..., None]
+    return graph_blur(graph, m)[..., 0] > ALIVE_THRESHOLD
+
+
+# A perception transform maps the scaled gradient gA [..., N, C, D] to
+# features [..., N, C, >= 2] whose components 0 and 1 feed the MLP (the
+# surface mode's tangent-space projection).
+PerceptionTransform = Callable[[torch.Tensor], torch.Tensor]
+
+
+def perceive(cfg: SPHNCAConfig, graph: SPHGraph, A: torch.Tensor, h,
+             transform: Optional[PerceptionTransform] = None
+             ) -> torch.Tensor:
+    """SPH-gradient perception and the feature concat [A, gA_0, gA_1]:
+    [..., N, C] -> [..., N, 3C] (in 3D only the first two components of the
+    possibly transformed gradient feed the MLP)."""
+    return _features(cfg, A, graph_gradient(graph, A), h, transform)
+
+
+def _features(cfg: SPHNCAConfig, A: torch.Tensor, gA: torch.Tensor, h,
+              transform: Optional[PerceptionTransform]) -> torch.Tensor:
+    """The MLP's input from the state and its raw gradient gA [..., C, D]:
+    the perception scale h k, the transform, [A, gA_0, gA_1]."""
+    if cfg.normalize_perception > 0:
+        gA = h * gA * cfg.normalize_perception
+    if transform is not None:
+        gA = transform(gA)
+    return torch.cat([A, gA[..., 0], gA[..., 1]], dim=-1)
+
+
+def _alive_lanes(X: torch.Tensor, b: Optional[int], c: int,
+                 use_alpha: bool) -> torch.Tensor:
+    """(activity > 0.1) as float lanes: X [..., B*C] -> [..., B] (or
+    [..., 1] for one cloud), detached; blurred, the life mask (the JAX
+    package's ``_mask_blur`` on the gathered state)."""
+    a = X.detach().unflatten(-1, (-1, c))
+    return (cell_activity(a, use_alpha) > ALIVE_THRESHOLD).to(X.dtype)
+
+
+def _graph_step(params: MLPParams, cfg: SPHNCAConfig, graph: SPHGraph,
+                A: torch.Tensor, u: torch.Tensor, h, fire_rate: float,
+                perception_transform=None) -> torch.Tensor:
+    """One step given the fire draws u [..., N] (uniform in [0, 1)): the
+    state is gathered once for the perception and the pre-update life mask,
+    and only the alive column is gathered for the post-update mask."""
+    c = cfg.channels
+    X, b = to_lanes(A)  # [N, L]
+    Xj = gather_rows(X, graph.idx)  # [N, K, L]
+    pre = blur_lanes(graph, _alive_lanes(Xj, b, c, cfg.use_alpha))
+    gA = from_lanes(gradient_lanes(graph, X, Xj), b)  # [..., N, C, D]
+    dA = apply_mlp(params, _features(cfg, A, gA, h, perception_transform))
+
+    if cfg.update_rule == "gated":
+        gate = torch.sigmoid(dA[..., :c])
+        delta = torch.tanh(dA[..., c:2 * c])
+        mult = torch.sigmoid(dA[..., -1:])
+        nA = A * gate + delta * mult
+    elif cfg.update_rule == "orig":
+        nA = A + dA * (cfg.fire_rate / fire_rate)
+    else:
+        raise ValueError(f"unknown update rule {cfg.update_rule!r}")
+    nA = torch.where((u <= fire_rate)[..., None], nA, A)
+
+    nX, _ = to_lanes(nA)
+    post = blur_lanes(graph, gather_rows(
+        _alive_lanes(nX, b, c, cfg.use_alpha), graph.idx))
+    living = (pre > ALIVE_THRESHOLD) & (post > ALIVE_THRESHOLD)  # [N, B|1]
+    living = living[:, 0] if b is None else living.T
+    return nA * living[..., None].to(nA.dtype)
+
+
+def nca_step(params: MLPParams, cfg: SPHNCAConfig, graph: SPHGraph,
+             A: torch.Tensor, generator: torch.Generator, h,
+             fire_rate: Optional[float] = None,
+             perception_transform: Optional[PerceptionTransform] = None
+             ) -> torch.Tensor:
+    """One NCA step on the graph engine: A [N, C] or [B, N, C] -> the same
+    shape, with a fire draw per particle (and sample) from ``generator``.
+    Differentiable in A and the parameters; the life masks are
+    stop-gradient."""
+    if fire_rate is None:
+        fire_rate = cfg.fire_rate
+    u = torch.rand(A.shape[:-1], generator=generator, device=A.device)
+    return _graph_step(params, cfg, graph, A, u, h, fire_rate,
+                       perception_transform)

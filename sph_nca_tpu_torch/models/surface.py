@@ -1,9 +1,12 @@
-"""3D-surface rollouts on the cell and band engines: tangent frames, tangent
-diffusion and tangent-space perception, for one rollout and for B rollouts
-at once.
+"""3D-surface rollouts on the graph, cell and band engines: tangent frames,
+tangent diffusion and tangent-space perception, for one rollout and for B
+rollouts at once.
 
-Counterpart of the cell- and band-engine parts of
-``sph_nca_tpu/models/surface.py`` (``normalize``, ``orthogonalize``,
+Counterpart of ``sph_nca_tpu/models/surface.py``: the graph engine's
+``diffuse``, ``project_tangent_space``, ``tangent_perception`` and
+``rollout_mesh`` (one rollout on a model graph and a diffusion graph at
+``DIFFUSE_H`` / ``DIFFUSE_DIMS``, plain PyTorch); and the cell- and
+band-engine parts (``normalize``, ``orthogonalize``,
 ``project_tangent_space_cells``, ``diffuse_cells``, ``diffuse_band`` and
 ``rollout_mesh_cells``; reference nca.py:302-381), and of its batched
 rollouts ``rollout_mesh_batched`` (:473) and ``rollout_mesh_batched_dual``
@@ -58,17 +61,19 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import batched as BT
 from ..ops.bands import blur_band
 from ..ops.cells import CellEngine
+from ..ops.hashgrid import SPHGraph
+from ..ops.neighbor_ops import graph_blur
 from ..ops.pair_kernel import blur_cells
 from .cell_step import (
     _mlp_weights,
     _step_samples,
-    cell_activity_s,
     nca_step_cells,
 )
-from .nca import MLPParams, SPHNCAConfig
+from .nca import MLPParams, PerceptionTransform, SPHNCAConfig, nca_step
 
-# the reference's tangent-diffusion radius (nca.py:357)
+# the reference's tangent-diffusion radius and grid (nca.py:357)
 DIFFUSE_H = 0.1
+DIFFUSE_DIMS = 20
 
 
 def normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -82,13 +87,86 @@ def orthogonalize(n: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return normalize(t - n * nt)
 
 
-def project_tangent_space_cells(gA: torch.Tensor, n: torch.Tensor,
-                                t: torch.Tensor) -> torch.Tensor:
-    """gA [..., C, M, F, 3] in the frame (t, n x t, n) of each slot:
-    [..., C, M, F, 3] (reference nca.py:325-330)."""
+def _diffuse_blend(t, A, blur, lerp_multiplier, w_multiplier):
+    """The tangent diffusion around its blur (reference nca.py:312-323):
+    blur [m, m t] with m the activity weights (ALWAYS the alpha lane, as the
+    reference's diffuse() reads cell_activity at its default), t2 = blurred
+    m t / blurred m, lerp back toward t where the particle is active."""
+    w = torch.clamp(A[..., 3:4], 0.0, 1.0)
+    m = (1.0 - w_multiplier) + w * w_multiplier
+    mt2 = blur(torch.cat([m, m * t], dim=-1))
+    t2 = mt2[..., 1:] / (1e-8 + mt2[..., :1])
+    return t2 + (t - t2) * (w * lerp_multiplier)
+
+
+def diffuse(n: torch.Tensor, t: torch.Tensor, A: torch.Tensor,
+            diffuse_graph: SPHGraph, *, lerp_multiplier: float = 1.0,
+            w_multiplier: float = 1.0) -> torch.Tensor:
+    """The tangent diffusion on a graph (the JAX package's ``diffuse``): n,
+    t [N, 3], A [N, >= 4] -> the new tangents [N, 3], re-orthogonalized
+    against n."""
+    t2 = _diffuse_blend(t, A, lambda mt: graph_blur(diffuse_graph, mt),
+                        lerp_multiplier, w_multiplier)
+    return orthogonalize(n, t2)
+
+
+def project_tangent_space(gA: torch.Tensor, n: torch.Tensor,
+                          t: torch.Tensor) -> torch.Tensor:
+    """Perception vectors gA [..., F, 3] in the frame (t, n x t, n) of their
+    particle or slot (n, t [..., 3]): out[..., k] = gA . {T, B, N}[k]
+    (reference nca.py:325-330). Particle order: gA [..., N, C, 3], n, t
+    [..., N, 3]; cell layout (``project_tangent_space_cells``): gA
+    [..., C, M, F, 3], n, t [..., C, M, 3]."""
     b = torch.linalg.cross(n, t, dim=-1)
-    tbn = torch.stack([t, b, n], dim=-1)  # [..., C, M, 3, 3]
+    tbn = torch.stack([t, b, n], dim=-1)  # [..., 3, 3]
     return torch.einsum("...fd,...dk->...fk", gA, tbn)
+
+
+project_tangent_space_cells = project_tangent_space
+
+
+def tangent_perception(n: torch.Tensor,
+                       t: torch.Tensor) -> PerceptionTransform:
+    """The mesh rollouts' perception transform (reference nca.py:332-336)."""
+    return functools.partial(project_tangent_space, n=n, t=t)
+
+
+def rollout_mesh(
+    params: MLPParams,
+    cfg: SPHNCAConfig,
+    graph: SPHGraph,
+    diffuse_graph: SPHGraph,
+    A0: torch.Tensor,
+    n: torch.Tensor,
+    t0: torch.Tensor,
+    generator: torch.Generator,
+    n_steps: int,
+    h: float,
+    *,
+    fire_rate: Optional[float] = None,
+    lerp_multiplier: float = 1.0,
+    w_multiplier: float = 1.0,
+    collect_all: bool = False,
+):
+    """Surface rollout on the graph engine (reference ``sample_mesh``,
+    nca.py:338-381): each step perceives in the tangent frame, updates, then
+    diffuses the tangent field on ``diffuse_graph`` (detached).
+
+    A0 [N, C], n, t0 [N, 3] -> (final_A, final_t, states [n_steps+1, N, C]
+    or None). Differentiable in A0 and the parameters.
+    """
+    A, t = A0, t0
+    states = [A0] if collect_all else None
+    for _ in range(n_steps):
+        A = nca_step(params, cfg, graph, A, generator, h, fire_rate=fire_rate,
+                     perception_transform=tangent_perception(n, t))
+        with torch.no_grad():
+            t = diffuse(n, t, A, diffuse_graph,
+                        lerp_multiplier=lerp_multiplier,
+                        w_multiplier=w_multiplier)
+        if collect_all:
+            states.append(A)
+    return A, t, torch.stack(states) if collect_all else None
 
 
 def diffuse_cells(eng: CellEngine, n: torch.Tensor, t: torch.Tensor,
@@ -101,12 +179,9 @@ def diffuse_cells(eng: CellEngine, n: torch.Tensor, t: torch.Tensor,
     against n. The weights are ALWAYS the alpha lane, whatever the model's
     ``use_alpha``, as the reference's diffuse() reads cell_activity at its
     default."""
-    w = torch.clamp(cell_activity_s(S, True)[..., None], 0.0, 1.0)
-    m = (1.0 - w_multiplier) + w * w_multiplier
-    mt = torch.cat([m, m * t], dim=-1)  # [..., C, M, 4]
-    mt2 = blur_cells(eng, mt, use_kernels=use_kernels)
-    t2 = mt2[..., 1:] / (1e-8 + mt2[..., :1])
-    t2 = t2 + (t - t2) * (w * lerp_multiplier)
+    t2 = _diffuse_blend(
+        t, S, lambda mt: blur_cells(eng, mt, use_kernels=use_kernels),
+        lerp_multiplier, w_multiplier)
     return orthogonalize(n, t2)
 
 
@@ -118,12 +193,9 @@ def diffuse_band(eng, n: torch.Tensor, t: torch.Tensor, A: torch.Tensor, *,
     package's ``diffuse_band``): n, t [N, 3], A [N, >= 4] -> the new
     tangents [N, 3]. The weights are the alpha lane, as in
     ``diffuse_cells``."""
-    w = torch.clamp(A[..., 3:4], 0.0, 1.0)
-    m = (1.0 - w_multiplier) + w * w_multiplier
-    mt = torch.cat([m, m * t], dim=-1)  # [N, 4]
-    mt2 = eng.gather_back(blur_band(eng, eng.scatter(mt)))
-    t2 = mt2[..., 1:] / (1e-8 + mt2[..., :1])
-    t2 = t2 + (t - t2) * (w * lerp_multiplier)
+    t2 = _diffuse_blend(
+        t, A, lambda mt: eng.gather_back(blur_band(eng, eng.scatter(mt))),
+        lerp_multiplier, w_multiplier)
     return orthogonalize(n, t2)
 
 

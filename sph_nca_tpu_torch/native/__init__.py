@@ -3,7 +3,9 @@
 Counterpart of the bindings of ``sph_nca_tpu/native/__init__.py`` that
 ``ops/bands.build_band_engine`` calls: ``true_pairs``, ``band_cols``,
 ``fill_band_bf16``, ``accum_table``, ``fill_cast_bf16``, ``cast_bf16_gsum``,
-``far_groups`` and ``far_meta``, with the big-buffer allocator ``_alloc``.
+``far_groups`` and ``far_meta``, with the big-buffer allocator ``_alloc``;
+and ``capacity``, which sizes the fixed-K neighbour lists of
+``ops/hashgrid.py``.
 ``sphgrid.cpp`` is a byte-for-byte copy of the JAX package's source.
 
 The library is built at first use with ``g++ -O3 -march=native -shared
@@ -102,6 +104,11 @@ _D = ctypes.c_double
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C signatures."""
     lib = ctypes.CDLL(str(build()))
+    lib.sphgrid_capacity.restype = _INT
+    lib.sphgrid_capacity.argtypes = [
+        _P, _I64, _INT, ctypes.c_float, _P, _P,  # x, n, d, h, dims, period
+        _P, _P,  # max_occupancy, max_neighbors
+    ]
     lib.sphgrid_true_pairs.restype = _I64
     lib.sphgrid_true_pairs.argtypes = [
         _P, _I64, _INT, _D, _P,  # x, n, d, h, period (nullable)
@@ -154,6 +161,27 @@ def _ptr(a):
 
 def _c(a, dtype) -> np.ndarray:
     return np.ascontiguousarray(a, dtype)
+
+
+def capacity(x: np.ndarray, h: float, dims, period=None):
+    """Exact (max hash-cell occupancy, max neighbour count within h, self
+    included) of positions x [N, D] on the periodic cell grid of ``dims``
+    cells per axis (minimum-image distances with ``period``), in float32 as
+    the JAX package computes them."""
+    lib = load_library()
+    x = _c(x, np.float32)
+    n, d = x.shape
+    dims_arr = _c(np.broadcast_to(np.asarray(dims, np.int32), (d,)),
+                  np.int32)
+    per = None if period is None else _c(
+        np.broadcast_to(np.asarray(period, np.float32), (d,)), np.float32)
+    occ = np.zeros(1, np.int32)
+    nbrs = np.zeros(1, np.int32)
+    rc = lib.sphgrid_capacity(_ptr(x), n, d, h, _ptr(dims_arr), _ptr(per),
+                              _ptr(occ), _ptr(nbrs))
+    if rc != 0:
+        raise ValueError(f"sphgrid_capacity: unsupported dimension {d}")
+    return int(occ[0]), int(nbrs[0])
 
 
 def true_pairs(x: np.ndarray, h: float, period=None):

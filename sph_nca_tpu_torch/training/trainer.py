@@ -1,5 +1,5 @@
-"""Plane-mode trainer on the band and cell engines (counterpart of the band-
-and cell-engine paths of ``sph_nca_tpu/training/trainer.py``).
+"""Plane-mode trainer on the band, cell and graph engines (counterpart of
+``sph_nca_tpu/training/trainer.py``).
 
 One iteration: sample B states from the pool, rank them by per-sample loss
 and put a fresh seed in the worst one's place, roll the batch out for a
@@ -14,7 +14,9 @@ As in the JAX trainer, a band engine (the train CLI's default) or a cell
 engine with pair tables takes the batched-lane rollout
 (``rollout_cells_batched``: the band products or the table kernels, and the
 fused update-MLP kernel); a cell engine without tables takes the recompute
-kernels through ``rollout_cells`` on the batch. The rollout runs exactly n
+kernels through ``rollout_cells`` on the batch; an ``SPHGraph`` (the fixed-K
+graph engine) takes ``models.rollout.rollout_batch``, plain PyTorch, as the
+JAX trainer does. The rollout runs exactly n
 steps (the JAX trainer rounds its length up to a bucket and freezes the
 samples after n). With a ``DevicePool`` the rolled-out states go back to the
 pool on the device.
@@ -41,7 +43,9 @@ import torch
 from ..io.checkpoint import adam_from_optax, adam_to_optax
 from ..models.cell_step import rollout_cells, rollout_cells_batched
 from ..models.nca import MLPParams, SPHNCAConfig, init_params
+from ..models.rollout import rollout_batch
 from ..ops.batched import batched_gather_back, batched_scatter, has_tables
+from ..ops.hashgrid import SPHGraph
 from .losses import (
     OTLossConfig,
     mse_loss,
@@ -178,8 +182,8 @@ class TrainConfig:
 
 
 class Trainer:
-    """Trainer for plane mode on one cell engine: the pool, the rollouts and
-    the loss share one geometry.
+    """Trainer for plane mode on one engine (band, cell or graph): the pool,
+    the rollouts and the loss share one geometry.
 
     ``x`` holds the loss-space positions [N, 2] (the plane, without the z
     the engine's 3D positions carry). Host draws (steps, aux states) come
@@ -253,6 +257,11 @@ class Trainer:
     def _rollout(self, A0: torch.Tensor, n: int, collect):
         """(final [B, N, C], collected [S, B, N, C]) in particle order."""
         eng, bsz = self.eng, A0.shape[0]
+        if isinstance(eng, SPHGraph):
+            out = rollout_batch(self.params, self.model_cfg, eng, A0,
+                                self.generator, n, self.h,
+                                collect_steps=collect)
+            return out.final, list(out.collected.unbind(1))
         if has_tables(eng):
             final, coll = rollout_cells_batched(
                 self.params, self.model_cfg, eng, batched_scatter(eng, A0),

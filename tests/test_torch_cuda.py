@@ -1076,3 +1076,81 @@ def test_ot_subsample_draws_on_the_card(cuda):
 
     assert torch.equal(loss(0), loss(0))
     assert not torch.equal(loss(0), loss(1))
+
+
+# ---- the fixed-K graph engine (plain PyTorch on the card) -----------------
+
+
+def _graph_cloud(periodic):
+    x = np.random.default_rng(7).uniform(-1, 1, (3000, 3)).astype(np.float32)
+    x[:, 2] *= 0.25
+    return torch.from_numpy(x), 0.2, ([2.0] * 3 if periodic else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("periodic", [False, True])
+def test_graph_build_on_card_matches_cpu(cuda, periodic):
+    """build_graph on the card: the neighbour set of every row and the drop
+    count equal the CPU build's, an undersized K drops as many; the weights
+    within 1e-5 of max."""
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    x, h, period = _graph_cloud(periodic)
+    dims = HG.default_dims(h)
+    mpc, k = HG.suggest_capacity(x, h, dims, period=period)
+    for cap in (k, k // 2):
+        lists = [HG.build_neighbor_list(x.to(dev), h, dims,
+                                        max_per_cell=mpc, k=cap,
+                                        period=period, chunk=1024)
+                 for dev in (cuda, torch.device("cpu"))]
+        assert lists[0].idx.device.type == "cuda"
+        (ic, vc, dc), (ih, vh, dh) = [
+            (nl.idx.cpu().numpy(), nl.valid.cpu().numpy(),
+             int(nl.num_dropped)) for nl in lists]
+        assert dc == dh and (dc == 0) == (cap == k)
+        for row in range(len(x)):
+            assert sorted(ic[row][vc[row]]) == sorted(ih[row][vh[row]])
+    g, gh = [HG.build_graph(x.to(dev), h, dims, max_per_cell=mpc, k=k,
+                            period=period)
+             for dev in (cuda, torch.device("cpu"))]
+    for name in ("v", "gv_sum"):
+        got, want = getattr(g, name).cpu(), getattr(gh, name)
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_graph_step_on_card_matches_cpu(cuda):
+    """One graph NCA step of a batch of two on the card (fp32, TF32 off)
+    against the same step on the CPU: 1e-5 of max; the state stays on the
+    card and the step launches no kernel of the port."""
+    from sph_nca_tpu_torch.models.nca import nca_step
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    x, h, period = _graph_cloud(True)
+    dims = HG.default_dims(h)
+    mpc, k = HG.suggest_capacity(x, h, dims, period=period)
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    cfg = SPHNCAConfig(hidden=64, fire_rate=1.0, normalize_perception=1 / h)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    p = MLPParams(
+        torch.randn(48, 64, generator=gen) * 0.1, torch.zeros(64),
+        torch.randn(64, 33, generator=gen) * 0.1, torch.zeros(33))
+    A = _rand(torch.device("cpu"), (2, len(x), 16), 8)
+    wrappers = (PK.fwd_bucket, PK.mask_bucket, PK.bwd_bucket,
+                PK.fwd_tab_bucket, PK.bwd_tab_bucket, PK.mask_tab_bucket,
+                PK.blur_bucket, MK.mlp_forward)
+    before = [w.launches for w in wrappers]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        g = HG.build_graph(x.to(dev), h, dims, max_per_cell=mpc, k=k,
+                           period=period)
+        out[dev.type] = nca_step(
+            MLPParams(*(t.to(dev) for t in p)), cfg, g, A.to(dev),
+            torch.Generator(device=dev).manual_seed(0), h)
+    assert out["cuda"].device.type == "cuda"
+    assert [w.launches for w in wrappers] == before
+    want = out["cpu"]
+    assert float((out["cuda"].cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())

@@ -213,3 +213,20 @@ def test_texture_entry_points_raise_without_card(no_card, tmp_path):
     assert os.listdir(tmp_path) == []
     assert load_checkpoint(ck, device="cpu")["params"].w1.device.type == \
         "cpu"
+
+
+def test_graph_entry_points_raise_without_card(no_card, tmp_path):
+    """--engine graph runs on the card by default in both CLIs and raises
+    without one; the graph build follows its positions' device."""
+    from sph_nca_tpu_torch.cli import test as cli_test
+    from sph_nca_tpu_torch.cli import train as cli_train
+    from sph_nca_tpu_torch.ops.hashgrid import build_graph
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_test.main(["--weights_json", str(GECKO), "--engine", "graph",
+                       "--output_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--engine", "graph", "--output_dir", str(tmp_path)])
+    assert os.listdir(tmp_path) == []
+    g = build_graph(torch.rand(64, 2), 0.3, 7, max_per_cell=16, k=16)
+    assert g.idx.device.type == "cpu"

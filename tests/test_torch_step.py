@@ -170,11 +170,97 @@ def test_cli_writes_trajectory(tmp_path):
         assert np.isfinite(z["states"]).all()
 
 
+def _obj(path):
+    """A small ellipsoid mesh as an OBJ: quad bands and triangle caps."""
+    nu, nv = 24, 12
+    verts = [(0.0, 0.9, 0.0), (0.0, -0.9, 0.0)]
+    for j in range(1, nv):
+        th = np.pi * j / nv
+        for i in range(nu):
+            ph = 2 * np.pi * i / nu
+            verts.append((1.3 * np.sin(th) * np.cos(ph), 0.9 * np.cos(th),
+                          np.sin(th) * np.sin(ph)))
+    lines = [f"v {a:.6f} {b:.6f} {c:.6f}" for a, b, c in verts]
+
+    def ring(j, i):  # 1-based index of band j, column i
+        return 3 + j * nu + i % nu
+
+    for j in range(nv - 2):
+        for i in range(nu):
+            lines.append(f"f {ring(j, i)} {ring(j, i + 1)} "
+                         f"{ring(j + 1, i + 1)} {ring(j + 1, i)}")
+    for i in range(nu):
+        lines.append(f"f 1 {ring(0, i + 1)} {ring(0, i)}")
+        lines.append(f"f 2 {ring(nv - 2, i)} {ring(nv - 2, i + 1)}")
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def _states_of(out_dir):
+    (run,) = os.listdir(out_dir)
+    with np.load(out_dir / run / "states.npz") as z:
+        return z["x"], z["states"]
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one intra-op thread: the tier-1 run's workers share the
+    cores, and torch's own pools would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("argv", [["--engine", "graph", "--surface",
                                    "mesh.obj"],
                                   ["--engine", "graph"]])
-def test_cli_names_unported_modes(tmp_path, argv):
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_test.main(["--weights_json", GECKO, "--device", "cpu",
-                       "--output_dir", str(tmp_path)] + argv)
-    assert os.listdir(tmp_path) == []
+def test_cli_names_unported_modes(tmp_path, argv, monkeypatch, one_thread):
+    """``--engine graph`` was refused here until the graph engine was
+    ported; now both modes run (image, and ``--surface`` on a procedural
+    mesh with radial seeds, at h 0.3), and each trajectory holds to the JAX CLI's at
+    fire_rate 1.0 (1e-4 of max). The surface seeds' tangents are the JAX
+    CLI's own draws, carried into the port's seed, which draws its own from
+    a torch generator."""
+    from sph_nca_tpu.cli import test as jax_cli
+    from sph_nca_tpu.models.surface import orthogonalize as jax_orth
+    from sph_nca_tpu.utils.meshes import farthest_point_sampling as jax_fps
+    from sph_nca_tpu_torch.utils import seeds
+
+    argv = [str(tmp_path / a) if a == "mesh.obj" else a for a in argv]
+    common = ["--weights_json", GECKO, "--steps", "3", "--firerate", "1.0",
+              "--seed", "0"] + argv
+    if "--surface" in argv:
+        _obj(tmp_path / "mesh.obj")
+        # h 0.3: ~7 neighbours a point at this density (both CLIs take an
+        # --h other than 0.08)
+        common += ["--surface_numpoints", "300", "--surface_numseed", "3",
+                   "--h", "0.3"]
+        radial = seeds.surface_radial_seed
+
+        def with_jax_tangents(x, nrm, channels, n_seeds, radius, gen):
+            A0, t0 = radial(x, nrm, channels, n_seeds, radius, gen)
+            sel = np.asarray(jax_fps(jnp.asarray(x.numpy()), n_seeds))
+            assert set(sel.tolist()) == set(
+                np.flatnonzero(t0.norm(dim=-1).numpy() > 0).tolist())
+            key, t = jax.random.key(0), torch.zeros_like(t0)
+            for i in sel.tolist():
+                key, kt = jax.random.split(key)
+                t[i] = torch.tensor(np.asarray(jax_orth(
+                    jnp.asarray(nrm[i].numpy()),
+                    jax.random.normal(kt, (3,)))))
+            return A0, t
+
+        monkeypatch.setattr(seeds, "surface_radial_seed", with_jax_tangents)
+    else:
+        common += ["--image_size", "32"]
+    assert cli_test.main(common + ["--device", "cpu", "--output_dir",
+                                   str(tmp_path / "port")]) == 0
+    assert jax_cli.main(common + ["--platform", "cpu", "--output_dir",
+                                  str(tmp_path / "jax")]) == 0
+    x, got = _states_of(tmp_path / "port")
+    jx, want = _states_of(tmp_path / "jax")
+    np.testing.assert_array_equal(x, jx)
+    assert got.shape == want.shape == (4, x.shape[0], 16)
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert not np.array_equal(got[-1], got[0])

@@ -14,6 +14,7 @@ losses, not parameters). Losses and image sampling: 1e-6.
 """
 
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -477,18 +478,81 @@ def test_train_cli_weights_run_in_test_cli(tmp_path):
         assert np.isfinite(z["states"]).all()
 
 
+def _metrics_losses(out_dir, key):
+    (path,) = glob.glob(str(out_dir / "metrics-*.jsonl"))
+    with open(path) as f:
+        return {r[key]: r["loss"] for r in map(json.loads, f)}
+
+
+def _graph_train_cli_matches_jax(tmp_path, monkeypatch):
+    """The port's train CLI on --engine graph against the JAX CLI's, from
+    the same initial parameters (a JAX checkpoint given to both as
+    --pretrained_checkpoint) at fire_rate 1 (both CLIs build their model
+    at 0.5; here both build it at 1): the same losses (LOSS_RTOL), since the
+    pool, schedule and aux-state draws are numpy in both."""
+    import sph_nca_tpu.models as jax_models
+    import sph_nca_tpu_torch.models.nca as port_nca
+    from sph_nca_tpu.cli import train as jax_cli
+    from sph_nca_tpu.io.checkpoint import save_checkpoint as jax_save
+
+    for mod in (jax_models, port_nca):
+        monkeypatch.setattr(mod, "SPHNCAConfig", functools.partial(
+            _fire_rate_one, mod.SPHNCAConfig))
+    h = 0.3
+    jcfg = JaxConfig(hidden=16, fire_rate=1.0, normalize_perception=1 / h)
+    jax_save(str(tmp_path / "init"), params=jax_init(jax.random.key(3),
+                                                     jcfg),
+             model_cfg=jcfg, h=h, step=0)
+    common = ["--image_size", "12", "--target_size", "8", "--h", str(h),
+              "--batch_size", "2", "--pool_size", "4", "--steps_range",
+              "2,4", "--steps_increment", "1", "--hidden", "16",
+              "--log_every", "1", "--engine", "graph", "--checkpoint_every",
+              "1000", "--save_resume", "false", "--pretrained_checkpoint",
+              str(tmp_path / "init")]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli_train.main(common + [
+            "--training_iter", "4", "--device", "cpu", "--output_dir",
+            str(tmp_path / "port")]) == 0
+    finally:
+        torch.set_num_threads(n)
+    # the JAX CLI runs iterations 0 .. --training_iter
+    assert jax_cli.main(common + ["--training_iter", "3", "--platform",
+                                  "cpu", "--output_dir",
+                                  str(tmp_path / "jax")]) == 0
+    got = _metrics_losses(tmp_path / "port", "iter")
+    want = _metrics_losses(tmp_path / "jax", "step")
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    np.testing.assert_allclose([got[i] for i in range(4)],
+                               [want[i] for i in range(4)], rtol=LOSS_RTOL)
+
+
+def _fire_rate_one(cls, **kw):
+    return cls(**{**kw, "fire_rate": 1.0})
+
+
 @pytest.mark.parametrize("argv", [["--engine", "graph"],
                                   ["--loss", "clip_multiscale"],
                                   ["--target", "x"],
                                   ["--optimizer", "SGD"]])
-def test_train_cli_names_unported_modes(tmp_path, argv):
-    """Each entry of the CLI's NOT_PORTED table refuses, by name."""
-    with pytest.raises(SystemExit, match="not ported") as e:
-        cli_train.main(["--device", "cpu", "--output_dir", str(tmp_path)]
-                       + argv)
-    assert os.listdir(tmp_path) == []
-    assert str(e.value).startswith(argv[0])
-    assert len(cli_train.NOT_PORTED) == 4
+def test_train_cli_names_unported_modes(tmp_path, monkeypatch, argv):
+    """Each entry of the CLI's NOT_PORTED table refuses, by name.
+    ``--engine graph`` was one until the graph engine was ported: that case
+    now runs the CLI on the graph engine and holds its losses to the JAX
+    CLI's."""
+    if argv == ["--engine", "graph"]:
+        _graph_train_cli_matches_jax(tmp_path, monkeypatch)
+        assert not cli_train.not_ported(
+            cli_train.build_parser().parse_args(
+                ["--output_dir", str(tmp_path)] + argv))
+    else:
+        with pytest.raises(SystemExit, match="not ported") as e:
+            cli_train.main(["--device", "cpu", "--output_dir",
+                            str(tmp_path)] + argv)
+        assert os.listdir(tmp_path) == []
+        assert str(e.value).startswith(argv[0])
+    assert len(cli_train.NOT_PORTED) == 3
 
 
 @pytest.mark.parametrize("mode", ["RGBA", "RGB", "L"])
