@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
-toolkit and g++. Twenty main paths, each driven through its entry point with
-every launch counter set to 0 just before it and read just after:
+toolkit and g++. Twenty-three main paths, each driven through its entry
+point with every launch counter set to 0 just before it and read just
+after:
 
   inference  the cell-engine gecko rollout (16 channels, 256 hidden units,
              h = 0.1) on a 128x128 grid for 128 steps, as
@@ -62,6 +63,18 @@ every launch counter set to 0 just before it and read just after:
   eval       ``cli.eval`` (the density study) on the JAX package's face
              model (assets/gecko_full_8000, target assets/face_target_64.npy)
              at 0.5 / 1 / 2 / 4x, 160-step rollouts;
+  clip-train  text-guided training, ``cli.train --loss clip_multiscale``
+             at runs/clip_smoke's configuration (48x48 plane in 3D, h =
+             0.08, 16 channels, 256 hidden, batch 4 from a pool of 64,
+             the warm-up towards 8-12-step rollouts, the guide "a red and
+             yellow spiral", the fixed-seed random ViT-B/32 towers at full
+             size, the fallback tokenizer), 30 iterations from the JAX run's
+             initial parameters, on the cell engine (float32 pair tables)
+             and on the band engine;
+  optimizers  each of the JAX trainer's seven optimizers (written as optax
+             defines them) for 3 updates, and ``cli.train --optimizer lamb``
+             (band engine, MSE) for 5 iterations, a checkpoint and
+             ``--resume auto`` for 2 more;
   graph-inference  ``cli.test --engine graph``: the gecko on the fixed-K
              graph engine (neighbour lists built on the card), 128x128,
              128 steps;
@@ -86,8 +99,10 @@ Phases, each printing one line with its wall time:
                  PyTorch versions at the gecko 128x128 bucket shapes, both
                  buckets, use_alpha on and off; a constant state cancelling
                  through the recompute forward (|gA| < 1e-4)
-  rollout        the inference CLI's 128-step rollout; then 16 steps at
-                 fire_rate 1.0 with the kernels and with the plain versions
+  rollout        the inference CLI's 128-step rollout and its PNG frames
+                 (one a state; the last one's signature and IHDR read with
+                 struct: the card has no PIL); then 16 steps at fire_rate
+                 1.0 with the kernels and with the plain versions
   batched        the batched gecko: launch counts (fwd_tab, mask_tab and the
                  MLP kernel only), finite states, each sample's alive share
                  near the unbatched CLI's
@@ -223,6 +238,25 @@ Phases, each printing one line with its wall time:
                  the gaps to the JAX package's six cells
   eval           PSNR / SSIM at each density beside the JAX package's; at 1x
                  over seeds 0-7, mean PSNR >= 25 dB and SSIM >= 0.88
+  clip-parity    the random towers and clip_loss (scales 1 and 2) on the
+                 card against the JAX package's float32 CPU numbers for
+                 seeded inputs (sph_nca_tpu_torch/assets/clip_parity_*.npy):
+                 features 1e-4, the loss 1e-4 of its value, its gradient
+                 1e-3 of max; the image tower's forward and forward +
+                 backward ms at B = 4
+  clip-train     each engine's run: finite losses whose mean at iterations
+                 0, 5, ..., 25 lies within 10% of the JAX run's (1.9618),
+                 launches as the drawn schedule implies (2.4 / 2.5 / 2.6 /
+                 2.8 on the cells, 2.8 on the band engine), the checkpoint
+                 and meta.json (mode texture); ms an iteration, peak
+                 memory, one full-depth iteration's busy share and the
+                 towers' share of it; 2.4-2.6 against their plain versions
+                 on the run's float32 tables (B = 1 and 4), 2.8 at both
+                 engines' lead shapes
+  optimizers     every optimizer's params and optax state on the card
+                 within 1e-6 of max of the same updates on the CPU; the
+                 lamb run's checkpoint in LAMB's optax layout, the resumed
+                 iterations finite, 2.8's launches
   graph-build    graphs built on the card for the gecko's grid, the train
                  CLI's and a periodic 64x64: exact lists, each row's
                  neighbour set equal to the native true pairs, weights
@@ -240,11 +274,14 @@ Phases, each printing one line with its wall time:
                  each run's final state against the cell engine (1e-4)
   graph-rebuild  the rebuild without motion equals the static rollout; with
                  a drift it stays finite and every list exact
+The image-mode test CLI phases (rollout, band-inference, texture-cli's
+image runs, graph-inference) check their PNG frames as [rollout] does.
 Then one JSON line describing the eight kernels (2.4, 2.6, 2.7 and 2.8 also
 with their launches on the batched surface paths and their numbers at the
 bench shape; 2.8 also with its launches and errors on the band paths; all
 but 2.2 with their launches and errors on the texture paths, under
-``texture``), and
+``texture``; 2.4, 2.5, 2.6 and 2.8 with their launches and errors on the
+CLIP paths, under ``clip``), and
 as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. Without a card it exits non-zero and prints no
 result.
@@ -264,6 +301,7 @@ import dataclasses
 import glob
 import json
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1021,6 +1059,8 @@ def check_tab_kernels(eng, rng, dev, sizes=(1, SURF_B)) -> dict:
 
     same = True
     for lo, hi, wc, vw, md, w6 in tab_buckets(eng):
+        if hi == lo:  # an empty window-size bucket launches nothing
+            continue
         rr = real[lo:hi]
         for bsz in sizes:
             S, G = SB[:bsz], GB[:bsz]
@@ -1074,6 +1114,8 @@ def check_tab_kernels(eng, rng, dev, sizes=(1, SURF_B)) -> dict:
     # tiles and a ragged one
     SM = normal_cuda(rng, (max(MASK_RAGGED_B), c, m, 16), dev)
     for lo, hi, wc, vw, _, w6 in tab_buckets(eng):
+        if hi == lo:
+            continue
         for bsz in MASK_RAGGED_B:
             for use_alpha in (False, True):
                 margs = (scal, vw, SM[:bsz], wc, w6)
@@ -2596,6 +2638,8 @@ def band_inference_phase(dev, smi, model, x) -> int:
         (run,) = os.listdir(out_dir)
         with np.load(os.path.join(out_dir, run, "states.npz")) as z:
             states = z["states"]
+        frames = check_png_frames(os.path.join(out_dir, run), IMAGE,
+                                  STEPS + 1, 4)
     if launches != {**NO_LAUNCHES, "sph_mlp_kernel": STEPS}:
         fail(f"band inference launch counts {launches}")
     if states.shape != (STEPS + 1, IMAGE * IMAGE, model.cfg.channels):
@@ -2630,7 +2674,8 @@ def band_inference_phase(dev, smi, model, x) -> int:
     phase("band-inference", t0, f"test CLI --engine band, gecko "
           f"{IMAGE}x{IMAGE}, {STEPS} steps at fire_rate 0.5 in {secs:.2f} s "
           f"(bfloat16 band tables, B = 1, every state kept): launches "
-          f"{launches}, alive fraction {alive0:.4f} -> {alive:.4f}; "
+          f"{launches}, alive fraction {alive0:.4f} -> {alive:.4f}, "
+          f"{frames}; "
           f"{CHECK_STEPS} steps at fire_rate 1.0 from the grown state: band "
           f"(float32 tables) vs the cell engine's kernels {gap:.3e} of max "
           f"(limit {ROLLOUT_ATOL}); bfloat16 band tables vs float32 "
@@ -3145,6 +3190,9 @@ def texture_cli_phase(dev, smi, ck: str) -> dict:
             (run,) = os.listdir(out)
             with np.load(os.path.join(out, run, "states.npz")) as z:
                 states = z["states"]
+            if label.startswith("image"):
+                lines.append(f"{label} " + check_png_frames(
+                    os.path.join(out, run), TEX_SIDE, TEX_CLI_STEPS + 1, 3))
             a0 = states[0]
             if (states.shape != (TEX_CLI_STEPS + 1, n, 16)
                     or not np.isfinite(states).all()
@@ -3487,6 +3535,483 @@ def texture_profile_phase(dev, smi) -> None:
           f"{100 * (1 - it_dev / it_wall):.1f}% | {smi}")
 
 
+# ---- the CLIP slice: text-guided training and the optimizers ---------------
+
+CLIP_GUIDE = "a red and yellow spiral"
+# runs/clip_smoke's configuration (its meta.json): a 48x48 plane padded to
+# 3D, h = 0.08, 16 channels, 256 hidden, batch 4 from a pool of 64, the
+# progressive schedule towards 8-12-step rollouts, scale 1, the random towers
+# and the fallback tokenizer, the cell engine, 30 iterations
+CLIP_SIDE, CLIP_B, CLIP_POOL, CLIP_RANGE, CLIP_ITERS = 48, 4, 64, "8,12", 30
+# the JAX CLI's losses on it, runs/clip_smoke/metrics-08172252.jsonl (the
+# run directory is not copied to the card); the port draws its own streams,
+# so the levels are compared: the mean of the port's losses at these
+# iterations within CLIP_MEAN_RTOL of the JAX run's mean (1.9618)
+CLIP_JAX_LOSSES = {0: 2.022671699523926, 5: 1.8997756242752075,
+                   10: 1.8996251821517944, 15: 1.9043556451797485,
+                   20: 2.0625782012939453, 25: 1.9815988540649414}
+CLIP_MEAN_RTOL = 0.10
+# the JAX run's initial parameters (its seed-0 draw from jax.random, written
+# by tests/test_torch_clip_loss.py), given to the port's runs as
+# --pretrained_checkpoint: in these 30 warm-up iterations the loss level is
+# set by the initial draw through the overflow term (the port's own seed-0
+# draw gave a mean of 2.1800 on an H100, 11% over the JAX run's), so the
+# runs start where the JAX run started and differ by the fire draws only
+CLIP_INIT = os.path.join(ASSETS, "clip_smoke_init")
+# [clip-parity]: the port's towers and clip_loss on the card against the JAX
+# package's numbers for the seeded inputs of clip_parity_inputs (computed on
+# a CPU in float32 by tests/test_torch_clip_loss.py, shipped as assets):
+# features to CLIP_FEAT_ATOL, the loss to CLIP_LOSS_RTOL of its value, its
+# gradient to CLIP_GRAD_RTOL of max (TF32 off; the card sums in other
+# orders)
+CLIP_PARITY_SCALES = (1.0, 2.0)
+CLIP_FEAT_ATOL, CLIP_LOSS_RTOL, CLIP_GRAD_RTOL = 1e-4, 1e-4, 1e-3
+CLIP_ASSETS = ("text", "image", "loss", "grad")
+# the kernels of the CLIP path on the cell engine (2.4, 2.5, 2.6, 2.8)
+CLIP_KERNELS = ("sph_fwd_tab_kernel", "sph_bwd_tab_kernel",
+                "sph_mask_tab_kernel", "sph_mlp_kernel")
+# [optimizers]: each optimizer's OPT_UPDATES updates on the card against the
+# same on the CPU, params and state to OPT_RTOL of max; then the train CLI
+# with --optimizer lamb for OPT_CLI_ITERS iterations, a checkpoint, and
+# --resume auto for OPT_RESUME more
+OPT_UPDATES, OPT_RTOL, OPT_CLI_ITERS, OPT_RESUME = 3, 1e-6, 5, 2
+
+
+def clip_parity_inputs():
+    """[clip-parity]'s inputs, from numpy seeds: two images [2, 48, 48, 3] in
+    [0, 1] and a state [2304, 16] in [-0.2, 1.2] (the overflow term
+    active)."""
+    images = np.random.default_rng(SEED).random(
+        (2, CLIP_SIDE, CLIP_SIDE, 3), dtype=np.float32)
+    A = np.random.default_rng(SEED + 1).uniform(
+        -0.2, 1.2, (CLIP_SIDE * CLIP_SIDE, 16)).astype(np.float32)
+    return images, A
+
+
+def clip_parity_path(name: str) -> str:
+    return os.path.join(ASSETS, f"clip_parity_{name}.npy")
+
+
+def clip_parity_assets() -> dict:
+    return {k: np.load(clip_parity_path(k)) for k in CLIP_ASSETS}
+
+
+def clip_parity_errors(dev, ref: dict, enc=None) -> dict:
+    """The port's random towers (``enc``: the image tower, drawn when not
+    given) and clip_loss (scales CLIP_PARITY_SCALES) on ``dev`` against the
+    JAX package's numbers ``ref``: the largest absolute error of the guide's
+    text features and of the images' features, the loss's relative error and
+    the gradient's error relative to its max."""
+    from sph_nca_tpu_torch.training.clip_encoder import random_clip_encoder
+    from sph_nca_tpu_torch.training.clip_text import get_text_features
+    from sph_nca_tpu_torch.training.losses import CLIPLossConfig, clip_loss
+
+    images, A = clip_parity_inputs()
+    enc = enc or random_clip_encoder(0, device=dev)
+    text = get_text_features(CLIP_GUIDE, device=dev)
+    with torch.no_grad():
+        image = enc(torch.from_numpy(images).to(dev))
+    At = torch.from_numpy(A).to(dev).requires_grad_(True)
+    cfg = CLIPLossConfig(image_size=CLIP_SIDE, scales=CLIP_PARITY_SCALES)
+    loss = clip_loss(torch.zeros(A.shape[0], 2, device=dev), At, text, enc,
+                     None, cfg)
+    loss.backward()
+    loss = float(loss.detach())
+    grad = At.grad.cpu().numpy()
+
+    def gap(t, want):
+        return float(np.abs(t.cpu().numpy() - want).max())
+
+    want_loss = float(ref["loss"])
+    return {"text": gap(text, ref["text"]), "image": gap(image, ref["image"]),
+            "loss_rel": abs(loss - want_loss) / abs(want_loss),
+            "grad_rel": float(np.abs(grad - ref["grad"]).max()
+                              / np.abs(ref["grad"]).max())}
+
+
+def clip_parity_phase(dev, smi) -> None:
+    """[clip-parity]: clip_parity_errors within the bars, and the image
+    tower's times at the training path's shape (B = CLIP_B images of
+    CLIP_SIDE x CLIP_SIDE): forward, and forward with backward to the
+    images, by CUDA events."""
+    from sph_nca_tpu_torch.training.clip_encoder import random_clip_encoder
+
+    t0 = time.time()
+    enc = random_clip_encoder(0, device=dev)
+    errs = clip_parity_errors(dev, clip_parity_assets(), enc)
+    imgs = torch.rand((CLIP_B, CLIP_SIDE, CLIP_SIDE, 3), device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            enc(imgs)
+
+    def fwd_bwd():
+        x = imgs.clone().requires_grad_(True)
+        enc(x).sum().backward()
+
+    fwd_ms, both_ms = cuda_ms(fwd, iters=20), cuda_ms(fwd_bwd, iters=20)
+    gflop = CLIP_B * clip_tower_flop() / 1e9
+    phase("clip-parity", t0, f"random towers and clip_loss (scales "
+          f"{CLIP_PARITY_SCALES}) vs the JAX package's float32 CPU numbers: "
+          f"text features max abs {errs['text']:.3e}, image features "
+          f"{errs['image']:.3e} (limit {CLIP_FEAT_ATOL}), loss rel "
+          f"{errs['loss_rel']:.3e} (limit {CLIP_LOSS_RTOL}), gradient "
+          f"{errs['grad_rel']:.3e} of max (limit {CLIP_GRAD_RTOL}); image "
+          f"tower at B={CLIP_B} ({gflop:.1f} GFLOP forward): forward "
+          f"{fwd_ms:.3f} ms ({gflop / fwd_ms:.2f} TFLOP/s), forward + "
+          f"backward {both_ms:.3f} ms | {smi}")
+    if not (errs["text"] <= CLIP_FEAT_ATOL and errs["image"] <= CLIP_FEAT_ATOL
+            and errs["loss_rel"] <= CLIP_LOSS_RTOL
+            and errs["grad_rel"] <= CLIP_GRAD_RTOL):
+        fail(f"the CLIP path departs from the JAX package's numbers: {errs}")
+
+
+def clip_tower_flop() -> float:
+    """Floating-point operations of one image through the image tower's
+    products (patches, 12 blocks, projection; 2 per multiply-add)."""
+    from sph_nca_tpu_torch.training import clip_encoder as CE
+
+    t, w = (CE.IMAGE_RES // CE.PATCH) ** 2 + 1, CE.WIDTH
+    block = t * (4 * w * w + 8 * w * w) + 2 * t * t * w
+    return 2.0 * ((t - 1) * CE.PATCH * CE.PATCH * 3 * w + CE.LAYERS * block
+                  + w * CE.EMBED)
+
+
+def clip_train_argv(out_dir: str, engine: str, iters: int) -> list:
+    """The train CLI at runs/clip_smoke's configuration on the card, from
+    the JAX run's initial parameters."""
+    return ["--device", "cuda", "--seed", str(SEED), "--loss",
+            "clip_multiscale", "--clip_guide", CLIP_GUIDE, "--image_size",
+            str(CLIP_SIDE), "--target_size", "64", "--h", str(TRAIN_H),
+            "--batch_size", str(CLIP_B), "--pool_size", str(CLIP_POOL),
+            "--steps_range", CLIP_RANGE, "--channels", "16", "--hidden",
+            "256", "--log_every", "5", "--checkpoint_every", str(iters),
+            "--save_resume", "false", "--training_iter", str(iters),
+            "--pretrained_checkpoint", CLIP_INIT, "--engine", engine,
+            "--output_dir", out_dir]
+
+
+def clip_trainer(eng, x2, steps_increment: int = 0):
+    """The port's Trainer at runs/clip_smoke's configuration on ``eng``
+    (full 8-12-step depth from the first iteration unless a
+    ``steps_increment`` is given), with its pool and its loss bundle."""
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig
+    from sph_nca_tpu_torch.training.clip_encoder import random_clip_encoder
+    from sph_nca_tpu_torch.training.clip_text import get_text_features
+    from sph_nca_tpu_torch.training.losses import CLIPLossConfig
+    from sph_nca_tpu_torch.training.pool import DevicePool
+    from sph_nca_tpu_torch.training.trainer import (
+        TrainConfig,
+        Trainer,
+        make_clip_bundle,
+    )
+
+    dev = eng.device
+    cfg = SPHNCAConfig(channels=16, hidden=256, fire_rate=0.5,
+                       normalize_perception=1.0 / TRAIN_H)
+    bundle = make_clip_bundle(get_text_features(CLIP_GUIDE, device=dev),
+                              random_clip_encoder(0, device=dev),
+                              CLIPLossConfig(image_size=CLIP_SIDE))
+    lo, hi = (int(s) for s in CLIP_RANGE.split(","))
+    trainer = Trainer(cfg, TrainConfig(
+        batch_size=CLIP_B, pool_size=CLIP_POOL, steps_range=(lo, hi),
+        steps_increment=steps_increment, seed=SEED), eng, x2, bundle,
+        TRAIN_H)
+    seed_A = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                        radius=TRAIN_H)
+    pool = DevicePool(x2.numpy(), seed_A.numpy(), CLIP_POOL,
+                      rng=np.random.default_rng(SEED), device=dev)
+    return trainer, pool, bundle
+
+
+def clip_iteration_split(eng, x2) -> dict:
+    """One full-depth CLIP iteration on ``eng`` (after a warm-up) under the
+    profiler: wall and device ms and the device's busy share; and the loss
+    terms alone on the same states (the ranking, the final and 4 aux
+    states, the backward through the towers): their wall ms, which is the
+    towers' share of the iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer, pool, bundle = clip_trainer(eng, x2)
+    trainer.run_iteration(0, pool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        trainer.run_iteration(1, pool)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t1)
+    dev_ms = 1e-3 * sum(getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0))
+                        for ev in prof.key_averages()
+                        if ev.device_type != torch.autograd.DeviceType.CPU)
+    _, A = pool.sample(CLIP_B)
+    A = torch.as_tensor(A, device=eng.device)
+    x = trainer.x
+    gen = trainer.loss_generator
+
+    def loss_terms():
+        with torch.no_grad():
+            bundle.per_sample(x, A, gen)
+        As = A.clone().requires_grad_(True)
+        total = sum(bundle.batch_total(x, As, gen) for _ in range(5))
+        total.backward()
+
+    loss_ms = cuda_ms(loss_terms, iters=5, warmup=1)
+    return {"wall_ms": wall_ms, "dev_ms": dev_ms, "steps": trainer.last_steps,
+            "loss_ms": loss_ms}
+
+
+def clip_train_phase(dev, smi, out_root: str) -> tuple:
+    """[clip-train]: the train CLI at runs/clip_smoke's configuration, from
+    the JAX run's initial parameters (CLIP_INIT), for CLIP_ITERS iterations
+    on the cell engine (float32 pair tables: kernels
+    2.4 / 2.5 / 2.6 / 2.8) and on the default band engine (2.8): finite
+    losses whose mean at iterations 0, 5, ..., 25 lies within CLIP_MEAN_RTOL
+    of the JAX run's, launches as the drawn schedule implies, the checkpoint
+    with meta.json (mode texture); ms an iteration, peak memory, one
+    full-depth iteration's busy share and the towers' share; each kernel of
+    the path against its plain version at the path's shapes. Returns
+    ({path: launches}, {kernel: {path: max abs error}})."""
+    from sph_nca_tpu_torch.io.checkpoint import load_checkpoint
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+
+    t0 = time.time()
+    rng = np.random.default_rng(SEED + 5)
+    x, x2 = plane_points(CLIP_SIDE)
+    want_mean = float(np.mean(list(CLIP_JAX_LOSSES.values())))
+    launches, lines, leads = {}, [], {}
+    for engine in ("cells", "band"):
+        if engine == "cells":
+            eng = build_cell_engine(x, TRAIN_H, pair_tables="float32",
+                                    device=dev)
+            nbk = sum(1 for nb, _ in tab_stats(eng)["buckets"] if nb > 0)
+            leads[f"clip-train {engine}"] = (CLIP_B, eng.num_cells,
+                                             eng.slots_per_cell)
+            tab = check_tab_kernels(eng, rng, dev, sizes=(1, CLIP_B))
+        else:
+            eng = build_band_engine(x.numpy(), TRAIN_H, table_dtype="float32",
+                                    device=dev)
+            nbk = 0
+            leads[f"clip-train {engine}"] = (CLIP_B, eng.num_cells,
+                                             eng.slots_per_cell)
+        split = clip_iteration_split(eng, x2)
+        del eng
+        out_dir = os.path.join(out_root, engine)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        rc = cli_train.main(clip_train_argv(out_dir, engine, CLIP_ITERS))
+        torch.cuda.synchronize()
+        got = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if rc != 0:
+            fail(f"the CLIP train CLI (--engine {engine}) returned {rc}")
+        rows = metrics_rows(out_dir)
+        if sorted(rows) != list(range(CLIP_ITERS)):
+            fail(f"CLIP training ({engine}) wrote iterations {sorted(rows)}")
+        losses = [rows[i]["loss"] for i in range(CLIP_ITERS)]
+        steps = [rows[i]["steps"] for i in range(CLIP_ITERS)]
+        mean = float(np.mean([losses[i] for i in CLIP_JAX_LOSSES]))
+        want = expected_train_launches(steps, nbk, tables=True)
+        if not all(np.isfinite(losses)):
+            fail(f"CLIP training ({engine}) losses not finite: {losses}")
+        if not abs(mean - want_mean) <= CLIP_MEAN_RTOL * want_mean:
+            fail(f"CLIP training ({engine}): mean loss at "
+                 f"{sorted(CLIP_JAX_LOSSES)} {mean:.4f}, the JAX run's "
+                 f"{want_mean:.4f} (limit {CLIP_MEAN_RTOL} relative)")
+        if got != want:
+            fail(f"CLIP training ({engine}) launches {got}, expected {want}")
+        (ck,) = glob.glob(os.path.join(out_dir, f"sphnca-*-{CLIP_ITERS:04d}"))
+        meta = load_checkpoint(ck, device=dev)["meta"]
+        if (meta["extra"]["mode"] != "texture" or meta["step"] != CLIP_ITERS
+                or meta["extra"]["args"]["loss"] != "clip_multiscale"):
+            fail(f"the CLIP checkpoint's meta.json: {meta}")
+        launches[f"clip-train {engine}"] = got
+        secs = [rows[i]["seconds"] for i in range(CLIP_ITERS)]
+        print(f"  {engine}: losses "
+              + " ".join(f"{l:.4f}" for l in losses), flush=True)
+        lines.append(
+            f"{engine}: mean loss at 0, 5, ..., 25 {mean:.4f} (JAX "
+            f"{want_mean:.4f}), {losses[0]:.4f} -> {losses[-1]:.4f}; median "
+            f"{1e3 * float(np.median(secs[CLIP_ITERS // 2:])):.1f} ms an "
+            f"iteration over iterations {CLIP_ITERS // 2}-{CLIP_ITERS - 1} "
+            f"({np.mean(steps[CLIP_ITERS // 2:]):.1f} steps), "
+            f"{sum(secs):.1f} s in all, peak device memory {peak_gb:.3f} "
+            f"GiB; one full-depth iteration ({split['steps']} steps) "
+            f"{split['wall_ms']:.1f} ms wall, {split['dev_ms']:.1f} ms device "
+            f"({100 * split['dev_ms'] / split['wall_ms']:.1f}% busy), its loss "
+            f"terms (the towers) {split['loss_ms']:.1f} ms "
+            f"({100 * split['loss_ms'] / split['wall_ms']:.1f}%); launches "
+            f"{got}")
+    mlp = mlp_shape_checks(dev, leads)
+    errs = {name: {"clip-train cells": tab[name]} for name in
+            ("sph_fwd_tab_kernel", "sph_bwd_tab_kernel", "sph_mask_tab_kernel")}
+    errs["sph_mlp_kernel"] = {f"{label} {str(dtype)[6:]}": err
+                              for (label, dtype), err in mlp.items()}
+    phase("clip-train", t0, f"train CLI --loss clip_multiscale at "
+          f"runs/clip_smoke's configuration ({CLIP_SIDE}x{CLIP_SIDE}, "
+          f"B={CLIP_B}, pool {CLIP_POOL}, steps {CLIP_RANGE}, guide "
+          f"{CLIP_GUIDE!r}, random towers, the JAX run's initial "
+          f"parameters), {CLIP_ITERS} iterations; "
+          + "; ".join(lines) + f"; 2.4-2.6 vs plain on its float32 tables "
+          f"(B = 1 and {CLIP_B}) within {TAB_RTOL}, 2.8 at "
+          + ", ".join(f"{k} {v}" for k, v in leads.items())
+          + f" | {smi}")
+    return launches, errs
+
+
+def optimizers_phase(dev, smi) -> dict:
+    """[optimizers]: each optimizer of training.optim OPT_UPDATES updates
+    from the same params and seeded gradients (normalized, under the
+    schedule) on the card and on the CPU: params and every leaf of the optax
+    state tree within OPT_RTOL of max; then the train CLI (band engine, MSE)
+    with --optimizer lamb for OPT_CLI_ITERS iterations and a checkpoint in
+    LAMB's optax layout, and --resume auto for OPT_RESUME more. Returns
+    2.8's launches."""
+    from sph_nca_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        optax_state_tree,
+    )
+    from sph_nca_tpu_torch.models.nca import (
+        MLPParams,
+        SPHNCAConfig,
+        init_params,
+    )
+    from sph_nca_tpu_torch.training.optim import LAYOUTS, OPTIMIZERS
+    from sph_nca_tpu_torch.training.trainer import (
+        make_optimizer,
+        normalize_grads_,
+    )
+
+    t0 = time.time()
+    cfg = SPHNCAConfig(channels=16, hidden=256)
+    p0 = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    grads = [[torch.from_numpy(np.random.default_rng(SEED + u).normal(
+        size=tuple(p.shape)).astype(np.float32)) for p in p0]
+        for u in range(OPT_UPDATES)]
+
+    def run(name, device):
+        params = [p.clone().to(device).requires_grad_(True) for p in p0]
+        opt, sched = make_optimizer(params, name=name, decay_steps=10)
+        for g in grads:
+            for p, gp in zip(params, g):
+                p.grad = gp.to(device, copy=True)
+            normalize_grads_(params)
+            opt.step()
+            sched.step()
+        return params, optax_state_tree(opt, MLPParams(*params), True, name)
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}")
+        else:
+            yield path, np.asarray(tree)
+
+    def arrays(params, tree):
+        out = {f"param {k}": p.detach().cpu().numpy()
+               for k, p in zip(MLPParams._fields, params)}
+        out.update(leaves(tree))
+        return out
+
+    worst, repeat = {}, {}
+    for name in OPTIMIZERS:
+        got = arrays(*run(name, dev))
+        again = arrays(*run(name, dev))
+        want = arrays(*run(name, "cpu"))
+        if got.keys() != want.keys():
+            fail(f"{name}: the card's optax tree {sorted(got)} is not the "
+                 f"CPU's {sorted(want)}")
+        repeat[name] = all(np.array_equal(got[k], again[k]) for k in got)
+        gaps = {}
+        for k, w in want.items():
+            if w.dtype == np.int32:
+                if not np.array_equal(got[k], w):
+                    fail(f"{name}: count {k} {got[k]} != {w}")
+                continue
+            gaps[k] = float(np.abs(got[k] - w).max()
+                            / max(np.abs(w).max(), 1e-30))
+        leaf = max(gaps, key=gaps.get)
+        worst[name] = gaps[leaf]
+        if not worst[name] <= OPT_RTOL:
+            d = np.abs(got[leaf] - want[leaf]).reshape(-1)
+            j = int(d.argmax())
+            fail(f"{name} on the card departs from the CPU by {worst[name]:.3e}"
+                 f" of max (limit {OPT_RTOL}) at {leaf} [{j}]: "
+                 f"{got[leaf].reshape(-1)[j]!r} vs {want[leaf].reshape(-1)[j]!r}"
+                 f"; a second card run is bit-equal: {repeat[name]}")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        reset_launches()
+        flags = ["--optimizer", "lamb", "--checkpoint_every",
+                 str(OPT_CLI_ITERS), "--log_every", "1", "--engine", "band"]
+        argv = ["--device", "cuda", "--seed", str(SEED), "--output_dir",
+                out_dir] + flags
+        rc = cli_train.main(argv + ["--training_iter", str(OPT_CLI_ITERS)])
+        torch.cuda.synchronize()
+        (ck,) = glob.glob(os.path.join(out_dir, "sphnca-*-*[0-9]"))
+        tree = load_checkpoint(ck, device=dev)["opt_state"]
+        rc2 = cli_train.main(argv + [
+            "--training_iter", str(OPT_CLI_ITERS + OPT_RESUME), "--resume",
+            "auto"])
+        torch.cuda.synchronize()
+        got = read_launches()
+        rows = metrics_rows(out_dir)
+    if rc != 0 or rc2 != 0:
+        fail(f"train CLI --optimizer lamb returned {rc}, resumed {rc2}")
+    inner = tree.get("1", {})
+    if (set(tree) != {"0", "1"} or set(inner) != {
+            str(i) for i in range(len(LAYOUTS["lamb"]))}
+            or int(inner["0"]["count"]) != OPT_CLI_ITERS
+            or int(inner["3"]["count"]) != OPT_CLI_ITERS):
+        fail(f"the --optimizer lamb checkpoint is not LAMB's optax state: "
+             f"{tree.keys()}, inner {inner.keys()}")
+    losses = [rows[i]["loss"] for i in sorted(rows)]
+    if (sorted(rows) != list(range(OPT_CLI_ITERS + OPT_RESUME))
+            or not all(np.isfinite(losses))):
+        fail(f"train CLI --optimizer lamb: iterations {sorted(rows)}, losses "
+             f"{losses}")
+    steps = [rows[i]["steps"] for i in sorted(rows)]
+    want = expected_train_launches(steps, 0, tables=True)["sph_mlp_kernel"]
+    if got != {**NO_LAUNCHES, "sph_mlp_kernel": want}:
+        fail(f"train CLI --optimizer lamb launches {got}")
+    phase("optimizers", t0, f"{OPT_UPDATES} updates of each optimizer on the "
+          f"card vs the CPU (normalized gradients, the schedule), params and "
+          f"optax state within " + ", ".join(
+              f"{n} {g:.2e}" for n, g in worst.items())
+          + f" of max (limit {OPT_RTOL}), two card runs bit-equal for "
+          f"{sum(repeat.values())} of {len(repeat)}; train CLI --optimizer "
+          f"lamb (band "
+          f"engine, MSE): {OPT_CLI_ITERS} iterations, a checkpoint in LAMB's "
+          f"optax layout (count {OPT_CLI_ITERS}), --resume auto "
+          f"{OPT_RESUME} more: losses "
+          + " ".join(f"{l:.4f}" for l in losses) + f"; 2.8 {want} launches"
+          f" | {smi}")
+    return want
+
+
+def check_png_frames(run_dir: str, side: int, n_states: int,
+                     channels: int) -> str:
+    """The test CLI's PNG frames of an image-mode run (``--export_every``
+    1): one a state, ``{i:04d}.png``; the last one's signature and IHDR
+    (side x side, 8 bits, RGBA or RGB). The card has no PIL: the header is
+    read with struct."""
+    names = sorted(f for f in os.listdir(run_dir) if f.endswith(".png"))
+    if names != [f"{i:04d}.png" for i in range(n_states)]:
+        fail(f"PNG frames {names[:3]}... ({len(names)}), expected "
+             f"{n_states}")
+    with open(os.path.join(run_dir, names[-1]), "rb") as f:
+        head = f.read(26)
+    w, h, depth, ctype = struct.unpack(">IIBB", head[16:26])
+    kind = {6: "RGBA", 2: "RGB"}.get(ctype)
+    if (head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR"
+            or (w, h, depth) != (side, side, 8)
+            or kind != {4: "RGBA", 3: "RGB"}[channels]):
+        fail(f"PNG frame {names[-1]}: header {head!r}")
+    return f"{len(names)} PNG frames {w}x{h} {kind}"
+
+
 # ---- the graph engine: fixed-K neighbour lists, plain PyTorch ----------------
 
 # the graph paths launch no kernel of the port: every wrapper's counter stays
@@ -3683,6 +4208,8 @@ def graph_inference_phase(dev, smi, alive_cells: float) -> dict:
         (run,) = os.listdir(out_dir)
         with np.load(os.path.join(out_dir, run, "states.npz")) as z:
             states = z["states"]
+        frames = check_png_frames(os.path.join(out_dir, run), IMAGE,
+                                  STEPS + 1, 4)
     if (states.shape != (STEPS + 1, IMAGE * IMAGE, 16)
             or not np.isfinite(states).all()):
         fail(f"graph test CLI trajectory {states.shape}, finite "
@@ -3719,7 +4246,7 @@ def graph_inference_phase(dev, smi, alive_cells: float) -> dict:
     phase("graph-inference", t0, f"test CLI --engine graph, gecko {IMAGE}x"
           f"{IMAGE}, {STEPS} steps at fire_rate 0.5 in {cli_s:.2f} s, no "
           f"kernel launched: alive {alive0:.4f} -> {alive:.4f} (cell engine "
-          f"{alive_cells:.4f}, limit {ALIVE_ATOL}); rollout_states "
+          f"{alive_cells:.4f}, limit {ALIVE_ATOL}), {frames}; rollout_states "
           f"{step_ms:.4f} ms a step (host clock around synchronize, K={g.k}, "
           f"{g.nbytes() / 1e6:.1f} MB); {CHECK_STEPS} steps at fire_rate 1.0 "
           f"against the cell engine (kernels 2.1 / 2.3): {gap:.3e} of max "
@@ -4095,6 +4622,8 @@ def main() -> int:
         (run,) = os.listdir(out_dir)
         with np.load(os.path.join(out_dir, run, "states.npz")) as z:
             states = z["states"]
+        frames = check_png_frames(os.path.join(out_dir, run), IMAGE,
+                                  STEPS + 1, 4)
     want = 2 * STEPS  # two buckets a step
     if infer_launches != {**NO_LAUNCHES, "sph_fwd_kernel": want,
                           "sph_mask_kernel": want}:
@@ -4111,7 +4640,8 @@ def main() -> int:
         fail(f"the gecko did not grow: alive fraction {alive0} -> {alive}")
     phase("rollout", t0, f"CLI {STEPS} steps at fire_rate 0.5, "
           f"{IMAGE * IMAGE} particles: launches {infer_launches}, "
-          f"finite={finite}, alive fraction {alive0:.4f} -> {alive:.4f}")
+          f"finite={finite}, alive fraction {alive0:.4f} -> {alive:.4f}; "
+          f"{frames}")
 
     t0 = time.time()
     cfg1 = dataclasses.replace(model.cfg, fire_rate=1.0)
@@ -4685,6 +5215,13 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         texture_profile_phase(dev, smi)
 
+    # ---- the CLIP slice: text-guided training, the optimizers --------------
+    clip_parity_phase(dev, smi)
+    with tempfile.TemporaryDirectory() as clip_dir:
+        clip_launches, clip_errs = clip_train_phase(dev, smi, clip_dir)
+    clip_launches["optimizers lamb"] = {
+        **NO_LAUNCHES, "sph_mlp_kernel": optimizers_phase(dev, smi)}
+
     # ---- the graph engine: the oracle tier, no kernel of the port ---------
     graph_phases(dev, smi, alive)
 
@@ -4725,6 +5262,18 @@ def main() -> int:
                                f"{label} {str(dtype)[6:]}": err
                                for (label, dtype), err
                                in band_mlp_errs.items()}}
+    # the CLIP paths' launches and errors, by path
+    for row in kernels:
+        counts = {path: c[row["name"]] for path, c in clip_launches.items()
+                  if c.get(row["name"], 0)}
+        if counts:
+            row["clip"] = {"launches": counts,
+                           "launches_path": ", ".join(counts),
+                           "max_abs_err": clip_errs.get(row["name"], {})}
+    missing = [name for name in CLIP_KERNELS
+               if not clip_launches["clip-train cells"][name]]
+    if missing:
+        fail(f"the CLIP cell-engine run launched no {missing}")
     if len(kernels) != 8:
         fail(f"the kernels line has {len(kernels)} rows, expected 8")
     print(json.dumps({"kernels": kernels}), flush=True)

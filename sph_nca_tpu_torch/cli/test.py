@@ -9,7 +9,10 @@ default), ``--engine cells`` and ``--engine graph``. Image mode:
         --image_size 128 --steps 128 --output_dir /tmp/sphnca
 
 writes ``<output_dir>/sphnca-test-<time>/states.npz`` (grid positions ``x``
-[N, 2] and the trajectory ``states`` [steps+1, N, F] in particle order). On
+[N, 2] and the trajectory ``states`` [steps+1, N, F] in particle order) and
+a PNG frame of every ``--export_every``-th state, ``{i:04d}.png`` (RGBA, or
+RGB without alpha; written with the standard library: the card's machine
+has no PIL). On
 the band engine it builds bfloat16 tables and runs the batched rollout
 (``models.cell_step.rollout_cells_batched``) at B = 1 with every state kept,
 as the JAX CLI does; on the cell engine the recompute kernels
@@ -49,9 +52,8 @@ a float32 band engine at radius 0.2, as the JAX CLI does, also with
 ``--engine graph``. ``--engine cells`` runs poly6 models only (the cell
 engine's pair kernels hard-wire the poly6 / spiky pair math), with cell
 engines in the surface mode too, where the JAX CLI maps both engine names to
-band engines.
-
-Not ported yet: PNG export.
+band engines. ``--nca_update`` is parsed and ignored, as the JAX CLI does
+(the model's update rule comes with its weights).
 """
 
 from __future__ import annotations
@@ -100,8 +102,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--surface_numpoints", type=int, default=25600)
     p.add_argument("--surface_numseed", type=int, default=10)
     p.add_argument("--export_every", type=int, default=1,
-                   help="export every n-th step (surface mode PLYs)")
+                   help="export every n-th step (PNG frames in image mode, "
+                        "PLYs in surface mode)")
     p.add_argument("--steps", type=int, default=128)
+    p.add_argument("--nca_update", choices=["orig", "gated"],
+                   default="gated",
+                   help="ignored, as by the JAX CLI: the model's rule is "
+                        "its weights'")
     p.add_argument("--nca_normalize_perception", type=float, default=-1)
     p.add_argument("--h", type=float, default=None,
                    help="override the model's h")
@@ -314,12 +321,14 @@ def main(argv=None) -> int:
 
     from .. import resolve_device
     from ..models.cell_step import rollout_cells_batched, rollout_states_cells
+    from ..models.nca import to_rgba
     from ..models.rollout import rollout_states
     from ..ops.bands import build_band_engine
     from ..ops.batched import batched_scatter
     from ..ops.cells import build_cell_engine
     from ..ops.hashgrid import default_dims
     from ..utils.geometry import grange
+    from ..utils.image import save_frame_png
     from ..utils.seeds import plane_seed
 
     device = resolve_device(args.device)
@@ -385,11 +394,19 @@ def main(argv=None) -> int:
     else:
         states = rollout_states_cells(params, cfg, eng, A0, gen, args.steps,
                                       h, fire_rate=args.firerate)
+    with torch.no_grad():
+        rgba = to_rgba(states[::args.export_every], cfg.use_alpha)
+    if not cfg.use_alpha:
+        rgba = rgba[..., :3]
     states = states.cpu().numpy()
+    rgba = rgba.cpu().numpy()
     print(f"rollout {time.time() - t0:.2f}s", flush=True)
 
     out_dir = _out_dir(args)
     np.savez(os.path.join(out_dir, "states.npz"), x=x2.numpy(), states=states)
+    for k, i in enumerate(range(0, states.shape[0], args.export_every)):
+        save_frame_png(os.path.join(out_dir, f"{i:04d}.png"), rgba[k],
+                       side=m)
     print(f"exported {out_dir}", flush=True)
     return 0
 

@@ -1,16 +1,19 @@
-"""Training CLI of the port: plane-mode MSE and exemplar (OT) training on the
-band, cell or graph engine, with checkpoints and resume.
+"""Training CLI of the port: plane-mode MSE, exemplar (OT) and text-guided
+(CLIP) training on the band, cell or graph engine, with checkpoints and
+resume.
 
 Counterpart of ``sph_nca_tpu/cli/train.py``, with the same flags and
-defaults:
+defaults (``--device`` in place of ``--platform``):
 
     python -m sph_nca_tpu_torch.cli.train --training_iter 2000 \
         --output_dir /tmp/sphnca-train
 
 trains on a 128x128 grid padded to 3D (h = 0.08, 16 channels, 256 hidden
 units, gated rule, batch 8 from a pool of 1024, rollouts of 32-48 steps after
-the progressive warm-up) against ``--img`` (a PNG, or a ``.npy`` image) or,
-without one, a flat color. A texture:
+the progressive warm-up) against ``--img`` (a PNG, or a ``.npy`` image),
+``--target`` (an emoji, from the local cache of Noto PNGs under
+``$SPH_NCA_EMOJI_CACHE``: ``utils/image.load_emoji``; it needs PIL) or,
+without either, a flat color. A texture:
 
     python -m sph_nca_tpu_torch.cli.train --loss ot --wrap true \
         --use_alpha false --initial_feature random \
@@ -20,27 +23,48 @@ without one, a flat color. A texture:
 
 takes the OT style loss over ``--texture_features`` (gabor, the default;
 vgg with ``--vgg_weights``; vgg_random) against the exemplar resized to the
-particle grid. It logs the loss every ``--log_every`` iterations and writes
-to ``--output_dir``:
+particle grid. A text prompt:
 
-  metrics-<time>.jsonl        one line per iteration: iter, loss, steps (the
-                              rollout length) and seconds (its wall time);
-                              appended to, so a resumed run continues it
+    python -m sph_nca_tpu_torch.cli.train --loss clip_multiscale \
+        --clip_guide "a red and yellow spiral" --image_size 48 \
+        --batch_size 4 --pool_size 64 --steps_range 8,12 \
+        --output_dir /tmp/sphnca-clip
+
+takes the CLIP loss: the spherical distance between the ViT-B/32 image
+tower's features of each sample's views (``--clip_multiscale_scales``: a
+downsized copy for a scale above 1, a random crop below it) and the prompt's
+text features (``--clip_text_embed``: a ``.npy`` of them; else the text
+tower on ``--clip_guide``, tokenized with the BPE merges of ``--clip_bpe``).
+``--clip_weights`` is an ``.npz`` of the towers (``convert_open_clip`` /
+``convert_open_clip_text``); without it both towers are the JAX package's
+fixed-seed random ones, which run the pipeline but are not semantically
+CLIP (a warning says so). ``--optimizer`` takes every optimizer of the JAX
+trainer, as optax defines it (adam, adamw, sgd, rmsprop, adagrad, lion,
+lamb, any case; an unknown name gives Adam: ``training/optim.py``). It logs
+the loss every ``--log_every`` iterations and writes to ``--output_dir``:
+
+  metrics-<time>.jsonl        one line per iteration: the JAX CLI's keys
+                              (step, t, loss, it_per_sec, rss_gb) and iter,
+                              steps (the rollout length) and seconds (its
+                              wall time); appended to, so a resumed run
+                              continues it
   sphnca-<time>-<step>/       a checkpoint every ``--checkpoint_every``
                               iterations (``io/checkpoint.py``: the JAX
-                              package's layout), with the resume sidecar
-                              unless ``--save_resume false`` (the previous
+                              package's layout, the optimizer's state as
+                              optax's), with the resume sidecar unless
+                              ``--save_resume false`` (the previous
                               checkpoint's sidecar is pruned)
   sphnca-<time>-<step>.json   the weights beside each checkpoint, and at the
                               end, for ``cli.test``
 
 ``--resume <dir>|auto`` continues from a checkpoint (auto: the latest one in
-``--output_dir`` with a sidecar): params, Adam state and schedule, step,
-pool and every random stream, so the run goes on exactly as if it had not
-stopped. A checkpoint without a sidecar, or with the JAX package's (a JAX
-key, which the port cannot continue), resumes softly: params, Adam state and
-step, with a fresh pool and streams. ``--max_rss_gb`` checkpoints and exits
-with code 42 when the host's resident memory passes it.
+``--output_dir`` with a sidecar): params, the optimizer's state and
+schedule, step, pool and every random stream, so the run goes on exactly as
+if it had not stopped. A checkpoint without a sidecar, or with the JAX
+package's (a JAX key, which the port cannot continue), resumes softly:
+params, optimizer state and step, with a fresh pool and streams.
+``--max_rss_gb`` checkpoints and exits with code 42 when the host's
+resident memory passes it.
 
 It runs ``--training_iter`` iterations (the JAX CLI runs one more); the
 checkpoints fall where the JAX CLI's do. As the JAX CLI, it builds the band
@@ -54,14 +78,12 @@ from the native grid analyzer, then ``build_graph`` with the smoothing
 kernel), which the trainer rolls out in plain PyTorch
 (``models.rollout.rollout_batch``). The trainer keeps the pool on
 the device (``DevicePool``) when it is under 4 GB (``--device_pool auto``;
-1.07 GB at the defaults). What is not ported yet is refused by name
-(``NOT_PORTED``).
+1.07 GB at the defaults).
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import time
 
@@ -69,27 +91,6 @@ import numpy as np
 import torch
 
 from .test import str2bool
-
-# what the JAX CLI takes and the port does not yet: (the flag, the test on
-# the parsed args, what to use instead)
-NOT_PORTED = (
-    ("--loss clip_multiscale", lambda a: a.loss == "clip_multiscale",
-     "use --loss mse_simple or ot"),
-    ("--target (emoji targets)", lambda a: bool(a.target),
-     "use --img <file>"),
-    ("--optimizer other than Adam", lambda a: a.optimizer.lower() != "adam",
-     "use --optimizer Adam"),
-)
-
-
-def not_ported(args) -> str:
-    """The refusal message for the first unported choice in ``args``, or
-    ''."""
-    for flag, test, hint in NOT_PORTED:
-        if test(args):
-            return f"{flag} is not ported yet; {hint}"
-    return ""
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -113,8 +114,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_range", type=str, default="32,48")
     p.add_argument("--steps_increment", type=int, default=5)
     p.add_argument("--loss_weight_color", type=float, default=0.05)
+    p.add_argument("--loss_weight_clip", type=float, default=1)
     p.add_argument("--loss_weight_overflow", type=float, default=0.05)
     p.add_argument("--loss_weight_style", type=float, default=1)
+    p.add_argument("--clip_guide", type=str, default="",
+                   help="the text prompt of --loss clip_multiscale")
+    p.add_argument("--clip_multiscale_scales", type=str, default="1",
+                   help="comma-separated view scales: > 1 downsizes, < 1 "
+                        "crops at random")
     p.add_argument("--nca_update", choices=["orig", "gated"],
                    default="gated")
     p.add_argument("--nca_normalize_grad", type=str2bool, default=True)
@@ -123,7 +130,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pretrained_checkpoint", type=str, default="",
                    help="start from this checkpoint's params (step 0)")
     p.add_argument("--optimizer", type=str, default="Adam",
-                   help="Adam (any case); other names are refused")
+                   help="adam, adamw, sgd, rmsprop, adagrad, lion or lamb "
+                        "(any case), as optax defines them; an unknown name "
+                        "gives Adam")
     p.add_argument("--degrade_prob", type=float, default=0.0)
     p.add_argument("--erase_radius", type=float, default=0.0)
     p.add_argument("--batch_size", type=int, default=8)
@@ -142,6 +151,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="OT-loss features: gabor (a fixed multi-scale "
                         "oriented bank), vgg (needs --vgg_weights), "
                         "vgg_random (seeded random filters)")
+    p.add_argument("--clip_weights", type=str, default="",
+                   help=".npz of the CLIP ViT-B/32 towers (convert_open_clip"
+                        " / convert_open_clip_text; one combined file may "
+                        "hold both); without it, fixed-seed random towers "
+                        "(not semantically CLIP)")
+    p.add_argument("--clip_bpe", type=str, default="",
+                   help="CLIP's bpe_simple_vocab_16e6.txt.gz, to tokenize "
+                        "--clip_guide (without it: a byte hash)")
+    p.add_argument("--clip_text_embed", type=str, default="",
+                   help=".npy of precomputed unit text features [512] "
+                        "(in place of encoding --clip_guide)")
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--engine", choices=["band", "cells", "graph"],
                    default="band",
@@ -222,15 +242,51 @@ def _build_engine(args, x, h, period, device):
     return eng
 
 
+def _clip_bundle(args, m, device):
+    """The CLIP loss bundle: the text features of ``--clip_text_embed`` or
+    of ``--clip_guide`` (computed once, without a gradient) and the image
+    tower."""
+    from ..training.clip_encoder import get_clip_encoder
+    from ..training.clip_text import get_text_features
+    from ..training.losses import CLIPLossConfig
+    from ..training.trainer import make_clip_bundle
+
+    if args.clip_text_embed:
+        text_features = torch.from_numpy(
+            np.load(args.clip_text_embed).astype(np.float32)).to(device)
+    else:
+        text_features = get_text_features(
+            args.clip_guide, weights_path=args.clip_weights or None,
+            bpe_path=args.clip_bpe or None, device=device)
+        if not (args.clip_weights and args.clip_bpe):
+            print(
+                "WARNING: encoding --clip_guide with "
+                f"{'random weights' if not args.clip_weights else ''}"
+                f"{' and ' if not (args.clip_weights or args.clip_bpe) else ''}"
+                f"{'fallback tokenizer' if not args.clip_bpe else ''}"
+                " — pipeline-correct but not semantically CLIP", flush=True)
+    encoder = get_clip_encoder(args.clip_weights or None, device=device)
+    clip_cfg = CLIPLossConfig(
+        image_size=m,
+        scales=tuple(float(s) for s in
+                     args.clip_multiscale_scales.split(",")),
+        clip_weight=args.loss_weight_clip,
+        overflow_weight=args.loss_weight_overflow,
+        use_alpha=args.use_alpha)
+    return make_clip_bundle(text_features, encoder, clip_cfg)
+
+
 def _make_loss(args, img, m, gmin, gsize, device):
     """The loss bundle of ``--loss``: the MSE against the target sampled at
-    the particles, or the OT loss against the exemplar resized to the
-    particle grid (bilinear, antialiased when it shrinks, as the JAX CLI's
-    ``jax.image.resize``)."""
+    the particles, the OT loss against the exemplar resized to the particle
+    grid (bilinear, antialiased when it shrinks, as the JAX CLI's
+    ``jax.image.resize``), or the CLIP loss."""
     from ..training.features import get_texture_features, resize_image
     from ..training.losses import MSELossConfig, OTLossConfig
     from ..training.trainer import make_mse_bundle, make_ot_bundle
 
+    if args.loss == "clip_multiscale":
+        return _clip_bundle(args, m, device)
     if args.loss == "mse_simple":
         return make_mse_bundle(img, MSELossConfig(
             gmin=gmin, gsize=gsize, image_scale=args.target_size / m,
@@ -248,9 +304,10 @@ def _make_loss(args, img, m, gmin, gsize, device):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refusal = not_ported(args)
-    if refusal:
-        raise SystemExit(refusal)
+    if (args.loss == "clip_multiscale" and not args.clip_text_embed
+            and not args.clip_guide):
+        raise SystemExit("--loss clip_multiscale needs --clip_guide (a text "
+                         "prompt) or --clip_text_embed")
     if args.engine == "cells" and args.smoothing_kernel != "poly6":
         raise SystemExit(
             "--engine cells is poly6-only (the pair kernels hard-wire the "
@@ -270,7 +327,8 @@ def main(argv=None) -> int:
     from ..training.pool import DevicePool, Pool
     from ..training.trainer import TrainConfig, Trainer
     from ..utils.geometry import grange
-    from ..utils.image import flat_color_target, load_image
+    from ..utils.image import flat_color_target, load_emoji, load_image
+    from ..utils.profiling import MetricsLogger
     from ..utils.seeds import plane_seed
 
     device = resolve_device(args.device)
@@ -291,7 +349,10 @@ def main(argv=None) -> int:
     randomized = args.initial_feature == "random"
     mode = "image" if args.loss == "mse_simple" else "texture"
 
-    if args.img:
+    if args.target:
+        img_np = load_emoji(args.target, args.target_size,
+                            args.alpha_premultiply)
+    elif args.img:
         img_np = load_image(args.img, args.target_size,
                             args.alpha_premultiply)
     else:
@@ -328,6 +389,7 @@ def main(argv=None) -> int:
         normalize_grads=args.nca_normalize_grad,
         degrade_prob=args.degrade_prob,
         erase_radius=args.erase_radius,
+        optimizer=args.optimizer,
         seed=args.seed,
     )
     bundle = _make_loss(args, img, m, gmin, gsize, device)
@@ -379,9 +441,9 @@ def main(argv=None) -> int:
             why = ("no pool/RNG sidecar (saved with --save_resume false)"
                    if rs is None else "the sidecar is the JAX package's (a "
                    "JAX key, which the port cannot continue)")
-            print(f"resume: {why}: soft resume: params, Adam state and step "
-                  f"{start_iter} restored, a fresh pool and random streams",
-                  flush=True)
+            print(f"resume: {why}: soft resume: params, optimizer state and "
+                  f"step {start_iter} restored, a fresh pool and random "
+                  "streams", flush=True)
             resume_path = ""
         else:
             shape = (args.pool_size, x2.shape[0], args.channels)
@@ -434,31 +496,31 @@ def main(argv=None) -> int:
 
     t_start = time.time()
     last_saved = start_iter if resume_ck is not None else -1
-    with open(metrics_path, "a") as metrics:
+    metrics = MetricsLogger(metrics_path)
+    try:
         for i in range(start_iter, args.training_iter):
             t1 = time.time()
             loss = trainer.run_iteration(i, pool)
             seconds = time.time() - t1
-            metrics.write(json.dumps({"iter": i, "loss": loss,
-                                      "steps": trainer.last_steps,
-                                      "seconds": seconds}) + "\n")
+            rate = (i + 1 - start_iter) / (time.time() - t_start)
+            rss = _rss_gb()
+            metrics.log(i, loss=loss, it_per_sec=rate, rss_gb=rss, iter=i,
+                        steps=trainer.last_steps, seconds=seconds)
             if i % args.log_every == 0:
-                rate = (i + 1 - start_iter) / (time.time() - t_start)
-                rss = _rss_gb()
                 print(f"iter {i:6d}  loss {loss:.6f}  steps "
                       f"{trainer.last_steps:3d}  ({rate:.2f} it/s, rss "
                       f"{rss:.2f} GB)", flush=True)
                 if args.max_rss_gb > 0 and rss > args.max_rss_gb:
-                    metrics.flush()
                     save_all(i + 1, loss)
                     print(f"RSS {rss:.2f} GB > --max_rss_gb "
                           f"{args.max_rss_gb}; checkpointed for --resume "
                           "auto, exiting 42", flush=True)
                     return 42
             if (i + 1) % args.checkpoint_every == 0:
-                metrics.flush()
                 save_all(i + 1, loss)
                 last_saved = i + 1
+    finally:
+        metrics.close()
 
     if last_saved != args.training_iter:
         out = os.path.join(args.output_dir,

@@ -12,19 +12,25 @@ package reads the other's:
 
 ``opt_state`` is optax's state of the JAX trainer's chain, as
 ``flax.serialization.to_state_dict`` flattens it: with gradient
-normalization ``{"0": {}, "1": {"0": {count, mu, nu}, "1": {count}}}``,
-without it ``{"0": {"0": {count, mu, nu}, "1": {count}}}``; mu and nu hold
-{w1, b1, w2, b2}. ``adam_to_optax`` / ``adam_from_optax`` map it onto
-``torch.optim.Adam``: mu is ``exp_avg``, nu ``exp_avg_sq`` and count
-``step`` (and the schedule's position); the update formulas agree (the same
-eps outside the square root, the same bias correction).
+normalization ``{"0": {}, "1": inner}``, without it ``{"0": inner}``, where
+``inner`` holds one entry per transform of the optimizer's chain
+(``training/optim.LAYOUTS``), e.g. Adam's ``{"0": {count, mu, nu}, "1":
+{count}}`` and LAMB's ``{"0": {count, mu, nu}, "1": {}, "2": {}, "3":
+{count}}``; counts are int32 scalars, and mu, nu and sum_of_squares hold
+{w1, b1, w2, b2} in float32. ``optax_state_tree`` / ``load_optax_state``
+map it onto the port's optimizers: ``torch.optim.Adam``'s exp_avg,
+exp_avg_sq and step for Adam (the update formulas agree: the same eps
+outside the square root, the same bias correction), the optax rules' own
+state for the others (``training/optim.py``); every count in the tree is
+the number of updates, which also puts the schedule at its position. A tree
+of another optimizer's layout raises.
 
 The port's sidecar holds the pool, the numpy streams' states (the trainer's
 and the pool's) and the trainer's ``torch.Generator`` states, and says it is
 the port's. A sidecar of the JAX package holds a JAX key instead, which the
 port cannot continue: ``load_resume_state`` marks it, and the train CLI then
-resumes softly (params, Adam state and step restored; a fresh pool and
-streams).
+resumes softly (params, optimizer state and step restored; a fresh pool
+and streams).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 
 from .. import resolve_device
 from ..models.nca import MLPParams, SPHNCAConfig
+from ..training.optim import LAYOUTS, OPTIMIZERS, SCHEDULE
 from . import msgpack
 
 PARAM_NAMES = MLPParams._fields  # ('w1', 'b1', 'w2', 'b2')
@@ -135,60 +142,101 @@ def load_checkpoint(path: str, device="cuda") -> Dict[str, Any]:
     return out
 
 
-# ---- Adam's state in optax's layout -----------------------------------------
+# ---- the optimizers' state in optax's layout --------------------------------
 
 
-def adam_to_optax(optimizer: torch.optim.Adam, params: MLPParams,
-                  normalize_grads: bool) -> dict:
-    """``torch.optim.Adam``'s state for ``params`` as the JAX trainer's optax
-    state tree. Before the first update: zero moments, count 0."""
-    mu, nu, count = {}, {}, 0
-    for k, p in zip(PARAM_NAMES, params):
-        st = optimizer.state.get(p, {})
-        if st:
-            mu[k] = _host(st["exp_avg"]).astype(np.float32)
-            nu[k] = _host(st["exp_avg_sq"]).astype(np.float32)
-            count = int(float(st["step"]))
-        else:
-            mu[k] = np.zeros(tuple(p.shape), np.float32)
-            nu[k] = np.zeros(tuple(p.shape), np.float32)
-    c = np.asarray(count, np.int32)
-    adam = {"0": {"count": c, "mu": mu, "nu": nu}, "1": {"count": c.copy()}}
-    return {"0": {}, "1": adam} if normalize_grads else {"0": adam}
+def _is_adam(optimizer) -> bool:
+    return isinstance(optimizer, torch.optim.Adam)
 
 
-def adam_from_optax(optimizer: torch.optim.Adam, params: MLPParams,
-                    tree: dict) -> int:
-    """Load an optax Adam state tree (either chain layout) into
-    ``optimizer`` for ``params``; returns its update count. Raises on
-    another layout or on moments whose shapes differ from the params'."""
+def _count(optimizer, params: MLPParams) -> int:
+    if not _is_adam(optimizer):
+        return optimizer.count
+    st = optimizer.state.get(params[0], {})
+    return int(float(st["step"])) if st else 0
+
+
+def _moment(optimizer, p: torch.Tensor, field: str) -> np.ndarray:
+    if not _is_adam(optimizer):
+        return _host(optimizer.moments(p)[field]).astype(np.float32)
+    st = optimizer.state.get(p, {})
+    if not st:  # before the first update
+        return np.zeros(tuple(p.shape), np.float32)
+    key = {"mu": "exp_avg", "nu": "exp_avg_sq"}[field]
+    return _host(st[key]).astype(np.float32)
+
+
+def optax_state_tree(optimizer, params: MLPParams, normalize_grads: bool,
+                     name: str = "adam") -> dict:
+    """The state of ``optimizer`` (``training.optim.OPTIMIZERS[name]``) for
+    ``params`` as the JAX trainer's optax state tree. Before the first
+    update: the initial moments, count 0."""
+    count = np.asarray(_count(optimizer, params), np.int32)
+    inner = {}
+    for i, entry in enumerate(LAYOUTS[name]):
+        if entry == SCHEDULE:
+            inner[str(i)] = {"count": count.copy()}
+            continue
+        inner[str(i)] = {
+            f: count.copy() if f == "count" else {
+                k: _moment(optimizer, p, f)
+                for k, p in zip(PARAM_NAMES, params)}
+            for f in entry}
+    return {"0": {}, "1": inner} if normalize_grads else {"0": inner}
+
+
+def load_optax_state(optimizer, params: MLPParams, tree: dict,
+                     name: str = "adam") -> int:
+    """Load an optax state tree of optimizer ``name`` (either chain layout)
+    into ``optimizer`` for ``params``; returns its update count. Raises on
+    another optimizer's layout, on counts that differ and on moments whose
+    shapes differ from the params'."""
+    label = OPTIMIZERS[name].__name__
     if set(tree) == {"0", "1"} and tree["0"] == {}:
-        adam = tree["1"]
+        inner = tree["1"]
     elif set(tree) == {"0"}:
-        adam = tree["0"]
+        inner = tree["0"]
     else:
         raise ValueError(f"opt_state keys {sorted(tree)} are not an optax "
-                         "Adam chain")
-    try:
-        moments = adam["0"]
-        count = int(np.asarray(moments["count"]))
-        mu, nu = moments["mu"], moments["nu"]
-    except (KeyError, TypeError) as e:
-        raise ValueError(f"opt_state is not an optax Adam state: {e!r}")
-    sched_count = int(np.asarray(adam["1"]["count"]))
-    if sched_count != count:
-        raise ValueError(f"opt_state counts differ: Adam {count}, schedule "
-                         f"{sched_count}")
+                         f"{label} chain")
+    layout = LAYOUTS[name]
+    if not isinstance(inner, dict) or set(inner) != {
+            str(i) for i in range(len(layout))}:
+        raise ValueError(f"opt_state is not an optax {label} state: "
+                         f"{len(layout)} transforms expected")
+    counts, moments = [], {}
+    for i, entry in enumerate(layout):
+        st = inner[str(i)]
+        want = {"count"} if entry == SCHEDULE else set(entry)
+        if not isinstance(st, dict) or set(st) != want:
+            raise ValueError(f"opt_state entry {i} is not optax {label}'s "
+                             f"{sorted(want)}")
+        for f in want:
+            if f == "count":
+                counts.append(int(np.asarray(st[f])))
+            elif not isinstance(st[f], dict) or set(st[f]) != set(
+                    PARAM_NAMES):
+                raise ValueError(f"opt_state {f} is not keyed by "
+                                 f"{PARAM_NAMES}")
+            else:
+                moments[f] = st[f]
+    if len(set(counts)) != 1:
+        raise ValueError(f"opt_state counts differ: {counts}")
+    count = counts[0]
     for k, p in zip(PARAM_NAMES, params):
-        m, v = np.asarray(mu[k], np.float32), np.asarray(nu[k], np.float32)
-        if m.shape != tuple(p.shape) or v.shape != tuple(p.shape):
-            raise ValueError(f"opt_state {k} moments {m.shape} / {v.shape} "
-                             f"do not match the param {tuple(p.shape)}")
-        optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": torch.tensor(m, device=p.device),
-            "exp_avg_sq": torch.tensor(v, device=p.device),
-        }
+        arrays = {f: np.asarray(m[k], np.float32) for f, m in moments.items()}
+        if any(a.shape != tuple(p.shape) for a in arrays.values()):
+            raise ValueError(f"opt_state {k} moments "
+                             f"{[a.shape for a in arrays.values()]} do not "
+                             f"match the param {tuple(p.shape)}")
+        state = {f: torch.tensor(a, device=p.device)
+                 for f, a in arrays.items()}
+        if _is_adam(optimizer):
+            state = {"step": torch.tensor(float(count), dtype=torch.float32),
+                     "exp_avg": state["mu"], "exp_avg_sq": state["nu"]}
+        optimizer.state[p] = state
+    if not _is_adam(optimizer):
+        optimizer.count = count
     return count
 
 

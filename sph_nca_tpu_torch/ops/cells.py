@@ -224,8 +224,8 @@ def build_cell_engine(
     if smoothing != "poly6" or gradient_kernel != "spiky":
         raise NotImplementedError(
             f"CellEngine implements poly6/spiky only (got {smoothing!r}/"
-            f"{gradient_kernel!r}); the band engine runs other kernels in "
-            "the JAX package, not ported yet"
+            f"{gradient_kernel!r}); use ops.bands.build_band_engine or "
+            "ops.hashgrid.build_graph for other kernels"
         )
     if pair_tables not in (None, "float32", "bfloat16"):
         raise ValueError(f"pair_tables must be None, 'float32' or "

@@ -17,6 +17,10 @@ for ``losses.ot_feature_loss``:
     port cannot reproduce: here they come from a seeded CPU
     ``torch.Generator``, the same law from another stream.
 
+``scale_pyramid`` gives the CLIP loss its views of a batch of images, one
+per scale (a downsized copy, the images, or a random crop of each, drawn
+from a ``torch.Generator`` where the JAX package draws from its key).
+
 The convolutions are ``F.conv2d`` (HWIO filters as OIHW, padding k // 2,
 the JAX package's ``SAME``), the pools ``F.avg_pool2d`` / ``F.max_pool2d``
 of 2. The entry points keep TF32 off, so on the card they run in fp32 on
@@ -26,7 +30,7 @@ cuDNN, as the JAX package's run at ``Precision.HIGHEST``.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -229,3 +233,49 @@ def resize_image(img: torch.Tensor, size) -> torch.Tensor:
     """``resize_bilinear`` of an image [H, W, C] -> [h, w, C]."""
     return resize_bilinear(img.permute(2, 0, 1)[None], size)[0].permute(
         1, 2, 0)
+
+
+# ---- the CLIP loss's multi-scale views ----------------------------------------
+
+
+def _resize(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Images [..., H, W, C] -> [..., size, size, C] (``resize_bilinear``)."""
+    lead = img.shape[:-3]
+    z = img.reshape(-1, *img.shape[-3:]).permute(0, 3, 1, 2)
+    z = resize_bilinear(z, (size, size)).permute(0, 2, 3, 1)
+    return z.reshape(*lead, size, size, img.shape[-1])
+
+
+def _random_crop(img: torch.Tensor, size: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """A size x size window of each image [B, H, W, C] at offsets drawn
+    uniformly per image from ``generator`` (on its device; no host sync)."""
+    b, h, w = img.shape[:3]
+    dev = generator.device
+    y0 = torch.randint(0, h - size + 1, (b,), generator=generator,
+                       device=dev).to(img.device)
+    x0 = torch.randint(0, w - size + 1, (b,), generator=generator,
+                       device=dev).to(img.device)
+    span = torch.arange(size, device=img.device)
+    rows = (y0[:, None] + span)[:, :, None]  # [B, size, 1]
+    cols = (x0[:, None] + span)[:, None, :]  # [B, 1, size]
+    return img[torch.arange(b, device=img.device)[:, None, None], rows, cols]
+
+
+def scale_pyramid(img: torch.Tensor, scales: Sequence[float],
+                  generator: Optional[torch.Generator]) -> List[torch.Tensor]:
+    """One view of the images [B, H, W, C] per scale s: resized to H / s
+    when s > 1, the images themselves at s = 1, a random H * s crop of each
+    when s < 1 (only then is ``generator`` drawn from)."""
+    h = img.shape[-3]
+    views = []
+    for s in scales:
+        if s > 1.0:
+            views.append(_resize(img, int(h / s)))
+        elif s == 1.0:
+            views.append(img)
+        else:
+            if generator is None:
+                raise ValueError("a crop scale (< 1) needs a generator")
+            views.append(_random_crop(img, int(h * s), generator))
+    return views

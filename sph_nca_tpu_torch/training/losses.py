@@ -1,10 +1,13 @@
-"""Training losses: image mode (MSE) and exemplar mode (OT style), with the
-Gram style loss (counterpart of the MSE, OT and Gram parts of
+"""Training losses: image mode (MSE), exemplar mode (OT style) and text mode
+(CLIP), with the Gram style loss (counterpart of
 ``sph_nca_tpu/training/losses.py``).
 
 mse:  mean((rgba - img(x))^2) + w_overflow * sum(max(|A| - 1, 0))
 ot:   w_style * OT(features(rgb), features(exemplar))
       + w_color * mean|rgb - exemplar| + w_overflow * sum(max(|A| - 1, 0))
+clip: w_clip * mean over scales of the spherical distance between the
+      views' image features and the text features
+      + w_overflow * sum(max(|A - 0.5| - 0.5, 0))
 
 Every function takes states with any leading batch axes, A [..., N, C], and
 reduces over the last two axes (one value per sample). The OT parts are
@@ -12,7 +15,8 @@ batched over the samples: feature sets [B, n, c], products by
 ``torch.matmul`` (``torch.bmm`` on the card; the entry points keep TF32
 off, so they run in full fp32 as the JAX package's ``Precision.HIGHEST``).
 They are library calls, as the JAX package computes them outside any Pallas
-kernel.
+kernel. The CLIP loss encodes the views of all B samples in one call of the
+image tower per scale.
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ from ..utils.geometry import bilinear_sample
 def overflow_penalty(A: torch.Tensor) -> torch.Tensor:
     """sum(max(|A| - 1, 0)) over all particles and channels."""
     return torch.sum(torch.clamp(A.abs() - 1.0, min=0.0), dim=(-2, -1))
+
+
+def clip_overflow_penalty(A: torch.Tensor) -> torch.Tensor:
+    """sum(max(|A - 0.5| - 0.5, 0)): the CLIP mode's overflow penalty."""
+    return torch.sum(torch.clamp(torch.abs(A - 0.5) - 0.5, min=0.0),
+                     dim=(-2, -1))
 
 
 def rgba_with_margin(A: torch.Tensor, use_alpha: bool,
@@ -202,3 +212,49 @@ def gram_style_loss(feats_x: Sequence[torch.Tensor],
         total = total + torch.mean((gram_matrix(fx) - gram_matrix(fy)) ** 2,
                                    dim=(-2, -1))
     return total
+
+
+# ---- CLIP text-guidance loss -----------------------------------------------
+
+
+def spherical_distance(image_features: torch.Tensor,
+                       text_features: torch.Tensor) -> torch.Tensor:
+    """2 arcsin(|u - v| / 2)^2 of feature rows [..., n, E], mean over the n
+    rows -> [...] (a scalar for the JAX package's [n, E] inputs)."""
+    d = torch.linalg.vector_norm(image_features - text_features, dim=-1)
+    return torch.mean(2.0 * torch.arcsin(d / 2.0) ** 2, dim=-1)
+
+
+class CLIPLossConfig(NamedTuple):
+    """Text-mode loss config."""
+
+    image_size: int
+    scales: tuple = (1.0,)
+    clip_weight: float = 1.0
+    overflow_weight: float = 0.05
+    use_alpha: bool = True
+
+
+def clip_loss(x: torch.Tensor, A: torch.Tensor,
+              text_features: torch.Tensor, encode_image: Callable,
+              generator: Optional[torch.Generator],
+              cfg: CLIPLossConfig) -> torch.Tensor:
+    """The multi-scale CLIP guidance loss of states A [B, N, C] (or one
+    state [N, C]) -> [B] (or a scalar). ``encode_image`` maps images
+    [B, H, W, 3] to unit features [B, E] (resizing to its own resolution);
+    ``text_features`` [E] are the prompt's, computed once. The crops of
+    scales below 1 are drawn from ``generator``."""
+    from .features import scale_pyramid
+
+    single = A.dim() == 2
+    if single:
+        A = A[None]
+    rgba = rgba_with_margin(A, cfg.use_alpha, margin=0.0)
+    rgb = particles_to_image(rgba[..., :3], cfg.image_size)
+    views = scale_pyramid(rgb, cfg.scales, generator)
+    dists = [spherical_distance(encode_image(v)[:, None],
+                                text_features[None]) for v in views]
+    loss = cfg.clip_weight * (sum(dists) / len(dists))
+    if cfg.overflow_weight > 0:
+        loss = loss + cfg.overflow_weight * clip_overflow_penalty(A)
+    return loss[0] if single else loss

@@ -4,11 +4,12 @@
 One iteration: sample B states from the pool, rank them by per-sample loss
 and put a fresh seed in the worst one's place, roll the batch out for a
 progressive-growing number of steps through the kernels (each step
-recomputed in the backward), take the MSE loss on the final state plus
+recomputed in the backward), take the loss (MSE, OT or CLIP) on the final state plus
 ``aux_states`` random intermediate states, and update the MLP with
-per-parameter gradient normalization g / (|g| + 1e-8) before Adam, whose
-learning rate falls linearly from lr to lr * lr_end_factor over
-lr_decay_steps iterations.
+per-parameter gradient normalization g / (|g| + 1e-8) before the optimizer
+(Adam by default, or any of the JAX trainer's optax optimizers:
+``training/optim.py``), whose learning rate falls linearly from lr to
+lr * lr_end_factor over lr_decay_steps iterations.
 
 As in the JAX trainer, a band engine (the train CLI's default) or a cell
 engine with pair tables takes the batched-lane rollout
@@ -24,8 +25,8 @@ pool on the device.
 Draws: the step schedule and the aux states from ``numpy.random.
 default_rng(seed)`` (the JAX trainer's host draws); the fire masks from
 ``Trainer.generator`` and the losses' draws (the OT subsamples of the
-ranking and of every loss term, in that order) from ``Trainer.
-loss_generator``, both ``torch.Generator`` on the device (the JAX trainer
+ranking and of every loss term, in that order, and the CLIP loss's
+random crops) from ``Trainer.loss_generator``, both ``torch.Generator`` on the device (the JAX trainer
 splits its key into rank, rollout and loss keys: the same laws, other
 streams). ``rng_state`` / ``set_rng_state`` and ``opt_state_tree`` /
 ``load_opt_state`` carry all of it through a checkpoint.
@@ -40,20 +41,23 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..io.checkpoint import adam_from_optax, adam_to_optax
+from ..io.checkpoint import load_optax_state, optax_state_tree
 from ..models.cell_step import rollout_cells, rollout_cells_batched
 from ..models.nca import MLPParams, SPHNCAConfig, init_params
 from ..models.rollout import rollout_batch
 from ..ops.batched import batched_gather_back, batched_scatter, has_tables
 from ..ops.hashgrid import SPHGraph
 from .losses import (
+    CLIPLossConfig,
     OTLossConfig,
+    clip_loss,
     mse_loss,
     ot_loss,
     overflow_penalty,
     rgba_with_margin,
     target_at,
 )
+from .optim import OPTIMIZERS, optimizer_name
 
 # the loss generator's seed is the trainer's seed plus this offset, so its
 # stream is not the fire masks'
@@ -113,6 +117,22 @@ def make_ot_bundle(target_img: torch.Tensor, feature_fn,
     return LossBundle(per_sample=per_sample, batch_total=batch_total)
 
 
+def make_clip_bundle(text_features: torch.Tensor, encode_image,
+                     clip_cfg: CLIPLossConfig) -> LossBundle:
+    """Text-mode losses: ``text_features`` [E] are the prompt's unit
+    features, computed once; ``encode_image`` is the image tower. The
+    trained objective is the mean of the per-sample losses."""
+
+    def per_sample(x, A, generator):
+        return clip_loss(x, A, text_features, encode_image, generator,
+                         clip_cfg)
+
+    def batch_total(x, A_batch, generator):
+        return torch.mean(per_sample(x, A_batch, generator))
+
+    return LossBundle(per_sample=per_sample, batch_total=batch_total)
+
+
 def normalize_grads_(params) -> None:
     """Per-parameter g <- g / (|g| + 1e-8), in place."""
     with torch.no_grad():
@@ -128,12 +148,13 @@ def linear_lr_factor(count: int, end_factor: float,
 
 
 def make_optimizer(params, lr: float = 3e-3, *, end_factor: float = 0.1,
-                   decay_steps: int = 2000):
-    """Adam and its linear schedule (1 -> end_factor over decay_steps). The
-    schedule is a ``LambdaLR`` in closed form, so its learning rate at a
-    position depends on the position alone: a checkpoint's update count
-    restores it exactly."""
-    opt = torch.optim.Adam(params, lr=lr)
+                   decay_steps: int = 2000, name: str = "adam"):
+    """The optimizer ``name`` (``training.optim.optimizer_name``: any case,
+    Adam for an unknown name) and its linear schedule (1 -> end_factor over
+    decay_steps). The schedule is a ``LambdaLR`` in closed form, so its
+    learning rate at a position depends on the position alone: a
+    checkpoint's update count restores it exactly."""
+    opt = OPTIMIZERS[optimizer_name(name)](params, lr=lr)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda k: linear_lr_factor(k, end_factor, decay_steps))
     return opt, sched
@@ -178,6 +199,7 @@ class TrainConfig:
     aux_weight: float = 0.1
     degrade_prob: float = 0.0
     erase_radius: float = 0.0
+    optimizer: str = "adam"  # any name of training.optim.OPTIMIZERS
     seed: int = 0
 
 
@@ -222,10 +244,11 @@ class Trainer:
                 device=self.device)
         self.params = MLPParams(*(p.detach().to(self.device).clone()
                                   .requires_grad_(True) for p in params))
+        self.opt_name = optimizer_name(train_cfg.optimizer)
         self.optimizer, self.scheduler = make_optimizer(
             list(self.params), train_cfg.lr,
             end_factor=train_cfg.lr_end_factor,
-            decay_steps=train_cfg.lr_decay_steps)
+            decay_steps=train_cfg.lr_decay_steps, name=self.opt_name)
         self.last_steps = 0  # rollout length of the last iteration
 
     # -- checkpoint and resume state ----------------------------------------
@@ -243,15 +266,17 @@ class Trainer:
         self.loss_generator.set_state(torch_states["loss"])
 
     def opt_state_tree(self) -> dict:
-        """Adam's state in the layout of the JAX trainer's optax state (see
-        ``io.checkpoint.adam_to_optax``)."""
-        return adam_to_optax(self.optimizer, self.params,
-                             self.cfg.normalize_grads)
+        """The optimizer's state in the layout of the JAX trainer's optax
+        state (see ``io.checkpoint.optax_state_tree``)."""
+        return optax_state_tree(self.optimizer, self.params,
+                                self.cfg.normalize_grads, self.opt_name)
 
     def load_opt_state(self, tree: dict) -> None:
-        """Restore Adam's state and the schedule's position from an optax
-        state tree (a checkpoint's ``opt_state``)."""
-        count = adam_from_optax(self.optimizer, self.params, tree)
+        """Restore the optimizer's state and the schedule's position from an
+        optax state tree (a checkpoint's ``opt_state``) of the same
+        optimizer."""
+        count = load_optax_state(self.optimizer, self.params, tree,
+                                 self.opt_name)
         set_schedule_position(self.scheduler, count)
 
     def _rollout(self, A0: torch.Tensor, n: int, collect):

@@ -1,5 +1,6 @@
-"""Regular particle grids and differentiable image sampling (counterpart of
-``grange`` and ``bilinear_sample`` in ``sph_nca_tpu/utils/geometry.py``)."""
+"""Regular particle grids and differentiable grid sampling (counterpart of
+``grange``, ``bilinear_sample`` and ``trilinear_sample`` in
+``sph_nca_tpu/utils/geometry.py``)."""
 
 from __future__ import annotations
 
@@ -53,3 +54,9 @@ def bilinear_sample(p: torch.Tensor, grid: torch.Tensor, gmin, gsize,
                     grid_center_offset: float = 0.5) -> torch.Tensor:
     """Sample a 2D grid of values at positions p [P, 2] -> [P, *value]."""
     return _linear_sample(p, grid, gmin, gsize, 2, grid_center_offset)
+
+
+def trilinear_sample(p: torch.Tensor, grid: torch.Tensor, gmin, gsize,
+                     grid_center_offset: float = 0.5) -> torch.Tensor:
+    """Sample a 3D grid of values at positions p [P, 3] -> [P, *value]."""
+    return _linear_sample(p, grid, gmin, gsize, 3, grid_center_offset)

@@ -7,7 +7,8 @@ CLI.
   the same bytes; flax decodes what the port writes.
 - Checkpoints: each package reads the other's params, config, h and step;
   Adam's moments and count map onto ``torch.optim.Adam`` (exp_avg,
-  exp_avg_sq, step) and back onto optax's state, with gradient
+  exp_avg_sq, step; ``io.checkpoint.optax_state_tree`` /
+  ``load_optax_state`` of Adam) and back onto optax's state, with gradient
   normalization in the chain and without. One more update from a carried
   state agrees between the packages to 1e-6 of the largest |p| (float32
   updates in other orders).
@@ -93,8 +94,8 @@ def test_run_checkpoint_reads_as_in_jax(path):
     assert (got["h"], got["step"]) == (want["h"], want["step"])
     params = [p.clone().requires_grad_(True) for p in got["params"]]
     opt, sched = make_optimizer(params)
-    assert TC.adam_from_optax(opt, MLPParams(*params),
-                              got["opt_state"]) == got["step"]
+    assert TC.load_optax_state(opt, MLPParams(*params),
+                                got["opt_state"]) == got["step"]
 
 
 def test_codec_round_trips_through_flax():
@@ -192,7 +193,7 @@ def test_port_checkpoint_reads_in_jax(tmp_path, normalize):
     shapes = [tuple(p.shape) for p in params]
     opt, _ = _port_updates(params, [_grads(shapes, s) for s in range(3)],
                            normalize)
-    tree = TC.adam_to_optax(opt, MLPParams(*params), normalize)
+    tree = TC.optax_state_tree(opt, MLPParams(*params), normalize)
     path = str(tmp_path / "ck")
     TC.save_checkpoint(path, params=MLPParams(*params), model_cfg=cfg, h=0.3,
                        step=3, loss=0.25, opt_state=tree,
@@ -236,7 +237,7 @@ def test_jax_checkpoint_reads_in_port(tmp_path, normalize):
     assert ck["model_cfg"] == cfg and (ck["h"], ck["step"]) == (0.2, 3)
     params = [p.clone().requires_grad_(True) for p in ck["params"]]
     opt, sched = make_optimizer(params, LR, decay_steps=DECAY)
-    count = TC.adam_from_optax(opt, MLPParams(*params), ck["opt_state"])
+    count = TC.load_optax_state(opt, MLPParams(*params), ck["opt_state"])
     set_schedule_position(sched, count)
     adam = _adam_of(state, normalize)
     for k, p in zip(MLPParams._fields, params):
@@ -281,12 +282,12 @@ def test_checkpoint_refuses_mismatched_arrays(tmp_path):
     params = [torch.zeros(s, requires_grad=True) for s in
               ((12, 8), (8,), (8, 9), (9,))]
     opt, _ = make_optimizer(params)
-    tree = TC.adam_to_optax(opt, MLPParams(*params), True)
+    tree = TC.optax_state_tree(opt, MLPParams(*params), True)
     tree["1"]["0"]["mu"]["w1"] = np.zeros((3, 3), np.float32)
     with pytest.raises(ValueError, match="moments"):
-        TC.adam_from_optax(opt, MLPParams(*params), tree)
+        TC.load_optax_state(opt, MLPParams(*params), tree)
     with pytest.raises(ValueError, match="not an optax Adam chain"):
-        TC.adam_from_optax(opt, MLPParams(*params), {"2": {}})
+        TC.load_optax_state(opt, MLPParams(*params), {"2": {}})
 
 
 def test_assets_are_the_run_checkpoints():

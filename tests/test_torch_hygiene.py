@@ -169,7 +169,7 @@ def test_non_poly6_models_are_refused(tmp_path):
     """The cell engine's pair kernels hard-wire the poly6 / spiky pair math:
     a Wendland model makes the test CLI exit on --engine cells before it
     builds anything, and build_cell_engine refuses other kernels, as the JAX
-    package does."""
+    package does, naming the band and graph engines' builders."""
     import json
 
     from sph_nca_tpu_torch.cli import test as cli_test
@@ -187,8 +187,11 @@ def test_non_poly6_models_are_refused(tmp_path):
                        "--steps", "1", "--engine", "cells"])
     assert os.listdir(out) == []
     x = torch.rand(64, 2)
-    with pytest.raises(NotImplementedError, match="poly6/spiky only"):
+    with pytest.raises(NotImplementedError, match="poly6/spiky only") as e:
         build_cell_engine(x, 0.25, smoothing="wendlandC2", device="cpu")
+    # the message points to the ported engines that run other kernels
+    assert "build_band_engine" in str(e.value)
+    assert "build_graph" in str(e.value)
     with pytest.raises(NotImplementedError, match="poly6/spiky only"):
         build_cell_engine(x, 0.25, gradient_kernel="wendlandC2",
                           device="cpu")

@@ -484,8 +484,8 @@ def _metrics_losses(out_dir, key):
         return {r[key]: r["loss"] for r in map(json.loads, f)}
 
 
-def _graph_train_cli_matches_jax(tmp_path, monkeypatch):
-    """The port's train CLI on --engine graph against the JAX CLI's, from
+def _train_cli_matches_jax(tmp_path, monkeypatch, extra):
+    """The port's train CLI with ``extra`` flags against the JAX CLI's, from
     the same initial parameters (a JAX checkpoint given to both as
     --pretrained_checkpoint) at fire_rate 1 (both CLIs build their model
     at 0.5; here both build it at 1): the same losses (LOSS_RTOL), since the
@@ -506,9 +506,9 @@ def _graph_train_cli_matches_jax(tmp_path, monkeypatch):
     common = ["--image_size", "12", "--target_size", "8", "--h", str(h),
               "--batch_size", "2", "--pool_size", "4", "--steps_range",
               "2,4", "--steps_increment", "1", "--hidden", "16",
-              "--log_every", "1", "--engine", "graph", "--checkpoint_every",
+              "--log_every", "1", "--checkpoint_every",
               "1000", "--save_resume", "false", "--pretrained_checkpoint",
-              str(tmp_path / "init")]
+              str(tmp_path / "init")] + list(extra)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -532,27 +532,65 @@ def _fire_rate_one(cls, **kw):
     return cls(**{**kw, "fire_rate": 1.0})
 
 
+# a tiny run of the port's CLI on the CPU
+TINY_ARGV = ["--device", "cpu", "--image_size", "12", "--target_size", "8",
+             "--h", "0.3", "--batch_size", "2", "--pool_size", "4",
+             "--steps_range", "2,3", "--steps_increment", "1", "--hidden",
+             "16", "--training_iter", "2", "--save_resume", "false"]
+
+
 @pytest.mark.parametrize("argv", [["--engine", "graph"],
                                   ["--loss", "clip_multiscale"],
                                   ["--target", "x"],
                                   ["--optimizer", "SGD"]])
 def test_train_cli_names_unported_modes(tmp_path, monkeypatch, argv):
-    """Each entry of the CLI's NOT_PORTED table refuses, by name.
-    ``--engine graph`` was one until the graph engine was ported: that case
-    now runs the CLI on the graph engine and holds its losses to the JAX
-    CLI's."""
-    if argv == ["--engine", "graph"]:
-        _graph_train_cli_matches_jax(tmp_path, monkeypatch)
-        assert not cli_train.not_ported(
-            cli_train.build_parser().parse_args(
-                ["--output_dir", str(tmp_path)] + argv))
-    else:
-        with pytest.raises(SystemExit, match="not ported") as e:
-            cli_train.main(["--device", "cpu", "--output_dir",
-                            str(tmp_path)] + argv)
-        assert os.listdir(tmp_path) == []
-        assert str(e.value).startswith(argv[0])
-    assert len(cli_train.NOT_PORTED) == 3
+    """Each case is a mode of the JAX CLI that the port's CLI refused by
+    name until it was ported; the refusal table is gone and each mode runs.
+    ``--engine graph`` and ``--optimizer SGD`` hold the CLI's losses to the
+    JAX CLI's from the same parameters at fire_rate 1. ``--loss
+    clip_multiscale`` trains from a guide (its parity with the JAX CLI is
+    tests/test_torch_clip_cli.py's) and exits naming both flags without
+    one.
+    ``--target x`` trains on the emoji from a local cache, and raises
+    FileNotFoundError, as the JAX package does, when it is not cached."""
+    from PIL import Image
+
+    from sph_nca_tpu.utils import image as jax_image
+
+    assert not hasattr(cli_train, "NOT_PORTED")
+    if argv[0] in ("--engine", "--optimizer"):
+        extra = argv if argv[0] == "--engine" else argv + ["--engine",
+                                                           "graph"]
+        _train_cli_matches_jax(tmp_path, monkeypatch, extra)
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        if argv[0] == "--loss":
+            with pytest.raises(SystemExit, match="--clip_guide"):
+                cli_train.main(TINY_ARGV + argv + ["--output_dir",
+                                                   str(tmp_path / "none")])
+            assert not os.path.exists(tmp_path / "none")
+            argv = argv + ["--clip_guide", "a red and yellow spiral"]
+        else:
+            monkeypatch.setenv("SPH_NCA_EMOJI_CACHE", str(tmp_path))
+            monkeypatch.setattr(jax_image, "NOTO_CACHE", str(tmp_path))
+            with pytest.raises(FileNotFoundError, match="not cached"):
+                jax_image.load_emoji("x")
+            with pytest.raises(FileNotFoundError, match="not cached"):
+                cli_train.main(TINY_ARGV + argv + ["--output_dir",
+                                                   str(tmp_path / "none")])
+            assert not os.path.exists(tmp_path / "none")
+            Image.fromarray(np.full((16, 16, 4), 200, np.uint8)).save(
+                tmp_path / "emoji_u0078.png")
+        out = tmp_path / "run"
+        assert cli_train.main(TINY_ARGV + argv + ["--output_dir",
+                                                  str(out)]) == 0
+    finally:
+        torch.set_num_threads(n)
+    losses = _metrics_losses(out, "iter")
+    assert sorted(losses) == [0, 1]
+    assert np.isfinite(list(losses.values())).all()
 
 
 @pytest.mark.parametrize("mode", ["RGBA", "RGB", "L"])
