@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
-toolkit and g++. Twenty-three main paths, each driven through its entry
+toolkit and g++. Twenty-eight main paths, each driven through its entry
 point with every launch counter set to 0 just before it and read just
 after:
 
@@ -83,7 +83,18 @@ after:
   graph-surface-cli  ``cli.test --surface --engine graph`` on the
              procedural mesh, the random and the radial seeds;
   graph-rebuild  ``models.rollout.rollout_rebuild`` (the lists rebuilt
-             every step) on the gecko's grid, still and drifting.
+             every step) on the gecko's grid, still and drifting;
+  parallel-band, parallel-band-grad, parallel-surface, parallel-cells,
+  parallel-train  the sharded paths of ``sph_nca_tpu_torch.parallel`` at
+             full width, two ranks sharing the card over gloo (spawned by
+             ``parallel.comm.run_ranks`` after the build): bench.py's
+             configuration through ``rollout_band_sharded``; its BPTT at
+             the train CLI's defaults; ``rollout_mesh_band_sharded`` on the
+             stripes sphere; the gecko through the cell engine's kernels
+             on each rank's blocks (recompute, float32 tables, the batched
+             B = 8 bfloat16 tables); ``make_sharded_train_step`` on the
+             graph engine at the train CLI's defaults;
+  parallel-nccl  the band rollout over NCCL, one rank a card.
 The cell-engine paths above pass ``--engine cells`` to the CLIs. The graph
 paths are plain PyTorch (as the JAX package's are XLA): they launch no
 kernel of the port, and the script checks that every counter stays 0.
@@ -218,6 +229,11 @@ Phases, each printing one line with its wall time:
                  kernel 2.8's launches, the checkpoints (the last read back
                  bit-equal, one resume sidecar), the resumed run's
                  iterations and launches
+  texture-resume  10 OT iterations twice from the seed and 5 + a checkpoint
+                 + --resume auto: the resumed run against the first within
+                 1e-4 (losses), 1e-3 (parameters) and 3e-3 (Adam's state)
+                 of max (the card's atomic sums make two runs of one seed
+                 part: the two straight runs' gap is printed)
   texture-cells  finite losses; 2.4 / 2.5 / 2.6 / 2.8 launches as the drawn
                  schedule implies
   texture-cli    each run's states (shape, finite, the random seed the
@@ -274,9 +290,39 @@ Phases, each printing one line with its wall time:
                  each run's final state against the cell engine (1e-4)
   graph-rebuild  the rebuild without motion equals the static rollout; with
                  a drift it stays finite and every list exact
+  parallel-band  bench.py's configuration on 2 ranks sharing the card over
+                 gloo (the band engine built with block_multiple=2): 16
+                 steps of rollout_band_sharded at fire_rate 1.0 against the
+                 unsharded rollout (1e-4 of max), the targeted and allgather
+                 far exchanges equal, ms a sharded step with the bfloat16
+                 MLP beside the unsharded one, comm_bytes_per_pass, the
+                 bytes a rank sent and staged a step, each rank's busy share
+  parallel-band-grad  the train CLI's defaults at float32: an 8-step BPTT
+                 through rollout_band_sharded, the parameters' gradient
+                 summed over the ranks against the unsharded one (1e-3 of
+                 max)
+  parallel-surface  the stripes model on the 25,600-point sphere, 16 steps
+                 of rollout_mesh_band_sharded against rollout_mesh_batched
+                 (1e-4)
+  parallel-cells  the gecko on engines built with n_shards=2: shards=2 on
+                 one device (2.1-2.3) and 2 ranks (2.1-2.3) against the
+                 n_shards=1 engine (1e-4); 3-step gradients through 2.1-2.3
+                 and float32 tables (2.4-2.6) against the same layout on
+                 one device (1e-4 of max); the batched B = 8 bfloat16 tables
+                 (2.4 / 2.6 / 2.8, 1e-4); each kernel launched
+  parallel-train  make_sharded_train_step on the graph engine at the train
+                 CLI's defaults, data 2 x particle 1 (2 iterations) and 1 x
+                 2 (1), each iteration against one process's from the same
+                 parameters and Adam state: losses and Adam's moments within
+                 1e-5 of max, the parameters within 1e-2 learning rates
+                 (Adam's ties counted), the replicas bit-equal
+  parallel-nccl  the parallel-band check over NCCL, one rank a card
+                 (min(cards, 4) ranks; one on a one-card machine)
 The image-mode test CLI phases (rollout, band-inference, texture-cli's
 image runs, graph-inference) check their PNG frames as [rollout] does.
-Then one JSON line describing the eight kernels (2.4, 2.6, 2.7 and 2.8 also
+Then one JSON line describing the eight kernels (all but 2.7 also with
+their launches a rank on the sharded paths and those paths' gaps from
+their unsharded twins, under ``parallel``; 2.4, 2.6, 2.7 and 2.8 also
 with their launches on the batched surface paths and their numbers at the
 bench shape; 2.8 also with its launches and errors on the band paths; all
 but 2.2 with their launches and errors on the texture paths, under
@@ -2091,6 +2137,59 @@ def mlp_shape_checks(dev, shapes: dict) -> dict:
     return errs
 
 
+def mlp_times(dev, lead, dtype, events: bool = False) -> dict:
+    """Kernel 2.8 at lead shapes ``lead`` (gated, hid 256, K = 33): device
+    ms of the kernel, its plain version (mlp_ref) and the library chain
+    addmm -> relu -> addmm (``mlp_library``) from profiler records, or with
+    ``events`` by CUDA events around 20 calls after 3 (after the surface
+    phases' profiles, later profiles lose records; each call here takes 0.1
+    ms or more, so the host enqueues ahead of the device), and its bound on
+    its route:
+    the tensor cores, 3 TF32 products for float32 inputs, one bf16 product
+    for bfloat16 (``work_mlp``, ``bound``). Also the fp32 CUDA-core bound and
+    the library chain's largest error from mlp_ref, for the text line."""
+    args = mlp_inputs(dev, dtype, 33, lead, seed=11)
+    S_m, ga_m, w1k, b1, w2, b2 = args
+    X = torch.cat([S_m, ga_m], -1).reshape(-1, 48)
+    library = mlp_library(args)
+    lib_err = float((library() - torch.cat(
+        [o.reshape(X.shape[0], -1) for o in MK.mlp_ref(*args)], -1)
+    ).abs().max())
+    if events:
+        ms = cuda_ms(lambda: MK.mlp_forward(*args), 20, 3)
+        plain_ms = cuda_ms(lambda: MK.mlp_ref(*args), 20, 3)
+        lib_ms = cuda_ms(library, 20, 3)
+    else:
+        ms = device_ms(lambda: MK.mlp_forward(*args), "sph_mlp_kernel")
+        plain_ms = device_ms(lambda: MK.mlp_ref(*args))
+        lib_ms = device_ms(library)
+    n = X.shape[0]
+    nbytes, ops = work_mlp(n, w1k.shape[1], 33, S_m.element_size())
+    tc_ops, peak = ((ops, BF16_FLOPS) if dtype == torch.bfloat16
+                    else (3 * ops, TF32_FLOPS))
+    bound_ms, bound_by = bound(nbytes, tc_ops, peak)
+    core_ms, _ = bound(nbytes, ops, FP32_FLOPS)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms, "n": n,
+            "hid": w1k.shape[1], "nbytes": nbytes, "tc_ops": tc_ops,
+            "peak": peak, "core_ms": core_ms, "ops": ops,
+            "library_err": lib_err}
+
+
+def mlp_times_line(label, lead, dtype, t) -> str:
+    return (f"sph_mlp_kernel at the {label} shapes ({t['n']} items, "
+            f"{str(dtype)[6:]} inputs, gated, hid {t['hid']}): "
+            f"{t['ms']:.4f} ms device time, plain {t['plain_ms']:.4f} ms, "
+            f"library chain {t['library_ms']:.4f} ms (max abs "
+            f"{t['library_err']:.3e} from mlp_ref), bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} on the tensor cores "
+            f"({100 * t['bound_ms'] / t['ms']:.1f}% of it; "
+            f"{t['nbytes'] / 1e6:.2f} MB, {t['tc_ops'] / 1e9:.3f} G "
+            f"operations at {t['peak'] / 1e12:.0f} TFLOP/s; "
+            f"{t['core_ms']:.4f} ms counting {t['ops'] / 1e9:.3f} G fp32 "
+            "operations on the CUDA cores)")
+
+
 def mlp_phases(dev, shapes: dict) -> dict:
     """``mlp_shape_checks`` at each path's shapes and at ragged and edge
     shapes; the wrapper refusing what the kernel does not take; the
@@ -2500,8 +2599,11 @@ def band_mlp_phase(dev, smi, engines: dict) -> dict:
     """Kernel 2.8 against mlp_ref at the lead shapes [B, nb, P] the band
     paths give it: band-train (B = TRAIN_B, float32 on the path),
     band-inference (the gecko, B = 1, bfloat16) and band-bench (B =
-    BATCH_B, bfloat16), both dtypes at each. Returns the largest absolute
-    error per (label, dtype)."""
+    BATCH_B, bfloat16), both dtypes at each; then its device time at the
+    band-train (float32) and band-bench (bfloat16) shapes beside its bound
+    and the library chain (``mlp_times`` by CUDA events: this phase runs
+    after the profiled surface phases). Returns (the largest absolute
+    error per (label, dtype), the times by label)."""
     t0 = time.time()
     shapes = {f"band-{label}": (bsz, engines[name].num_cells,
                                 engines[name].slots_per_cell)
@@ -2509,14 +2611,28 @@ def band_mlp_phase(dev, smi, engines: dict) -> dict:
                                        ("inference", "gecko", 1),
                                        ("bench", "bench", BATCH_B))}
     errs = mlp_shape_checks(dev, shapes)
+    times = {}
+    for label, dtype in (("band-train", torch.float32),
+                         ("band-bench", torch.bfloat16)):
+        t = mlp_times(dev, shapes[label], dtype, events=True)
+        print(f"  {mlp_times_line(label, shapes[label], dtype, t)} (CUDA "
+              "events)", flush=True)
+        times[label] = {
+            "shapes": f"{label} {shapes[label]} {str(dtype)[6:]} inputs",
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
     phase("band-mlp", t0, "sph_mlp_kernel == mlp_ref at the band paths' "
           "shapes " + ", ".join(f"{label} {lead}"
                                 for label, lead in shapes.items())
           + f", gated and orig, float32 / bfloat16 within "
           f"{MLP_RTOL[torch.float32]} / {MLP_RTOL[torch.bfloat16]} of max, "
-          f"all but {MLP_FLIP_SHARE} of the outputs within 1e-5 of max "
-          f"| {smi}")
-    return errs
+          f"all but {MLP_FLIP_SHARE} of the outputs within 1e-5 of max; "
+          "device time at the band-train / band-bench shapes: "
+          + ", ".join(f"{label} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} "
+                      f"ms by {t['bound_by']}, library chain "
+                      f"{t['library_ms']:.4f} ms)"
+                      for label, t in times.items()) + f" | {smi}")
+    return errs, times
 
 
 def band_train_device(teng, x2):
@@ -3116,6 +3232,87 @@ def texture_train_phase(dev, smi, out_dir: str):
     return last, launches["sph_mlp_kernel"] + rlaunches["sph_mlp_kernel"]
 
 
+# [texture-resume]: a straight run, a second straight run of the same seed,
+# and a run checkpointed half-way and resumed (--resume auto), as
+# tests/test_torch_checkpoint.py's exact-resume test runs them on the CPU,
+# where the three are bit-equal. On the card the backward's atomic sums (the
+# far-window gathers of the band engine, the image losses' scatters) come
+# in no fixed order, so two runs of one seed part: on an H100 80GB HBM3
+# (700 W) this phase read up to losses 1.4e-08, parameters 3.7e-05 and
+# Adam's state 1.4e-04 of max between the resumed and the first run, and as
+# much between the two straight ones (PERF.md). The resumed run is held to
+# RESUME_RTOL of max, 20-70x those gaps.
+RESUME_ITERS = 10
+RESUME_RTOL = {"losses": 1e-4, "params": 1e-3, "adam": 3e-3}
+
+
+def texture_resume_phase(dev, smi) -> dict:
+    """[texture-resume]: RESUME_ITERS OT iterations at runs/ot_gabor_dotted's
+    configuration (band engine) twice from the seed, and RESUME_ITERS / 2
+    + a checkpoint + ``--resume auto`` to RESUME_ITERS; the losses of every
+    iteration and the final parameters and Adam state compared. Returns the
+    gaps (relative to max)."""
+    from sph_nca_tpu_torch.io.checkpoint import load_checkpoint
+
+    t0 = time.time()
+    half = RESUME_ITERS // 2
+    every = ("--checkpoint_every", str(half))
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        for label in ("straight", "again", "resumed"):
+            out = os.path.join(root, label)
+            plan = [(RESUME_ITERS, ())] if label != "resumed" else [
+                (half, ()), (RESUME_ITERS, ("--resume", "auto"))]
+            for iters, extra in plan:
+                rc = cli_train.main(texture_train_argv(
+                    out, iters, extra=every + extra))
+                torch.cuda.synchronize()
+                if rc != 0:
+                    fail(f"texture-resume: the train CLI returned {rc}")
+            rows = metrics_rows(out)
+            if sorted(rows) != list(range(RESUME_ITERS)):
+                fail(f"texture-resume {label}: iterations {sorted(rows)}")
+            (ck,) = glob.glob(os.path.join(out, f"sphnca-*-"
+                                                f"{RESUME_ITERS:04d}"))
+            c = load_checkpoint(ck, device="cpu")
+            runs[label] = {
+                "losses": torch.tensor([rows[i]["loss"]
+                                        for i in range(RESUME_ITERS)],
+                                       dtype=torch.float64),
+                "params": list(c["params"]),
+                "opt": [torch.as_tensor(np.asarray(v)) for v in
+                        _tree_leaves(c["opt_state"])]}
+
+    def gaps(a, b):
+        return {"losses": _gap(runs[a]["losses"], runs[b]["losses"]),
+                "params": max(_gap(x, y) for x, y in zip(
+                    runs[a]["params"], runs[b]["params"])),
+                "adam": max(_gap(x.double(), y.double()) for x, y in zip(
+                    runs[a]["opt"], runs[b]["opt"]))}
+    noise = gaps("again", "straight")
+    resume = gaps("resumed", "straight")
+    bar = RESUME_RTOL
+    phase("texture-resume", t0, f"OT training at runs/ot_gabor_dotted's "
+          f"configuration (band engine), {RESUME_ITERS} iterations: a second "
+          f"run of the seed against the first: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in noise.items())
+          + f" of max; {half} + checkpoint + --resume auto against the "
+          f"first: " + ", ".join(f"{k} {v:.3e} (limit {bar[k]:.3e})"
+                                 for k, v in resume.items())
+          + f"; bit-equal: {all(v == 0.0 for v in resume.values())} | {smi}")
+    if not all(resume[k] <= bar[k] for k in resume):
+        fail(f"texture-resume: the resumed run parts from the straight one "
+             f"by {resume}, more than {bar}")
+    return {"noise": noise, "resume": resume}
+
+
+def _tree_leaves(tree) -> list:
+    """The array leaves of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    return [tree]
+
+
 def texture_cells_phase(dev, smi, out_dir: str) -> dict:
     """[texture-cells]: TEX_CELL_ITERS iterations of the same run on the cell
     engine with float32 pair tables: the OT gradient through 2.4 / 2.5 /
@@ -3571,9 +3768,11 @@ CLIP_ASSETS = ("text", "image", "loss", "grad")
 CLIP_KERNELS = ("sph_fwd_tab_kernel", "sph_bwd_tab_kernel",
                 "sph_mask_tab_kernel", "sph_mlp_kernel")
 # [optimizers]: each optimizer's OPT_UPDATES updates on the card against the
-# same on the CPU, params and state to OPT_RTOL of max; then the train CLI
-# with --optimizer lamb for OPT_CLI_ITERS iterations, a checkpoint, and
-# --resume auto for OPT_RESUME more
+# same on the CPU in float64, params and state to OPT_RTOL of max (a float32
+# reference on the CPU parted from the card by ~6e-06 of max on some hosts,
+# at an entry where the card's value is float64's to within an ulp); then
+# the train CLI with --optimizer lamb for OPT_CLI_ITERS iterations, a
+# checkpoint, and --resume auto for OPT_RESUME more
 OPT_UPDATES, OPT_RTOL, OPT_CLI_ITERS, OPT_RESUME = 3, 1e-6, 5, 2
 
 
@@ -3864,8 +4063,8 @@ def clip_train_phase(dev, smi, out_root: str) -> tuple:
 def optimizers_phase(dev, smi) -> dict:
     """[optimizers]: each optimizer of training.optim OPT_UPDATES updates
     from the same params and seeded gradients (normalized, under the
-    schedule) on the card and on the CPU: params and every leaf of the optax
-    state tree within OPT_RTOL of max; then the train CLI (band engine, MSE)
+    schedule) on the card and on the CPU in float64: params and every leaf
+    of the optax state tree within OPT_RTOL of max; then the train CLI (band engine, MSE)
     with --optimizer lamb for OPT_CLI_ITERS iterations and a checkpoint in
     LAMB's optax layout, and --resume auto for OPT_RESUME more. Returns
     2.8's launches."""
@@ -3891,12 +4090,13 @@ def optimizers_phase(dev, smi) -> dict:
         size=tuple(p.shape)).astype(np.float32)) for p in p0]
         for u in range(OPT_UPDATES)]
 
-    def run(name, device):
-        params = [p.clone().to(device).requires_grad_(True) for p in p0]
+    def run(name, device, dtype=torch.float32):
+        params = [p.clone().to(device, dtype).requires_grad_(True)
+                  for p in p0]
         opt, sched = make_optimizer(params, name=name, decay_steps=10)
         for g in grads:
             for p, gp in zip(params, g):
-                p.grad = gp.to(device, copy=True)
+                p.grad = gp.to(device, dtype, copy=True)
             normalize_grads_(params)
             opt.step()
             sched.step()
@@ -3919,7 +4119,7 @@ def optimizers_phase(dev, smi) -> dict:
     for name in OPTIMIZERS:
         got = arrays(*run(name, dev))
         again = arrays(*run(name, dev))
-        want = arrays(*run(name, "cpu"))
+        want = arrays(*run(name, "cpu", torch.float64))
         if got.keys() != want.keys():
             fail(f"{name}: the card's optax tree {sorted(got)} is not the "
                  f"CPU's {sorted(want)}")
@@ -3937,7 +4137,8 @@ def optimizers_phase(dev, smi) -> dict:
         if not worst[name] <= OPT_RTOL:
             d = np.abs(got[leaf] - want[leaf]).reshape(-1)
             j = int(d.argmax())
-            fail(f"{name} on the card departs from the CPU by {worst[name]:.3e}"
+            fail(f"{name} on the card departs from the CPU's float64 by "
+                 f"{worst[name]:.3e}"
                  f" of max (limit {OPT_RTOL}) at {leaf} [{j}]: "
                  f"{got[leaf].reshape(-1)[j]!r} vs {want[leaf].reshape(-1)[j]!r}"
                  f"; a second card run is bit-equal: {repeat[name]}")
@@ -3977,7 +4178,8 @@ def optimizers_phase(dev, smi) -> dict:
     if got != {**NO_LAUNCHES, "sph_mlp_kernel": want}:
         fail(f"train CLI --optimizer lamb launches {got}")
     phase("optimizers", t0, f"{OPT_UPDATES} updates of each optimizer on the "
-          f"card vs the CPU (normalized gradients, the schedule), params and "
+          f"card vs the CPU in float64 (normalized gradients, the schedule), "
+          f"params and "
           f"optax state within " + ", ".join(
               f"{n} {g:.2e}" for n, g in worst.items())
           + f" of max (limit {OPT_RTOL}), two card runs bit-equal for "
@@ -4548,6 +4750,804 @@ def graph_phases(dev, smi, alive_cells: float) -> dict:
     return out
 
 
+# ---- the sharded paths (sph_nca_tpu_torch/parallel) ----------------------------
+
+PARALLEL_RANKS = 2  # ranks sharing the one card over gloo
+PARALLEL_STEPS = 16
+PARALLEL_GRAD_STEPS = 8
+PARALLEL_CELL_GRAD_STEPS = 3
+PARALLEL_TRAIN_STEPS = 40
+PARALLEL_TRAIN_MESHES = (((2, 1), 2), ((1, 2), 1))  # (data, particle), iters
+# the sharded BPTT gradient against the unsharded one, of max: the JAX
+# package's sharded-vs-global bar (tests/test_band_shard.py)
+PARALLEL_GRAD_RTOL = 1e-3
+# the sharded cell paths' gradients against the same layout on one device
+# (tests/test_parallel.py's bar)
+PARALLEL_CELL_GRAD_RTOL = 1e-4
+# the two far exchanges deliver the same rows to the same products
+PARALLEL_MODES_RTOL = 1e-6
+# the sharded train step against one process: the losses and Adam's
+# moments within TRAIN_PARITY_RTOL of max; the parameters within
+# TRAIN_PARAM_LR of a learning rate (Adam's update m / (sqrt(v) + eps)
+# passes on the gradients' relative error, which the order of the sums sets
+# at ~1e-7 absolute on normalized gradients); a parameter whose normalized
+# gradient lies within ADAM_TIE of 0 at an iteration takes an update whose
+# sign the order of the sums decides, and is counted instead
+TRAIN_PARITY_RTOL = 1e-5
+TRAIN_PARAM_LR = 1e-2
+TRAIN_LR = 3e-3
+ADAM_TIE = 1e-6
+
+
+def _rank_dev(kind: str) -> torch.device:
+    """A rank's device: the card ``run_ranks`` gave it, or the CPU when the
+    plumbing is rehearsed there."""
+    if kind == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(kind)
+
+
+def parallel_inputs(dev) -> dict:
+    """The sharded phases' engines, parameters and states, built on the
+    host and handed to the ranks (each moves its shard to the card)."""
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig, init_params
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+    from sph_nca_tpu_torch.utils.image import flat_color_target
+
+    rng = np.random.default_rng(SEED + 17)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    cfg = SPHNCAConfig(channels=16, hidden=256, fire_rate=1.0)
+    xb = fibonacci_sphere(BENCH_N, BENCH_RADIUS)
+    t1 = time.time()
+    beng = build_band_engine(xb, bench_h(), table_dtype="bfloat16",
+                             block_multiple=PARALLEL_RANKS, device="cpu")
+    bench = {"eng": beng, "h": bench_h(), "cfg": cfg,
+             "params": init_params(cfg, gen, device="cpu"),
+             "A": band_states(rng, BATCH_B, BENCH_N, "cpu"),
+             "build_s": time.time() - t1}
+
+    model = load_weights_json(GECKO, device="cpu")
+    gcfg = dataclasses.replace(model.cfg, fire_rate=1.0)
+    x, x2 = plane_points(IMAGE)
+    seed = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                      radius=TRAIN_H)
+    A_seed = seed.expand(TRAIN_B, -1, -1).clone()
+    A_seed[..., 4:] += torch.from_numpy(rng.uniform(
+        -0.1, 0.1, A_seed[..., 4:].shape).astype(np.float32))
+    grad = {"eng": build_band_engine(x, TRAIN_H, table_dtype="float32",
+                                     block_multiple=PARALLEL_RANKS,
+                                     device="cpu"),
+            "h": TRAIN_H, "cfg": gcfg, "params": model.params, "A": A_seed,
+            "W": torch.from_numpy(rng.normal(size=tuple(A_seed.shape)).astype(
+                np.float32))}
+
+    stripes = load_weights_json(STRIPES, device="cpu")
+    xs = fibonacci_sphere(SURF_N, SURF_RADIUS)
+    nrm = torch.from_numpy(sphere_normals(xs))
+    t0r = torch.from_numpy(rng.normal(size=(SURF_B, SURF_N, 3)).astype(
+        np.float32))
+    surface = {"eng": build_band_engine(xs, stripes.h, table_dtype="bfloat16",
+                                        block_multiple=PARALLEL_RANKS,
+                                        device="cpu"),
+               "h": stripes.h,
+               "cfg": dataclasses.replace(stripes.cfg, fire_rate=1.0),
+               "params": stripes.params, "nrm": nrm,
+               "t0": orthogonalize(nrm, normalize(t0r)),
+               "A": torch.from_numpy(rng.uniform(
+                   0.0, 1.0, (SURF_B, SURF_N, 16)).astype(np.float32))}
+
+    gecko = load_weights_json(GECKO, device="cpu")
+    A0 = plane_seed(x2, 16, gmin=(-1.0, -1.0), gsize=(2.0, 2.0),
+                    radius=gecko.h)
+    cells = {"x": x, "h": gecko.h,
+             "cfg": dataclasses.replace(gecko.cfg, fire_rate=1.0),
+             "params": gecko.params, "A": A0,
+             "AB": A0.expand(BATCH_B, -1, -1).contiguous(),
+             "W": torch.from_numpy(rng.normal(size=(x.shape[0], 16)).astype(
+                 np.float32))}
+
+    tcfg = SPHNCAConfig(channels=16, hidden=256, fire_rate=1.0,
+                        normalize_perception=1.0 / TRAIN_H)
+    steps = PARALLEL_TRAIN_STEPS
+    train = {"x": x, "x2": x2, "h": TRAIN_H, "cfg": tcfg,
+             "params": init_params(tcfg, gen, device="cpu"),
+             "A": A_seed, "img": torch.from_numpy(flat_color_target(64)),
+             "image_scale": 64 / IMAGE, "steps": steps,
+             "collect": [0, steps // 4, steps // 2, steps]}
+    return {"bench": bench, "grad": grad, "surface": surface, "cells": cells,
+            "train": train, "device": dev.type}
+
+
+def _sync_barrier():
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _rank_band(b, mesh, dev) -> dict:
+    """[parallel-band] on this rank: the perception in both far modes; a
+    PARALLEL_STEPS-step rollout with a float32 MLP (held by the parent);
+    the same with the bench's bfloat16 MLP, timed, its exchange counted,
+    and 4 of its steps profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph_nca_tpu_torch.models.nca import MLPParams
+    from sph_nca_tpu_torch.parallel import band_shard as BS
+    from sph_nca_tpu_torch.parallel import comm
+    from sph_nca_tpu_torch.parallel import mesh as MS
+
+    t0 = time.time()
+    out = {}
+    locs = {}
+    for halo in ("targeted", "allgather"):
+        shards, st = BS.shard_band_engine(b["eng"], PARALLEL_RANKS, halo=halo)
+        locs[halo] = (BS.place_shards(shards, mesh, dev), st, shards)
+    X = MS.particle_slice(batched_scatter(b["eng"], b["A"]), mesh).to(dev)
+    params = MLPParams(*(t.to(dev) for t in b["params"]))
+    cfg, h = b["cfg"], b["h"]
+    with torch.no_grad():
+        pas = {halo: BS.perceive_band_sharded(loc, st, X, BATCH_B, True,
+                                              out_dtype="bfloat16", mesh=mesh)
+               for halo, (loc, st, _) in locs.items()}
+        out["mode_gap"] = max(
+            float((a.float() - c.float()).abs().max())
+            / max(float(c.float().abs().max()), 1e-30)
+            for a, c in zip(pas["targeted"], pas["allgather"]))
+        loc, st, shards = locs["targeted"]
+        reset_launches()
+        fin = BS.rollout_band_sharded(params, cfg, loc, st, mesh, X, BATCH_B,
+                                      SEED, PARALLEL_STEPS, h)
+        torch.cuda.synchronize()
+        out["launches"] = read_launches()
+        out["final"] = MS.particle_gather(fin, mesh).cpu()
+
+        def run(steps):
+            return BS.rollout_band_sharded(params, cfg, loc, st, mesh, X,
+                                           BATCH_B, SEED, steps, h,
+                                           mlp_dtype="bfloat16")
+        run(2)
+        _sync_barrier()
+        comm.reset_stats()
+        t1 = time.time()
+        bf = run(PARALLEL_STEPS)
+        _sync_barrier()
+        out["ms_step"] = (time.time() - t1) * 1e3 / PARALLEL_STEPS
+        out["stats"] = comm.read_stats()
+        out["finite"] = bool(torch.isfinite(bf).all())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            run(4)
+            torch.cuda.synchronize()
+            wall_us = (time.time() - t1) * 1e6
+        dev_us = sum(getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+                     for ev in prof.key_averages()
+                     if ev.device_type != torch.autograd.DeviceType.CPU)
+        out["busy"] = dev_us / wall_us
+    out["comm"] = BS.comm_bytes_per_pass(shards, st, BATCH_B * 16, 2)
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def _rank_band_grad(g, mesh, dev) -> dict:
+    """[parallel-band-grad] on this rank: a PARALLEL_GRAD_STEPS-step BPTT
+    through rollout_band_sharded (each step recomputed in the backward);
+    the parameters' gradient summed over the ranks."""
+    from sph_nca_tpu_torch.models.nca import MLPParams
+    from sph_nca_tpu_torch.parallel import band_shard as BS
+    from sph_nca_tpu_torch.parallel import comm
+    from sph_nca_tpu_torch.parallel import mesh as MS
+
+    t0 = time.time()
+    shards, st = BS.shard_band_engine(g["eng"], PARALLEL_RANKS)
+    loc = BS.place_shards(shards, mesh, dev)
+    X = MS.particle_slice(batched_scatter(g["eng"], g["A"]), mesh).to(dev)
+    W = MS.particle_slice(batched_scatter(g["eng"], g["W"]), mesh).to(dev)
+    p = MLPParams(*(t.to(dev).clone().requires_grad_(True) for t in g["params"]))
+    reset_launches()
+    fin = BS.rollout_band_sharded(p, g["cfg"], loc, st, mesh, X, TRAIN_B,
+                                  SEED, PARALLEL_GRAD_STEPS, g["h"])
+    torch.sum(fin * W).backward()
+    torch.cuda.synchronize()
+    return {"launches": read_launches(),
+            "grads": [comm.all_reduce_(t.grad.clone()).cpu() for t in p],
+            "seconds": time.time() - t0}
+
+
+def _rank_surface(s, mesh, dev) -> dict:
+    """[parallel-surface] on this rank: rollout_mesh_band_sharded,
+    PARALLEL_STEPS steps, float32 MLP."""
+    from sph_nca_tpu_torch.models.nca import MLPParams
+    from sph_nca_tpu_torch.parallel import band_shard as BS
+    from sph_nca_tpu_torch.parallel import mesh as MS
+
+    t0 = time.time()
+    eng = s["eng"]
+    shards, st = BS.shard_band_engine(eng, PARALLEL_RANKS)
+    loc = BS.place_shards(shards, mesh, dev)
+    rows = eng.num_cells * eng.slots_per_cell
+
+    def local(t):
+        return MS.particle_slice(t, mesh).to(dev)
+
+    reset_launches()
+    with torch.no_grad():
+        fS, ftd = BS.rollout_mesh_band_sharded(
+            MLPParams(*(t.to(dev) for t in s["params"])), s["cfg"], loc, st,
+            mesh, local(batched_scatter(eng, s["A"])),
+            local(eng.scatter(s["nrm"])),
+            local(batched_scatter(eng, s["t0"]).reshape(rows, SURF_B, 3)),
+            SURF_B, SEED, PARALLEL_STEPS, s["h"])
+        torch.cuda.synchronize()
+    return {"launches": read_launches(),
+            "final": MS.particle_gather(fS, mesh).cpu(),
+            "td": torch.stack([MS.particle_gather(t, mesh) for t in ftd],
+                              -1).cpu(),
+            "seconds": time.time() - t0}
+
+
+def _cell_grads(params, cfg, eng, S0, W, h):
+    """(final, the parameters' gradient of sum(final * W)) of a
+    PARALLEL_CELL_GRAD_STEPS-step rollout_cells."""
+    from sph_nca_tpu_torch.models.nca import MLPParams
+
+    p = MLPParams(*(t.detach().clone().requires_grad_(True) for t in params))
+    fin = rollout_cells(p, cfg, eng, S0, torch.Generator(S0.device),
+                        PARALLEL_CELL_GRAD_STEPS, h)
+    torch.sum(fin * W).backward()
+    return fin.detach(), [t.grad for t in p]
+
+
+def _rank_cells(c, mesh, dev) -> dict:
+    """[parallel-cells] on this rank: the gecko on engines built with
+    n_shards=2, each rank running the kernels on its blocks: the recompute
+    engine (2.1-2.3) PARALLEL_STEPS steps (at fire_rate 1, and at 0.5 from
+    a seeded generator) and a 3-step gradient, float32
+    tables (2.4-2.6) a 3-step gradient, the batched bfloat16 tables (2.4 /
+    2.6 / 2.8) at B = BATCH_B, PARALLEL_STEPS steps; launches per path."""
+    from sph_nca_tpu_torch.models.nca import MLPParams
+    from sph_nca_tpu_torch.parallel import comm
+    from sph_nca_tpu_torch.parallel import mesh as MS
+
+    t0 = time.time()
+    x, h, cfg = c["x"], c["h"], c["cfg"]
+    params = MLPParams(*(t.to(dev) for t in c["params"]))
+    out = {}
+
+    def gather(t):
+        return MS.particle_gather(t, mesh, dim=-3).cpu()
+
+    for label, tables in (("recompute", None), ("tables", "float32")):
+        eng = build_cell_engine(x, h, n_shards=PARALLEL_RANKS,
+                                pair_tables=tables, device=dev)
+        sh = MS.shard_cell_engine(eng, mesh)
+        S0 = MS.particle_slice(eng.scatter(c["A"].to(dev)), mesh)
+        W = MS.particle_slice(eng.scatter(c["W"].to(dev)), mesh)
+        res = {}
+        reset_launches()
+        if tables is None:
+            with torch.no_grad():
+                res["final"] = gather(rollout_cells(
+                    params, cfg, sh, S0, torch.Generator(dev),
+                    PARALLEL_STEPS, h))
+            torch.cuda.synchronize()
+            res["launches"] = read_launches()
+            with torch.no_grad():
+                res["fire_half"] = gather(rollout_cells(
+                    params, cfg, sh, S0, torch.Generator(dev).manual_seed(
+                        SEED), PARALLEL_STEPS, h, fire_rate=0.5))
+            reset_launches()
+        fin, grads = _cell_grads(params, cfg, sh, S0, W, h)
+        torch.cuda.synchronize()
+        res["grad_launches"] = read_launches()
+        res["grad_final"] = gather(fin)
+        res["grads"] = [comm.all_reduce_(g.clone()).cpu() for g in grads]
+        out[label] = res
+        del eng, sh
+    eng = build_cell_engine(x, h, n_shards=PARALLEL_RANKS,
+                            pair_tables="bfloat16", device=dev)
+    sh = MS.shard_cell_engine(eng, mesh)
+    SB = MS.particle_slice(batched_scatter(eng, c["AB"].to(dev)), mesh)
+    reset_launches()
+    with torch.no_grad():
+        fin = rollout_cells_batched(params, cfg, sh, SB, BATCH_B,
+                                    torch.Generator(dev), PARALLEL_STEPS, h)
+        torch.cuda.synchronize()
+    out["batched"] = {"launches": read_launches(), "final": gather(fin)}
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def _train_objective(t, dev):
+    from sph_nca_tpu_torch.training.losses import MSELossConfig
+
+    return t["img"].to(dev), MSELossConfig(
+        gmin=(-1.0, -1.0), gsize=(2.0, 2.0), image_scale=t["image_scale"])
+
+
+def _train_graph(t, dev):
+    from sph_nca_tpu_torch.ops import hashgrid as HG
+
+    dims = HG.default_dims(t["h"])
+    mpc, k = HG.suggest_capacity(t["x"], t["h"], dims)
+    return HG.build_graph(t["x"].to(dev), t["h"], dims, max_per_cell=mpc,
+                          k=k)
+
+
+def _rank_train(t, dev) -> dict:
+    """[parallel-train] on this rank: make_sharded_train_step on the graph
+    engine at the train CLI's defaults, on each mesh of
+    PARALLEL_TRAIN_MESHES; per mesh and iteration the loss, this rank's
+    parameters and Adam state after it."""
+    from sph_nca_tpu_torch.models.nca import MLPParams
+    from sph_nca_tpu_torch.parallel import mesh as MS
+    from sph_nca_tpu_torch.parallel.shard import (
+        make_sharded_train_step,
+        mse_loss_piece,
+    )
+    from sph_nca_tpu_torch.training.trainer import make_optimizer
+
+    t0 = time.time()
+    graph = _train_graph(t, dev)
+    img, loss_cfg = _train_objective(t, dev)
+    out = []
+    for (nd, npart), iters in PARALLEL_TRAIN_MESHES:
+        mesh = MS.make_mesh(data=nd, particle=npart, backend="gloo")
+        p = MLPParams(*(q.requires_grad_(True) for q in MS.replicate(
+            MLPParams(*(q.to(dev) for q in t["params"])), mesh)))
+        opt, sched = make_optimizer(list(p), TRAIN_LR)
+        x2 = MS.particle_slice(t["x2"].to(dev), mesh)
+        piece = mse_loss_piece(img, loss_cfg, x2, TRAIN_B,
+                               t["x2"].shape[0])
+        step = make_sharded_train_step(t["cfg"], opt, piece, t["h"], mesh,
+                                       t["steps"], scheduler=sched)
+        A = MS.shard_batch(t["A"].to(dev), mesh)
+        g = MS.shard_graph(graph, mesh)
+        snaps, ms = [], 0.0
+        for i in range(iters):
+            t1 = time.time()
+            loss = step.fn(p, g, A, SEED, i, t["steps"], t["collect"])[0]
+            torch.cuda.synchronize()
+            ms += (time.time() - t1) * 1e3
+            snaps.append({"losses": [loss],
+                          "params": [q.detach().cpu().clone() for q in p],
+                          "state": [{k: v.cpu().clone()
+                                     for k, v in opt.state[q].items()}
+                                    for q in p]})
+        out.append({"iters": snaps, "ms_iter": ms / iters})
+    return {"meshes": out, "seconds": time.time() - t0}
+
+
+def parallel_rank(inp) -> dict:
+    """One of PARALLEL_RANKS ranks sharing the card over gloo: every
+    sharded phase's part on this rank."""
+    from sph_nca_tpu_torch.parallel import mesh as MS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_dev(inp["device"])
+    mesh = MS.make_mesh(data=1, particle=PARALLEL_RANKS, backend="gloo")
+    return {"band": _rank_band(inp["bench"], mesh, dev),
+            "grad": _rank_band_grad(inp["grad"], mesh, dev),
+            "surface": _rank_surface(inp["surface"], mesh, dev),
+            "cells": _rank_cells(inp["cells"], mesh, dev),
+            "train": _rank_train(inp["train"], dev)}
+
+
+def nccl_rank(b, kind: str) -> dict:
+    """[parallel-nccl] on this rank: the [parallel-band] check rollout over
+    NCCL, one rank a card."""
+    import torch.distributed as dist
+
+    from sph_nca_tpu_torch.models.nca import MLPParams
+    from sph_nca_tpu_torch.parallel import band_shard as BS
+    from sph_nca_tpu_torch.parallel import comm
+    from sph_nca_tpu_torch.parallel import mesh as MS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _rank_dev(kind)
+    k = dist.get_world_size()
+    mesh = MS.make_mesh(data=1, particle=k)
+    shards, st = BS.shard_band_engine(b["eng"], k)
+    loc = BS.place_shards(shards, mesh, dev)
+    X = MS.particle_slice(batched_scatter(b["eng"], b["A"]), mesh).to(dev)
+    params = MLPParams(*(t.to(dev) for t in b["params"]))
+    with torch.no_grad():
+        BS.rollout_band_sharded(params, b["cfg"], loc, st, mesh, X, BATCH_B,
+                                SEED, 2, b["h"])  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        comm.reset_stats()
+        reset_launches()
+        t1 = time.time()
+        fin = BS.rollout_band_sharded(params, b["cfg"], loc, st, mesh, X,
+                                      BATCH_B, SEED, PARALLEL_STEPS, b["h"])
+        torch.cuda.synchronize()
+    return {"ranks": k, "device": str(dev),
+            "ms_step": (time.time() - t1) * 1e3 / PARALLEL_STEPS,
+            "launches": read_launches(), "stats": comm.read_stats(),
+            "final": MS.particle_gather(fin, mesh).cpu()}
+
+
+def _gap(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def parallel_references(dev, inp) -> dict:
+    """The unsharded twins on the card, in this process, before the ranks
+    start: the bench rollout (float32 MLP held; bfloat16 MLP timed), the
+    band BPTT gradient, the surface rollout, the cell paths (the n_shards=1
+    engine, and the n_shards=2 engine on one device), the train step on one
+    process."""
+    from sph_nca_tpu_torch.models.nca import MLPParams
+
+    def on(params):
+        return MLPParams(*(t.to(dev) for t in params))
+
+    ref = {}
+    b = inp["bench"]
+    beng = b["eng"].to(dev)
+    SB = batched_scatter(beng, b["A"].to(dev))
+    with torch.no_grad():
+        ref["band"] = rollout_cells_batched(
+            on(b["params"]), b["cfg"], beng, SB, BATCH_B,
+            torch.Generator(dev), PARALLEL_STEPS, b["h"])
+
+        def run(steps):
+            return rollout_cells_batched(
+                on(b["params"]), b["cfg"], beng, SB, BATCH_B,
+                torch.Generator(dev), steps, b["h"], mlp_dtype="bfloat16")
+        run(2)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        run(PARALLEL_STEPS)
+        torch.cuda.synchronize()
+        ref["band_ms_step"] = (time.time() - t1) * 1e3 / PARALLEL_STEPS
+    del beng, SB
+
+    g = inp["grad"]
+    geng = g["eng"].to(dev)
+    p = MLPParams(*(t.to(dev).clone().requires_grad_(True) for t in g["params"]))
+    fin = rollout_cells_batched(p, g["cfg"], geng,
+                                batched_scatter(geng, g["A"].to(dev)),
+                                TRAIN_B, torch.Generator(dev),
+                                PARALLEL_GRAD_STEPS, g["h"])
+    torch.sum(fin * batched_scatter(geng, g["W"].to(dev))).backward()
+    ref["grad"] = [t.grad.cpu() for t in p]
+    del geng, fin
+
+    s = inp["surface"]
+    seng = s["eng"].to(dev)
+    with torch.no_grad():
+        ref["surface"] = [t.cpu() for t in rollout_mesh_batched(
+            on(s["params"]), s["cfg"], seng, s["A"].to(dev),
+            s["nrm"].to(dev), s["t0"].to(dev), torch.Generator(dev),
+            PARALLEL_STEPS, s["h"])]
+    del seng
+
+    c = inp["cells"]
+    cref = {}
+    for k in (1, PARALLEL_RANKS):
+        for tables in (None, "float32", "bfloat16"):
+            eng = build_cell_engine(c["x"], c["h"], n_shards=k,
+                                    pair_tables=tables, device=dev)
+            S0 = eng.scatter(c["A"].to(dev))
+            with torch.no_grad():
+                if tables is None:
+                    cref[k, "final"] = eng.gather_back(rollout_cells(
+                        on(c["params"]), c["cfg"], eng, S0,
+                        torch.Generator(dev), PARALLEL_STEPS, c["h"]))
+                if tables is None and k == PARALLEL_RANKS:
+                    cref[k, "fire_half"] = eng.gather_back(rollout_cells(
+                        on(c["params"]), c["cfg"], eng, S0,
+                        torch.Generator(dev).manual_seed(SEED),
+                        PARALLEL_STEPS, c["h"], fire_rate=0.5))
+                if tables == "bfloat16":
+                    cref[k, "batched"] = batched_gather_back(
+                        eng, rollout_cells_batched(
+                            on(c["params"]), c["cfg"], eng,
+                            batched_scatter(eng, c["AB"].to(dev)), BATCH_B,
+                            torch.Generator(dev), PARALLEL_STEPS, c["h"]),
+                        BATCH_B)
+            if k == PARALLEL_RANKS and tables != "bfloat16":
+                fin, grads = _cell_grads(on(c["params"]), c["cfg"], eng, S0,
+                                         eng.scatter(c["W"].to(dev)), c["h"])
+                cref[k, tables, "grads"] = [q.cpu() for q in grads]
+                cref[k, tables, "grad_final"] = eng.gather_back(fin)
+            cref[k, tables, "eng"] = eng
+    ref["cells"] = cref
+
+    torch.cuda.empty_cache()
+    return ref
+
+
+def reference_train_step(t, dev, graph, start, i: int) -> dict:
+    """One single-process training iteration (``training.trainer``'s update
+    on the whole batch) from ``start``: None for the initial parameters, or
+    a rank's snapshot after iteration i - 1 (its parameters, Adam's state;
+    the schedule at position i), so every sharded step is held against the
+    single-process step from the same inputs."""
+    from sph_nca_tpu_torch.models.nca import MLPParams
+    from sph_nca_tpu_torch.models.rollout import rollout_batch
+    from sph_nca_tpu_torch.training.trainer import (
+        make_mse_bundle,
+        make_optimizer,
+        normalize_grads_,
+        set_schedule_position,
+    )
+
+    src = t["params"] if start is None else start["params"]
+    p = MLPParams(*(q.to(dev).clone().requires_grad_(True) for q in src))
+    opt, sched = make_optimizer(list(p), TRAIN_LR)
+    if start is not None:
+        for q, st in zip(p, start["state"]):
+            opt.state[q] = {k: v.clone() if k == "step" else v.to(dev).clone()
+                            for k, v in st.items()}
+        set_schedule_position(sched, i)
+    img, loss_cfg = _train_objective(t, dev)
+    bundle = make_mse_bundle(img, loss_cfg)
+    x2 = t["x2"].to(dev)
+    o = rollout_batch(p, t["cfg"], graph, t["A"].to(dev),
+                      torch.Generator(dev), t["steps"], t["h"],
+                      n_steps=t["steps"], collect_steps=t["collect"])
+    total = bundle.batch_total(x2, o.final)
+    for j in range(len(t["collect"])):
+        total = total + 0.1 * bundle.batch_total(x2, o.collected[:, j])
+    opt.zero_grad(set_to_none=True)
+    total.backward()
+    normalize_grads_(p)
+    grads = [q.grad.detach().cpu().clone() for q in p]
+    opt.step()
+    sched.step()
+    return {"losses": [total.item()], "grads": [grads],
+            "params": [q.detach().cpu() for q in p],
+            "state": [{k: v.cpu() for k, v in opt.state[q].items()}
+                      for q in p]}
+
+
+def _train_gaps(got, want):
+    """(the loss gap and the largest moment gap, relative to max; the
+    largest parameter gap outside the Adam ties, in learning rates; the
+    count of tie parameters) of one mesh."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   want["losses"]))
+    moment = max(_gap(sa[k], sb[k]) for sa, sb in zip(got["state"],
+                                                      want["state"])
+                 for k in ("exp_avg", "exp_avg_sq"))
+    param, ties = 0.0, 0
+    for i, (a, b) in enumerate(zip(got["params"], want["params"])):
+        tie = torch.stack([g[i].abs() <= ADAM_TIE
+                           for g in want["grads"]]).any(0)
+        ties += int(tie.sum())
+        diff = torch.where(tie, torch.zeros_like(a), a - b)
+        param = max(param, float(diff.abs().max()) / TRAIN_LR)
+    return loss, moment, param, ties
+
+
+def parallel_phases(dev, smi) -> dict:
+    """The sharded paths (``sph_nca_tpu_torch/parallel``) on the card:
+    PARALLEL_RANKS ranks share it over gloo (the exchanges staged through
+    pinned host buffers) in one spawn that serves [parallel-band],
+    [parallel-band-grad], [parallel-surface], [parallel-cells] and
+    [parallel-train]; then [parallel-nccl], one rank a card over NCCL. The
+    kernels and the native library are built before (the build phase), so
+    no rank builds. Each phase holds its ranks' result against the
+    unsharded twin on the card. Returns the kernels' launches a rank by
+    path, and each path's gap from its twin (relative to max, or absolute
+    on states of |A| <~ 1 where the phase line says so)."""
+    from sph_nca_tpu_torch.parallel.comm import run_ranks
+
+    t0 = time.time()
+    inp = parallel_inputs(dev)
+    ref = parallel_references(dev, inp)
+    phase("parallel-inputs", t0, f"engines built on the host (the bench "
+          f"sphere in {inp['bench']['build_s']:.2f} s), the unsharded twins "
+          f"on the card | {smi}")
+    t0 = time.time()
+    res = run_ranks(parallel_rank, PARALLEL_RANKS, inp, device=dev.type,
+                    backend="gloo", timeout=600)
+    spawn_s = time.time() - t0
+    launches, gaps_by_path = {}, {}
+
+    # [parallel-band]
+    r = [x["band"] for x in res]
+    gap = max(_gap(x["final"], ref["band"]) for x in r)
+    modes = max(x["mode_gap"] for x in r)
+    acc, st = r[0]["comm"], r[0]["stats"]
+    ms = max(x["ms_step"] for x in r)
+    launches["parallel-band"] = r[0]["launches"]
+    gaps_by_path["parallel-band"] = gap
+    phase("parallel-band", t0, f"bench configuration (N={BENCH_N}, "
+          f"B={BATCH_B}, bfloat16 tables), {PARALLEL_RANKS} ranks on one card "
+          f"over gloo, {PARALLEL_STEPS} steps at fire_rate 1.0: float32 MLP "
+          f"against the unsharded band rollout {gap:.3e} of max (limit "
+          f"{ROLLOUT_ATOL}); targeted vs allgather perception {modes:.3e} "
+          f"(limit {PARALLEL_MODES_RTOL}); bfloat16 MLP {ms:.3f} ms a "
+          f"sharded step (slower rank, host clock) vs "
+          f"{ref['band_ms_step']:.3f} unsharded; per pass "
+          f"{acc['ppermute_bytes']} B ppermuted + {acc['allgather_bytes']} B "
+          f"far rows ({acc['mode']}, export fraction "
+          f"{acc['export_fraction']:.3f}, full state "
+          f"{acc['full_state_bytes']} B); a rank sent "
+          f"{st['sent_bytes'] / PARALLEL_STEPS:.0f} B and staged "
+          f"{st['staged_bytes'] / PARALLEL_STEPS:.0f} B a step in "
+          f"{st['collectives'] / PARALLEL_STEPS:.1f} exchanges; device busy "
+          + " + ".join(f"{100 * x['busy']:.1f}%" for x in r)
+          + f" (the ranks, 4 profiled steps); launches a rank "
+          f"{launches['parallel-band']}; {r[0]['seconds']:.1f} s in the "
+          f"ranks | {smi}")
+    if not (gap <= ROLLOUT_ATOL and modes <= PARALLEL_MODES_RTOL
+            and all(x["finite"] for x in r)):
+        fail(f"parallel-band: {gap} against unsharded, {modes} between the "
+             "far modes, or non-finite bfloat16 states")
+    if launches["parallel-band"] != {**NO_LAUNCHES, "sph_mlp_kernel":
+                                     PARALLEL_STEPS}:
+        fail(f"parallel-band launches {launches['parallel-band']}")
+
+    # [parallel-band-grad]
+    r = [x["grad"] for x in res]
+    gaps = [max(_gap(x["grads"][i], want) for x in r)
+            for i, want in enumerate(ref["grad"])]
+    launches["parallel-band-grad"] = r[0]["launches"]
+    gaps_by_path["parallel-band-grad"] = max(gaps)
+    phase("parallel-band-grad", t0, f"the train CLI's defaults (N="
+          f"{IMAGE * IMAGE}, h={TRAIN_H}, float32 tables, B={TRAIN_B}), "
+          f"{PARALLEL_GRAD_STEPS}-step BPTT through rollout_band_sharded at "
+          f"fire_rate 1.0: the parameters' gradient summed over the ranks "
+          f"against the unsharded one, "
+          + ", ".join(f"{v:.3e}" for v in gaps)
+          + f" of max (limit {PARALLEL_GRAD_RTOL}); launches a rank "
+          f"{launches['parallel-band-grad']}; {r[0]['seconds']:.1f} s | {smi}")
+    if not max(gaps) <= PARALLEL_GRAD_RTOL:
+        fail(f"parallel-band-grad: {gaps}")
+
+    # [parallel-surface]
+    r = [x["surface"] for x in res]
+    s = inp["surface"]
+    seng = s["eng"]
+    got_A = [batched_gather_back(seng, x["final"], SURF_B) for x in r]
+    got_t = [batched_gather_back(seng, x["td"].reshape(
+        seng.num_cells, seng.slots_per_cell, SURF_B * 3), SURF_B) for x in r]
+    ref_A, ref_t = ref["surface"]
+    gap_A = max(_gap(a, ref_A) for a in got_A)
+    gap_t = max(float((t_ - ref_t).abs().max()) for t_ in got_t)
+    launches["parallel-surface"] = r[0]["launches"]
+    gaps_by_path["parallel-surface"] = gap_A
+    phase("parallel-surface", t0, f"stripes on the {SURF_N}-point sphere "
+          f"(bfloat16 band tables, B={SURF_B}, float32 MLP), "
+          f"{PARALLEL_STEPS} steps of rollout_mesh_band_sharded at fire_rate "
+          f"1.0 against rollout_mesh_batched: states {gap_A:.3e} of max "
+          f"(limit {ROLLOUT_ATOL}), unit tangents {gap_t:.3e} (limit "
+          f"{ROLLOUT_ATOL}); launches a rank {launches['parallel-surface']}; "
+          f"{r[0]['seconds']:.1f} s | {smi}")
+    if not (gap_A <= ROLLOUT_ATOL and gap_t <= ROLLOUT_ATOL):
+        fail(f"parallel-surface: states {gap_A}, tangents {gap_t}")
+
+    # [parallel-cells]
+    r = [x["cells"] for x in res]
+    cref = ref["cells"]
+    k = PARALLEL_RANKS
+    e2 = cref[k, None, "eng"]
+    one = float((cref[k, "final"] - cref[1, "final"]).abs().max())
+    rec = max(float((e2.gather_back(x["recompute"]["final"].to(dev))
+                     - cref[1, "final"]).abs().max()) for x in r)
+    # the ranks draw the whole engine's fire mask from the caller's
+    # generator and keep their cells: at fire_rate 0.5 too the ranks' rollout
+    # is the same engine's on one device
+    half = max(float((e2.gather_back(x["recompute"]["fire_half"].to(dev))
+                      - cref[k, "fire_half"]).abs().max()) for x in r)
+    grad_gaps = {label: max(_gap(a, b) for x in r
+                            for a, b in zip(x[label]["grads"],
+                                            cref[k, tables, "grads"]))
+                 for label, tables in (("recompute", None),
+                                       ("tables", "float32"))}
+    eb = cref[k, "bfloat16", "eng"]
+    bat = max(float((batched_gather_back(eb, x["batched"]["final"].to(dev),
+                                         BATCH_B)
+                     - cref[1, "batched"]).abs().max()) for x in r)
+    for label, key in (("recompute", "launches"),
+                       ("recompute grad", "grad_launches"),
+                       ("tables grad", "grad_launches")):
+        launches[f"parallel-cells {label}"] = r[0][label.split()[0]][key]
+    launches["parallel-cells batched"] = r[0]["batched"]["launches"]
+    gaps_by_path.update({"parallel-cells recompute": max(rec, half),
+                         "parallel-cells recompute grad":
+                             grad_gaps["recompute"],
+                         "parallel-cells tables grad": grad_gaps["tables"],
+                         "parallel-cells batched": bat})
+    phase("parallel-cells", t0, f"the gecko {IMAGE}x{IMAGE} on engines built "
+          f"with n_shards={k}: shards={k} on one device (2.1-2.3) against "
+          f"n_shards=1, {PARALLEL_STEPS} steps {one:.3e}; {k} ranks over gloo "
+          f"(recompute) against n_shards=1 {rec:.3e}, at fire_rate 0.5 from "
+          f"one seeded generator against the same engine on one device "
+          f"{half:.3e} (limit {ROLLOUT_ATOL}); "
+          f"{PARALLEL_CELL_GRAD_STEPS}-step gradients against the same layout "
+          f"on one device: recompute {grad_gaps['recompute']:.3e}, float32 "
+          f"tables {grad_gaps['tables']:.3e} of max (limit "
+          f"{PARALLEL_CELL_GRAD_RTOL}); batched B={BATCH_B} bfloat16 tables "
+          f"{bat:.3e} (limit {ROLLOUT_ATOL}); launches a rank: "
+          + "; ".join(f"{p_} {({n: v for n, v in c_.items() if v})}"
+                      for p_, c_ in launches.items()
+                      if p_.startswith("parallel-cells"))
+          + f"; {r[0]['seconds']:.1f} s | {smi}")
+    if not (one <= ROLLOUT_ATOL and rec <= ROLLOUT_ATOL
+            and half <= ROLLOUT_ATOL and bat <= ROLLOUT_ATOL
+            and max(grad_gaps.values()) <= PARALLEL_CELL_GRAD_RTOL):
+        fail(f"parallel-cells: {one}, {rec}, {half}, {grad_gaps}, {bat}")
+    for name in ("sph_fwd_kernel", "sph_mask_kernel"):
+        if not launches["parallel-cells recompute"][name]:
+            fail(f"parallel-cells launched no {name}")
+    for name, path in (("sph_bwd_kernel", "recompute grad"),
+                       ("sph_fwd_tab_kernel", "tables grad"),
+                       ("sph_bwd_tab_kernel", "tables grad"),
+                       ("sph_mask_tab_kernel", "tables grad"),
+                       ("sph_fwd_tab_kernel", "batched"),
+                       ("sph_mask_tab_kernel", "batched"),
+                       ("sph_mlp_kernel", "batched")):
+        if not launches[f"parallel-cells {path}"][name]:
+            fail(f"parallel-cells {path} launched no {name}")
+
+    # [parallel-train]: each sharded iteration against the single-process
+    # iteration from the same parameters and Adam state
+    lines, worst, worst_lr = [], 0.0, 0.0
+    graph = _train_graph(inp["train"], dev)
+    for m, ((nd, npart), iters) in enumerate(PARALLEL_TRAIN_MESHES):
+        snaps = [x["train"]["meshes"][m]["iters"] for x in res]
+        gs = []
+        for i in range(iters):
+            want = reference_train_step(inp["train"], dev, graph,
+                                        snaps[0][i - 1] if i else None, i)
+            gs += [_train_gaps(sn[i], want) for sn in snaps]
+        same = all(torch.equal(a, b) for sn in snaps[1:]
+                   for a, b in zip(sn[-1]["params"], snaps[0][-1]["params"]))
+        loss, moment, param, ties = (max(g[i] for g in gs) for i in range(4))
+        worst = max(worst, loss, moment)
+        worst_lr = max(worst_lr, param)
+        lines.append(f"data {nd} x particle {npart}, {iters} iterations "
+                     f"({res[0]['train']['meshes'][m]['ms_iter']:.0f} ms "
+                     f"each): losses {loss:.3e}, Adam moments {moment:.3e} "
+                     f"of max, parameters {param:.3e} learning rates apart "
+                     f"outside {ties} Adam ties, replicas bit-equal {same}")
+        if not same:
+            fail(f"parallel-train: the replicas' parameters differ ({nd} x "
+                 f"{npart})")
+    phase("parallel-train", t0, f"make_sharded_train_step on the graph "
+          f"engine at the train CLI's defaults ({IMAGE}x{IMAGE}, h={TRAIN_H}, "
+          f"B={TRAIN_B}, {PARALLEL_TRAIN_STEPS}-step rollouts, Adam 3e-3, "
+          f"fire_rate 1.0), each iteration against the single-process "
+          f"iteration from the same parameters and Adam state: "
+          + "; ".join(lines)
+          + f" (limits {TRAIN_PARITY_RTOL} of max, {TRAIN_PARAM_LR} learning "
+          f"rates); {res[0]['train']['seconds']:.1f} s | {smi}")
+    if not (worst <= TRAIN_PARITY_RTOL and worst_lr <= TRAIN_PARAM_LR):
+        fail(f"parallel-train: {worst} of max, {worst_lr} learning rates "
+             "from one process")
+    phase("parallel-ranks", t0, f"{PARALLEL_RANKS} ranks over gloo on one "
+          f"card: {spawn_s:.1f} s for the spawn and the five phases | {smi}")
+
+    # [parallel-nccl]
+    t0 = time.time()
+    k = min(torch.cuda.device_count(), 4)
+    nres = run_ranks(nccl_rank, k, inp["bench"], dev.type, device=dev.type,
+                     backend="nccl", timeout=300)
+    gap = max(_gap(x["final"], ref["band"]) for x in nres)
+    launches["parallel-nccl"] = nres[0]["launches"]
+    gaps_by_path["parallel-nccl"] = gap
+    phase("parallel-nccl", t0, f"the [parallel-band] check rollout over NCCL "
+          f"on {nres[0]['ranks']} rank(s), one a card "
+          f"({', '.join(x['device'] for x in nres)}): {gap:.3e} of max "
+          f"against the unsharded rollout (limit {ROLLOUT_ATOL}), "
+          f"{nres[0]['ms_step']:.3f} ms a step (float32 MLP), a rank sent "
+          f"{nres[0]['stats']['sent_bytes']} B, staged "
+          f"{nres[0]['stats']['staged_bytes']} B | {smi}")
+    if not gap <= ROLLOUT_ATOL:
+        fail(f"parallel-nccl: {gap} against the unsharded rollout")
+    return launches, gaps_by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5110,41 +6110,15 @@ def main() -> int:
              train_launches["sph_mlp_kernel"]),
             ("gecko", mlp_shapes["gecko"], torch.bfloat16,
              batched_launches["sph_mlp_kernel"])):
-        args = mlp_inputs(dev, dtype, 33, lead, seed=11)
-        S_m, ga_m, w1k, b1, w2, b2 = args
-        X = torch.cat([S_m, ga_m], -1).reshape(-1, 48)
-        library = mlp_library(args)
-        lib_err = float((library() - torch.cat(
-            [o.reshape(X.shape[0], -1) for o in MK.mlp_ref(*args)], -1)
-        ).abs().max())
-        ms = device_ms(lambda: MK.mlp_forward(*args), "sph_mlp_kernel")
-        plain_ms = device_ms(lambda: MK.mlp_ref(*args))
-        lib_ms = device_ms(library)
-        n = X.shape[0]
-        nbytes, ops = work_mlp(n, w1k.shape[1], 33, S_m.element_size())
-        # the route the kernel takes: on the tensor cores, 3 TF32 products
-        # for float32 inputs, one bf16 product for bfloat16
-        tc_ops, peak = ((ops, BF16_FLOPS) if dtype == torch.bfloat16
-                        else (3 * ops, TF32_FLOPS))
-        bound_ms, bound_by = bound(nbytes, tc_ops, peak)
-        core_ms, _ = bound(nbytes, ops, FP32_FLOPS)
-        print(f"  sph_mlp_kernel at the {label} shapes ({n} items, "
-              f"{str(dtype)[6:]} inputs, gated, hid {w1k.shape[1]}): "
-              f"{ms:.4f} ms device time, plain {plain_ms:.4f} ms, library "
-              f"chain {lib_ms:.4f} ms (max abs {lib_err:.3e} from mlp_ref), "
-              f"bound {bound_ms:.4f} ms by {bound_by} on the tensor cores "
-              f"({100 * bound_ms / ms:.1f}% of it; {nbytes / 1e6:.2f} MB, "
-              f"{tc_ops / 1e9:.3f} G operations at {peak / 1e12:.0f} "
-              f"TFLOP/s; {core_ms:.4f} ms counting {ops / 1e9:.3f} G fp32 "
-              "operations on the CUDA cores)", flush=True)
+        t = mlp_times(dev, lead, dtype)
+        print(f"  {mlp_times_line(label, lead, dtype, t)}", flush=True)
         mlp_rows[label] = {
             "shapes": f"{label} {tuple(lead)} {str(dtype)[6:]} inputs",
             "launches": launches,
             "launches_path": "train" if label == "train" else "batched",
-            "max_abs_err": mlp_errs[(label, dtype)], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": lib_ms}
-        del args, X
+            "max_abs_err": mlp_errs[(label, dtype)],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
     mlp_row = {"name": "sph_mlp_kernel", "route": "cuda",
                "source": "sph_nca_tpu_torch/csrc/mlp_kernel.cu",
                "replaces": "sph_nca_tpu/ops/pallas/mlp_kernel.py:48",
@@ -5191,7 +6165,7 @@ def main() -> int:
 
     # ---- the band engine: both CLIs' default, the trainer, the bench ------
     bengines = band_build_phase(dev, smi)
-    band_mlp_errs = band_mlp_phase(dev, smi, bengines)
+    band_mlp_errs, band_mlp_times = band_mlp_phase(dev, smi, bengines)
     band = {"band-train": band_train_phase(dev, smi, bengines["train"], x2),
             "band-inference": band_inference_phase(dev, smi, model, x),
             "band-bench": band_bench_phase(dev, rng, smi, bengines["bench"],
@@ -5210,6 +6184,7 @@ def main() -> int:
         texture.update({f"texture-cli {label}": c
                         for label, c in cli_counts.items()})
         tex_errs = texture_kernels_phase(dev, smi, ck, final)
+    texture_resume_phase(dev, smi)
     texture["texture-eval"] = {"sph_mlp_kernel": texture_eval_phase(dev, smi)}
     texture["eval"] = {"sph_mlp_kernel": eval_phase(dev, smi)}
     if "--profile" in sys.argv[1:]:
@@ -5224,6 +6199,9 @@ def main() -> int:
 
     # ---- the graph engine: the oracle tier, no kernel of the port ---------
     graph_phases(dev, smi, alive)
+
+    # ---- the sharded paths: ranks sharing the card, then NCCL ---------------
+    par_launches, par_gaps = parallel_phases(dev, smi)
 
     kernels = rows + rows_tab + [mlp_row]
     # the texture paths' launches, by path
@@ -5256,7 +6234,7 @@ def main() -> int:
             row["bench"] = bench[name]
         if name == "sph_mlp_kernel":
             # the band paths run no pair-table kernel: 2.8 is their kernel
-            row["band"] = {"launches": band,
+            row["band"] = {"launches": band, "times": band_mlp_times,
                            "launches_path": ", ".join(band),
                            "max_abs_err": {
                                f"{label} {str(dtype)[6:]}": err
@@ -5274,6 +6252,20 @@ def main() -> int:
                if not clip_launches["clip-train cells"][name]]
     if missing:
         fail(f"the CLIP cell-engine run launched no {missing}")
+    # the sharded paths' launches a rank and their gaps from the unsharded
+    # twins, by path
+    for row in kernels:
+        counts = {path: c[row["name"]] for path, c in par_launches.items()
+                  if c.get(row["name"], 0)}
+        if counts:
+            row["parallel"] = {"launches": counts,
+                               "launches_path": ", ".join(counts),
+                               "max_abs_err": {path: par_gaps[path]
+                                               for path in counts}}
+    missing = [row["name"] for row in kernels if "parallel" not in row
+               and row["name"] != "sph_blur_tab_kernel"]
+    if missing:
+        fail(f"the sharded paths launched no {missing}")
     if len(kernels) != 8:
         fail(f"the kernels line has {len(kernels)} rows, expected 8")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 """NCA step and rollouts over the cell-dense and band engines (single device).
 
-Counterpart of ``sph_nca_tpu/models/cell_step.py`` (``use_pallas=True``, no
-mesh, one shard). Perception and both life masks go through the pair-pass
+Counterpart of ``sph_nca_tpu/models/cell_step.py`` (``use_pallas=True``).
+Perception and both life masks go through the pair-pass
 kernels of ``ops/pair_kernel.py`` (the table kernels when the engine has pair
 tables); the update MLP is plain PyTorch. ``nca_step_cells`` takes a
 ``perception_transform`` (the surface rollout's tangent projection), which
@@ -9,6 +9,15 @@ reads the gradient in the [..., C, M, F, D] layout, as the JAX step's
 non-d-major branch does. The step and ``rollout_cells`` are differentiable in
 the parameters and the state (perception's backward is the gradient-adjoint
 kernel); ``rollout_states_cells`` is inference only.
+
+Multi-rank: on this rank's shard of an engine built with ``n_shards`` = the
+particle axis (``parallel.mesh.shard_cell_engine``), every step and rollout
+here runs on the rank's cells: the passes go through the engine seam of
+``ops/batched.py``, which hands a shard its own passes (the kernels on its
+blocks, the windows' rows gathered over the particle group,
+``parallel/cell_shard.py``), and the fire draws are the whole engine's with
+the rank's cells kept (``ops.batched.fire_draws``), so the ranks draw what
+the whole engine draws on one device from the same generator.
 
 States carry an optional leading batch axis: S [B, C, M, F] runs B samples on
 one geometry, each kernel launching once per bucket for the whole batch (the
@@ -44,7 +53,6 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import batched as BT
 from ..ops.cells import CellEngine
 from ..ops.mlp_kernel import mlp_fused
-from ..ops.pair_kernel import mask_blur, perceive_cells, perceive_cells_dmajor
 from .nca import ALIVE_THRESHOLD, MLPParams, SPHNCAConfig, apply_mlp
 
 # Recompute each step in the backward instead of keeping its activations
@@ -70,20 +78,17 @@ def _step(params: MLPParams, cfg: SPHNCAConfig, eng: CellEngine,
     c = cfg.channels
     f = S.shape[-1]
 
+    # the kernel's d-major [..., C, M, D*F] layout is the feature concat
+    # order (gA_x block, then gA_y; a z block in 3D is dropped)
+    gA_dm, pre_sm = BT.perceive_samples(eng, S, cfg.use_alpha,
+                                        use_kernels=use_kernels)
+    if cfg.normalize_perception > 0:
+        gA_dm = h * gA_dm * cfg.normalize_perception
     if perception_transform is None:
-        # the kernel's d-major [..., C, M, D*F] layout is the feature concat
-        # order (gA_x block, then gA_y; a z block in 3D is dropped)
-        gA_dm, pre_sm = perceive_cells_dmajor(eng, S, cfg.use_alpha,
-                                              use_kernels=use_kernels)
-        if cfg.normalize_perception > 0:
-            gA_dm = h * gA_dm * cfg.normalize_perception
         y = torch.cat([S, gA_dm[..., : 2 * f]], dim=-1)
     else:
-        gA, pre_sm = perceive_cells(eng, S, cfg.use_alpha,
-                                    use_kernels=use_kernels)
-        if cfg.normalize_perception > 0:
-            gA = h * gA * cfg.normalize_perception
-        gA = perception_transform(gA)
+        gA = perception_transform(
+            gA_dm.unflatten(-1, (-1, f)).transpose(-2, -1))
         y = torch.cat([S, gA[..., 0], gA[..., 1]], dim=-1)
     prev_mask = pre_sm > ALIVE_THRESHOLD
     dA = apply_mlp(params, y)
@@ -101,8 +106,8 @@ def _step(params: MLPParams, cfg: SPHNCAConfig, eng: CellEngine,
     nS = torch.where((u <= fire_rate)[..., None], nS, S)
 
     # the life masks are stop-gradient (thresholded blurs)
-    new_sm = mask_blur(eng, nS.detach(), use_alpha=cfg.use_alpha,
-                       use_kernels=use_kernels)
+    new_sm = BT.mask_blur_samples(eng, nS.detach(), cfg.use_alpha,
+                                  use_kernels=use_kernels)
     living = (prev_mask & (new_sm > ALIVE_THRESHOLD)).to(nS.dtype)
     return nS * living[..., None]
 
@@ -123,11 +128,12 @@ def nca_step_cells(
     ``use_kernels=False`` runs the kernels' plain versions on any device.
     ``perception_transform`` maps the scaled gradient gA [..., C, M, F, D]
     to the features [..., C, M, F, >= 2] whose first two components feed the
-    MLP (the surface rollout's tangent projection).
+    MLP (the surface rollout's tangent projection). On a rank's shard of
+    an engine, S [..., C/k, M, F] is its cells (the module docstring).
     """
     if fire_rate is None:
         fire_rate = cfg.fire_rate
-    u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
+    u = BT.fire_draws(eng, S, generator)
     return _step(params, cfg, eng, S, u, h, fire_rate, use_kernels,
                  perception_transform)
 
@@ -145,7 +151,8 @@ def rollout_cells(
     collect_steps: Optional[Sequence[int]] = None,
     use_kernels: bool = True,
 ):
-    """``n_steps`` steps in cell layout from S0 [..., C, M, F].
+    """``n_steps`` steps in cell layout from S0 [..., C, M, F] (a rank's
+    cells on its shard, as ``nca_step_cells``).
 
     Returns the final state or, with ``collect_steps``, (final, collected):
     collected [len(collect_steps), ..., C, M, F] holds the state after step
@@ -168,7 +175,7 @@ def rollout_cells(
 
     S = S0
     for t in range(n_steps):
-        u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
+        u = BT.fire_draws(eng, S, generator)
         if remat:
             S = checkpoint(step, S, u, use_reentrant=False,
                            preserve_rng_state=False)
@@ -325,7 +332,7 @@ def nca_step_cells_batched(
     if fire_rate is None:
         fire_rate = cfg.fire_rate
     S = BT.to_samples(SB, b)
-    u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
+    u = BT.fire_draws(eng, S, generator)
     weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
     transform = None
     if perception_transform is not None:
@@ -386,7 +393,7 @@ def rollout_cells_batched(
 
     buf = [S] * len(collect)
     for t in range(max_steps):
-        u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
+        u = BT.fire_draws(eng, S, generator)
         if remat:
             nS = checkpoint(step, S, u, use_reentrant=False,
                             preserve_rng_state=False)

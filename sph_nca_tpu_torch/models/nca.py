@@ -184,13 +184,18 @@ def _alive_lanes(X: torch.Tensor, b: Optional[int], c: int,
 
 def _graph_step(params: MLPParams, cfg: SPHNCAConfig, graph: SPHGraph,
                 A: torch.Tensor, u: torch.Tensor, h, fire_rate: float,
-                perception_transform=None) -> torch.Tensor:
+                perception_transform=None, exchange=None) -> torch.Tensor:
     """One step given the fire draws u [..., N] (uniform in [0, 1)): the
     state is gathered once for the perception and the pre-update life mask,
-    and only the alive column is gathered for the post-update mask."""
+    and only the alive column is gathered for the post-update mask.
+
+    ``exchange`` maps this process's lanes [n, L] to the lanes [N, L] the
+    graph's indices read (a rank's rows of a sharded graph gather every
+    rank's, ``parallel/shard.py``); by default the graph holds every row."""
     c = cfg.channels
+    full = exchange or (lambda t: t)
     X, b = to_lanes(A)  # [N, L]
-    Xj = gather_rows(X, graph.idx)  # [N, K, L]
+    Xj = gather_rows(full(X), graph.idx)  # [N, K, L]
     pre = blur_lanes(graph, _alive_lanes(Xj, b, c, cfg.use_alpha))
     gA = from_lanes(gradient_lanes(graph, X, Xj), b)  # [..., N, C, D]
     dA = apply_mlp(params, _features(cfg, A, gA, h, perception_transform))
@@ -208,7 +213,7 @@ def _graph_step(params: MLPParams, cfg: SPHNCAConfig, graph: SPHGraph,
 
     nX, _ = to_lanes(nA)
     post = blur_lanes(graph, gather_rows(
-        _alive_lanes(nX, b, c, cfg.use_alpha), graph.idx))
+        full(_alive_lanes(nX, b, c, cfg.use_alpha)), graph.idx))
     living = (pre > ALIVE_THRESHOLD) & (post > ALIVE_THRESHOLD)  # [N, B|1]
     living = living[:, 0] if b is None else living.T
     return nA * living[..., None].to(nA.dtype)

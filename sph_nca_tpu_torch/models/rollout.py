@@ -55,6 +55,7 @@ def rollout(
     perception_transform: Optional[PerceptionTransform] = None,
     collect_steps: Optional[Sequence[int]] = None,
     remat: bool = True,
+    exchange=None,
 ) -> RolloutOut:
     """Up to ``max_steps`` steps from A0 [N, C] or [B, N, C].
 
@@ -62,7 +63,8 @@ def rollout(
     is made). ``collect_steps``: state indices in [0, max_steps] (0 = A0,
     k = the state after k steps) to keep, returned as ``collected``
     [S, ..., N, C]. With ``remat`` each step is recomputed in the backward
-    when a gradient is needed.
+    when a gradient is needed. ``exchange`` as in ``models.nca._graph_step``
+    (a rank's rows of a sharded graph).
     """
     if fire_rate is None:
         fire_rate = cfg.fire_rate
@@ -75,7 +77,7 @@ def rollout(
 
     def step(A, u):
         return _graph_step(params, cfg, graph, A, u, h, fire_rate,
-                           perception_transform)
+                           perception_transform, exchange)
 
     A = A0
     buf = [A0] * len(collect)

@@ -131,6 +131,17 @@ class BandEngine:
         return (self.Tband.numel() * self.Tband.element_size(),
                 sum(t.numel() * t.element_size() for t in self.far_tabs))
 
+    # -- the pair passes' window rows (a rank's shard, parallel/
+    # band_shard.py, exchanges the rows of other shards here) --------------
+
+    def window_rows(self, X: torch.Tensor) -> torch.Tensor:
+        """The band windows of X [nb, P, L]: [nb, 3P, L]."""
+        return band_window(X)
+
+    def far_rows(self, X: torch.Tensor) -> torch.Tensor:
+        """The rows the far groups index, X [nb, P, L] -> [nb*P/g, g*L]."""
+        return X.reshape(-1, self.far_group_size * X.shape[-1])
+
     def to(self, device) -> "BandEngine":
         """The same engine with every tensor on ``device``."""
         dev = torch.device(device)
@@ -204,40 +215,33 @@ def _pair_dot(T: torch.Tensor, W: torch.Tensor,
     return out if out_dtype == torch.float32 else out.to(out_dtype)
 
 
-def _far_window(eng: BandEngine, Xflat: torch.Tensor,
-                t: int) -> torch.Tensor:
-    """Far window states of bucket t: [R, L] -> [nbt, Wt*g, L], one gather
-    of g-row groups."""
-    grp = eng.far_groups[t]
-    g = eng.far_group_size
-    nbt, wt = grp.shape
-    L = Xflat.shape[-1]
-    return Xflat.reshape(-1, g * L)[grp].reshape(nbt, wt * g, L)
-
-
-def _add_far(eng: BandEngine, out: torch.Tensor, outs) -> torch.Tensor:
+def _add_far(eng, out: torch.Tensor, outs) -> torch.Tensor:
     """The band output [nb, C, L] plus the far buckets' outputs [nbt, C, L]
     in block order: the buckets' rows and zero rows for the blocks without
     far groups, concatenated and permuted by ``far_perm`` (the JAX
     package's combine: a few launches, not one a bucket)."""
     n_far = sum(o.shape[0] for o in outs)
     parts = list(outs)
-    if n_far < out.shape[0]:
-        parts.append(out.new_zeros((out.shape[0] - n_far,) + out.shape[1:]))
+    parts.append(out.new_zeros((max(out.shape[0] - n_far, 1),)
+                               + out.shape[1:]))
     return out + torch.cat(parts)[eng.far_perm]
 
 
-def _pass(eng: BandEngine, X: torch.Tensor, cols: slice,
+def _pass(eng, X: torch.Tensor, cols: slice,
           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One pair pass over the table columns ``cols``: [nb, P, L] -> [nb,
-    len(cols), L], band and far parts."""
+    len(cols), L], band and far parts. The windows' rows come from the
+    engine: ``window_rows`` for the band, ``far_rows`` for the far groups,
+    one gather a bucket (a rank's shard of the engine brings other shards'
+    rows in there)."""
     X = X.to(eng.Tband.dtype)
-    out = _pair_dot(eng.Tband[:, :, cols], band_window(X), out_dtype)
-    if eng.far_blocks:
-        Xflat = X.reshape(-1, X.shape[-1])
+    out = _pair_dot(eng.Tband[:, :, cols], eng.window_rows(X), out_dtype)
+    if eng.far_tabs:
+        src, L = eng.far_rows(X), X.shape[-1]
         out = _add_far(eng, out, [
-            _pair_dot(tab[:, :, cols], _far_window(eng, Xflat, t), out_dtype)
-            for t, tab in enumerate(eng.far_tabs)])
+            _pair_dot(tab[:, :, cols], src[grp].reshape(grp.shape[0], -1, L),
+                      out_dtype)
+            for grp, tab in zip(eng.far_groups, eng.far_tabs)])
     return out
 
 
@@ -327,20 +331,8 @@ def perceive_band_samples(eng: BandEngine, S: torch.Tensor,
     b, nb, p, f = S.shape
     d = eng.dim
     odt = _dtype(out_dtype)
-    md, w6 = slice(0, d * p), slice(d * p, None)
-    Xc = _to_lanes(S, eng.Tband.dtype)
-    acol = _alive_samples(eng, S, use_alpha)
-    mom = _pair_dot(eng.Tband[:, :, md], band_window(Xc), odt)
-    sm = _pair_dot(eng.Tband[:, :, w6], band_window(acol))
-    if eng.far_blocks:
-        Xflat = Xc.reshape(-1, Xc.shape[-1])
-        aflat = acol.reshape(-1, acol.shape[-1])
-        mom = _add_far(eng, mom, [
-            _pair_dot(tab[:, :, md], _far_window(eng, Xflat, t), odt)
-            for t, tab in enumerate(eng.far_tabs)])
-        sm = _add_far(eng, sm, [
-            _pair_dot(tab[:, :, w6], _far_window(eng, aflat, t))
-            for t, tab in enumerate(eng.far_tabs)])
+    mom = _pass(eng, _to_lanes(S, eng.Tband.dtype), slice(0, d * p), odt)
+    sm = _pass(eng, _alive_samples(eng, S, use_alpha), slice(d * p, None))
     Xo = S.to(odt) if out_dtype else S
     gs = eng.gsum.to(odt)
     mom = mom.view(nb, d, p, b, f).permute(3, 0, 2, 1, 4)  # [B, nb, P, D, F]

@@ -17,7 +17,10 @@ The batched rollouts (``models/cell_step.py``, ``models/surface.py``) step in
 [B, C, M, F] and reach the pair passes through the engine seam
 ``perceive_samples``, ``mask_blur_samples`` and ``blur_samples``: on a
 ``CellEngine`` the functions of ``ops/pair_kernel.py`` unchanged, on a
-``BandEngine`` those of ``ops/bands.py``.
+``BandEngine`` those of ``ops/bands.py``, and on a rank's shard of either
+(``parallel/cell_shard.CellShard``, ``parallel/band_shard.BandShardEngine``)
+the shard's own passes, which exchange the windows' rows over its particle
+group.
 
 Every function raises for a cell engine built without pair tables, as the
 JAX package's do. Left out: the TPU layout knobs ``block_chunks`` and
@@ -43,13 +46,17 @@ import torch
 
 from . import bands as BD
 from .bands import BandEngine
+from .cells import CellEngine
 from .pair_kernel import blur_cells, mask_blur, perceive_cells_dmajor
 
 
 def has_tables(eng) -> bool:
-    """Whether the engine takes the batched-lane path: a band engine (its
-    tables are the engine), or a cell engine built with pair tables."""
-    return isinstance(eng, BandEngine) or eng.blk_md is not None
+    """Whether the engine takes the batched-lane path: a band engine or a
+    rank's shard of one (its tables are the engine), or a cell engine (or a
+    rank's shard of one) built with pair tables."""
+    if hasattr(eng, "blk_md"):
+        return eng.blk_md is not None
+    return True
 
 
 def require_tables(eng) -> None:
@@ -58,9 +65,11 @@ def require_tables(eng) -> None:
 
 
 def has_w6(eng) -> bool:
-    """Whether the engine can blur: a band engine, or a cell engine with its
-    poly6 table."""
-    return isinstance(eng, BandEngine) or eng.blk_w6 is not None
+    """Whether the engine can blur: a band engine (or a rank's shard of
+    one), or a cell engine (or shard) with its poly6 table."""
+    if hasattr(eng, "blk_w6"):
+        return eng.blk_w6 is not None
+    return True
 
 
 def batched_scatter(eng, A: torch.Tensor) -> torch.Tensor:
@@ -121,7 +130,11 @@ def perceive_samples(eng, S: torch.Tensor, use_alpha: bool = True, *,
     (``out_dtype`` rounds its gradient)."""
     if isinstance(eng, BandEngine):
         return BD.perceive_band_samples(eng, S, use_alpha, out_dtype)
-    return perceive_cells_dmajor(eng, S, use_alpha, use_kernels=use_kernels)
+    if isinstance(eng, CellEngine):
+        return perceive_cells_dmajor(eng, S, use_alpha,
+                                     use_kernels=use_kernels)
+    return eng.perceive_samples(S, use_alpha, out_dtype=out_dtype,
+                                use_kernels=use_kernels)
 
 
 def mask_blur_samples(eng, S: torch.Tensor, use_alpha: bool = True, *,
@@ -130,7 +143,10 @@ def mask_blur_samples(eng, S: torch.Tensor, use_alpha: bool = True, *,
     thresholds)."""
     if isinstance(eng, BandEngine):
         return BD.mask_blur_band_samples(eng, S, use_alpha)
-    return mask_blur(eng, S, use_alpha=use_alpha, use_kernels=use_kernels)
+    if isinstance(eng, CellEngine):
+        return mask_blur(eng, S, use_alpha=use_alpha,
+                         use_kernels=use_kernels)
+    return eng.mask_blur_samples(S, use_alpha, use_kernels=use_kernels)
 
 
 def blur_samples(eng, X: torch.Tensor, *,
@@ -139,7 +155,26 @@ def blur_samples(eng, X: torch.Tensor, *,
     engine's smoothing table (kernel 2.7 on a cell engine, K = 4)."""
     if isinstance(eng, BandEngine):
         return BD.blur_band_samples(eng, X)
-    return blur_cells(eng, X, use_kernels=use_kernels)
+    if isinstance(eng, CellEngine):
+        return blur_cells(eng, X, use_kernels=use_kernels)
+    return eng.blur_samples(X, use_kernels=use_kernels)
+
+
+def fire_draws(eng, S: torch.Tensor, generator: torch.Generator
+               ) -> torch.Tensor:
+    """The fire draws u [..., C, M] of states S [..., C, M, F], uniform in
+    [0, 1) from ``generator``. A rank's shard of an engine (its
+    ``shard_cells``: its first cell, the whole engine's cells) draws the
+    whole engine's and keeps its own cells, so the ranks draw what the
+    whole engine draws on one device from the same generator, and no two
+    shards draw alike."""
+    part = getattr(eng, "shard_cells", None)
+    if part is None:
+        return torch.rand(S.shape[:-1], generator=generator, device=S.device)
+    first, total = part
+    u = torch.rand(S.shape[:-3] + (total, S.shape[-2]), generator=generator,
+                   device=S.device)
+    return u.narrow(-2, first, S.shape[-3])
 
 
 # ---- the lane-layout API (the JAX package's) ------------------------------

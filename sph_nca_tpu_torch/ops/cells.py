@@ -1,8 +1,8 @@
 """Cell-dense SPH engine: the layout the pair-pass kernels run over.
 
-Counterpart of ``sph_nca_tpu/ops/cells.py`` for ``n_shards=1`` and
-``xla_tables=False``. Particles live in a cell-dense layout S [C, M, F]: one row
-block per occupied SUBCELL (fat cells split into M=8-slot subcells),
+Counterpart of ``sph_nca_tpu/ops/cells.py`` with ``xla_tables=False``.
+Particles live in a cell-dense layout S [C, M, F]: one row block per
+occupied SUBCELL (fat cells split into M=8-slot subcells),
 Morton-ordered then regrouped by window size. Padded slots sit at PAD_POS, so
 every kernel weight against them is exactly 0.
 
@@ -10,6 +10,16 @@ The pair kernels process one BLOCK of BG=8 consecutive subcells per program
 against the union of their stencil windows ([BG*M, Wu*M] pair tiles). Blocks
 come in two buckets sorted by union-window size (``blk_*``: the first ~75% at a
 tight width, ``blk2_*``: the tail at the max width).
+
+``n_shards`` > 1 lays the engine out for particle-axis sharding: the cell
+count is padded to a multiple of 16 * n_shards, the blocks split into
+``n_shards`` contiguous Morton ranges, and the window-size sort and the
+bucket split run within each range with equal bucket sizes. Bucket rows are
+then shard-major ([shard 0's bucket blocks, shard 1's, ...]) and each
+shard's own cells are [its bucket-1 blocks | its bucket-2 blocks]; the
+engine records ``n_shards`` so that ``ops/pair_kernel.py`` splits and
+merges rows in that order, and ``parallel/cell_shard.py`` gives each rank
+its shard.
 
 The build runs in numpy on the host, exactly as the JAX build does, and the
 results move to the device at the end. Integer layouts equal the JAX build's.
@@ -82,6 +92,8 @@ class CellEngine:
     blk_w6: Optional[torch.Tensor] = None  # [nb1, P, Wu1*M]
     blk2_md: Optional[torch.Tensor] = None  # [nb2, D*P, Wu*M]
     blk2_w6: Optional[torch.Tensor] = None  # [nb2, P, Wu*M]
+    # the shard count the layout was built for (bucket rows shard-major)
+    n_shards: int = 1
 
     @property
     def device(self) -> torch.device:
@@ -199,18 +211,19 @@ def build_cell_engine(
     gradient_kernel: str = "spiky",
     pair_tables: Optional[str] = None,
     w6_only: bool = False,
+    n_shards: int = 1,
     device="cuda",
 ) -> CellEngine:
     """Build the engine for concrete positions ``x`` [N, D] (host-side,
     one-time), then move it to ``device``.
 
     Same layout as ``sph_nca_tpu.ops.cells.build_cell_engine(x, h,
-    period=..., n_shards=1, xla_tables=False, pair_tables=...)`` with its
+    period=..., n_shards=..., xla_tables=False, pair_tables=...)`` with its
     default capacities (M = 8 slots per subcell, the cell count padded to a
-    multiple of 16). Cells are keyed by their true floor coordinates; for
-    periodic domains cells tile the period exactly (cell_size_d = period_d /
-    floor(period_d / h)) and window copies of wrapped cells carry a
-    whole-period shift.
+    multiple of 16 * n_shards). Cells are keyed by their true floor
+    coordinates; for periodic domains cells tile the period exactly
+    (cell_size_d = period_d / floor(period_d / h)) and window copies of
+    wrapped cells carry a whole-period shift.
 
     ``pair_tables``: None (the kernels recompute the pair weights every
     pass), "float32" or "bfloat16" (store them once per block; the pair
@@ -219,6 +232,10 @@ def build_cell_engine(
     what the mask and the blur read. Such an engine serves a blur at another
     radius (the surface rollout's tangent diffusion and seeding); its
     perception would recompute the pair weights.
+
+    ``n_shards`` lays the blocks out for particle-axis sharding (see the
+    module docstring); the pair passes of ``ops/pair_kernel.py`` read the
+    layout from ``eng.n_shards``.
     """
     # the pair kernels and tables hard-wire the poly6 / spiky pair math
     if smoothing != "poly6" or gradient_kernel != "spiky":
@@ -320,9 +337,12 @@ def build_cell_engine(
     )
     wcnt = np.bincount(ent_c, minlength=C)
 
-    # pad the cell count to a multiple of 16 (padding cells have empty
-    # windows and PAD_POS slots)
-    C_pad = int(math.ceil(C / 16)) * 16
+    # pad the cell count to a multiple of 16 * n_shards, so that every
+    # shard holds whole blocks (BG = 8 -> nb a multiple of 2 * n_shards);
+    # padding cells have empty windows and PAD_POS slots
+    n_shards = max(1, int(n_shards))
+    pad_mult = 16 * n_shards
+    C_pad = int(math.ceil(C / pad_mult)) * pad_mult
     if C_pad != C:
         xs = np.concatenate(
             [xs[:C], np.full((C_pad - C, M, d), PAD_POS, np.float32), xs[C:]]
@@ -363,8 +383,13 @@ def build_cell_engine(
     u_total = ent_total[first]
     sizes = np.bincount(u_b, minlength=nb)
 
-    # ---- window-size bucketing: blocks sorted by union size --------------
-    border = np.argsort(sizes, kind="stable")
+    # ---- window-size bucketing: blocks sorted by union size, within each
+    # shard's contiguous Morton range ---------------------------------------
+    nb_loc = nb // n_shards
+    border = np.concatenate([
+        s * nb_loc + np.argsort(sizes[s * nb_loc:(s + 1) * nb_loc],
+                                kind="stable")
+        for s in range(n_shards)])
     old_cells = (border[:, None] * BG + np.arange(BG)).reshape(-1)
     newid = np.empty(C, np.int64)
     newid[old_cells] = np.arange(C)
@@ -379,11 +404,14 @@ def build_cell_engine(
     u_j = newid[u_j]
     sizes = sizes[border]
 
-    # bucket split at ~p75
-    nb1 = int(np.clip(round(0.75 * nb), 1, nb))
-    if sizes[nb1 - 1] == sizes[-1]:
-        nb1 = nb  # no tail to separate
-    Wu1 = max(1, int(sizes[:nb1].max()))
+    # bucket split at ~p75, at the same count in every shard
+    sizes_sh = sizes.reshape(n_shards, nb_loc)
+    nb1_loc = int(np.clip(round(0.75 * nb_loc), 1, nb_loc))
+    if np.all(sizes_sh[:, nb1_loc - 1] == sizes_sh[:, -1]):
+        nb1_loc = nb_loc  # no tail to separate anywhere
+    nb1 = n_shards * nb1_loc
+    b1_idx, b2_idx = bucket_blocks(nb, nb1, n_shards)
+    Wu1 = max(1, int(sizes[b1_idx].max()))
     Wu = max(1, int(sizes.max()))
     if nb1 == nb:
         Wu1 = Wu
@@ -404,14 +432,15 @@ def build_cell_engine(
         nb, BG * M, d
     ).transpose(0, 2, 1)  # [nb, D, P]
 
-    def bucket_arrays(lo, hi, wu):
-        wc = np.ascontiguousarray(blk_win_cells[lo:hi, :wu])
-        bxw = blk_xw_full[lo:hi, :wu].reshape(hi - lo, wu * M, d)
+    def bucket_arrays(idx, wu):
+        wc = np.ascontiguousarray(blk_win_cells[idx, :wu])
+        bxw = blk_xw_full[idx, :wu].reshape(len(idx), wu * M, d)
         return (wc, np.ascontiguousarray(bxw.transpose(0, 2, 1)),
-                np.ascontiguousarray(blk_xs_full[lo:hi]))
+                np.ascontiguousarray(blk_xs_full[idx]))
 
-    win1, xw1, xs1 = bucket_arrays(0, nb1, Wu1)
-    win2, xw2, xs2 = bucket_arrays(nb1, nb, Wu)
+    # bucket rows are shard-major: [shard 0's bucket blocks, shard 1's, ...]
+    win1, xw1, xs1 = bucket_arrays(b1_idx, Wu1)
+    win2, xw2, xs2 = bucket_arrays(b2_idx, Wu)
 
     h32 = np.float32(h)
     sig_w = np.float32(K.poly6_norm(h, d))
@@ -420,20 +449,19 @@ def build_cell_engine(
     # volumes v = 1 / (sigma_W sum_w W(d2)) from the block structures; the
     # union window is a superset of each row's cell window and the extra
     # entries lie beyond h, where W == 0
-    inv_vol = np.concatenate([
-        _blk_vol_rows(xs1, xw1, h32, sig_w),
-        _blk_vol_rows(xs2, xw2, h32, sig_w),
-    ])  # [nb, P] in block order == cell order
+    inv_vol = np.empty((nb, BG * M), np.float32)  # block order == cell order
+    inv_vol[b1_idx] = _blk_vol_rows(xs1, xw1, h32, sig_w)
+    inv_vol[b2_idx] = _blk_vol_rows(xs2, xw2, h32, sig_w)
     pad_slot = (xs[:C] >= PAD_POS / 2).any(-1)  # [C, M]
     v = np.where(inv_vol > 0.0, 1.0 / np.maximum(inv_vol, 1e-30), 0.0)
     vs = np.where(pad_slot, 0.0, v.reshape(C, M)).astype(np.float32)
     vw = vs[win_cells].reshape(C, Wc * M)
     blk_vw = vs[win1].reshape(win1.shape[0], win1.shape[1] * M)
     blk2_vw = vs[win2].reshape(win2.shape[0], win2.shape[1] * M)
-    gsum = np.concatenate([
-        _blk_gsum_rows(xs1, xw1, blk_vw, h32, sig_g),
-        _blk_gsum_rows(xs2, xw2, blk2_vw, h32, sig_g),
-    ]).reshape(C, M, d)
+    gsum = np.empty((nb, BG * M, d), np.float32)
+    gsum[b1_idx] = _blk_gsum_rows(xs1, xw1, blk_vw, h32, sig_g)
+    gsum[b2_idx] = _blk_gsum_rows(xs2, xw2, blk2_vw, h32, sig_g)
+    gsum = gsum.reshape(C, M, d)
     gsum = np.where(pad_slot[..., None], np.float32(0.0), gsum)
 
     def t(a, dtype=torch.float32):
@@ -459,6 +487,7 @@ def build_cell_engine(
         h=float(h32),
         sig_w=float(sig_w),
         sig_g=float(sig_g),
+        n_shards=n_shards,
     )
     if w6_only and pair_tables is None:
         raise ValueError("w6_only needs pair_tables")
@@ -466,6 +495,15 @@ def build_cell_engine(
         eng = _build_pair_tables(eng, getattr(torch, pair_tables),
                                  md=not w6_only)
     return eng
+
+
+def bucket_blocks(nb: int, nb1: int, n_shards: int):
+    """Block ids of the two window-size buckets, in bucket-row order: each
+    shard's first nb1 / n_shards blocks are bucket 1, the rest bucket 2,
+    shard-major."""
+    nb_loc, nb1_loc = nb // n_shards, nb1 // n_shards
+    blocks = np.arange(nb).reshape(n_shards, nb_loc)
+    return blocks[:, :nb1_loc].reshape(-1), blocks[:, nb1_loc:].reshape(-1)
 
 
 def _blk_vol_rows(xs_b: np.ndarray, xw_b: np.ndarray, h, sig_w,
@@ -588,11 +626,15 @@ def _build_pair_tables(eng: CellEngine, dtype: torch.dtype,
         return torch.cat(mds), torch.cat(w6s), torch.cat(gss)
 
     real = (eng.vs > 0).reshape(-1, p).cpu().numpy()
-    nb1 = eng.blk_xs.shape[0]
-    md1, w61, gs1 = run(eng.blk_xs, eng.blk_xw, eng.blk_vw, real[:nb1])
-    md2, w62, gs2 = run(eng.blk2_xs, eng.blk2_xw, eng.blk2_vw, real[nb1:])
+    nb = real.shape[0]
+    b1_idx, b2_idx = bucket_blocks(nb, eng.blk_xs.shape[0], eng.n_shards)
+    md1, w61, gs1 = run(eng.blk_xs, eng.blk_xw, eng.blk_vw, real[b1_idx])
+    md2, w62, gs2 = run(eng.blk2_xs, eng.blk2_xw, eng.blk2_vw, real[b2_idx])
     if not md:
         return dataclasses.replace(eng, blk_w6=w61, blk2_w6=w62)
-    gsum = torch.cat([gs1, gs2]).reshape(c, m, d).contiguous()
+    gsum = gs1.new_empty((nb, p, d))
+    gsum[torch.as_tensor(b1_idx, device=gsum.device)] = gs1
+    gsum[torch.as_tensor(b2_idx, device=gsum.device)] = gs2
+    gsum = gsum.reshape(c, m, d).contiguous()
     return dataclasses.replace(eng, blk_md=md1, blk_w6=w61, blk2_md=md2,
                                blk2_w6=w62, gsum=gsum)

@@ -1,9 +1,13 @@
 """The cell engine's SPH pair pass: fused perception, its adjoint, the
 life-mask blur and the table blur.
 
-Counterpart of ``sph_nca_tpu/ops/pallas/pair_kernel.py`` (one shard). Each
-pass runs once per window-size bucket of the engine (see ``ops/cells.py``)
-over blocks of P = 64 rows and their union window.
+Counterpart of ``sph_nca_tpu/ops/pallas/pair_kernel.py``. Each pass runs
+once per window-size bucket of the engine (see ``ops/cells.py``) over blocks
+of P = 64 rows and their union window. An engine built with ``n_shards`` > 1
+keeps its bucket rows shard-major; the entry points below split and merge
+rows in that order (``split_rows`` / ``merge_rows``), so one device runs it
+as it runs an unsharded one (``parallel/cell_shard.py`` runs each shard on
+its own rank).
 
 Recompute kernels (engines built without pair tables), each with its plain
 PyTorch version beside it:
@@ -81,18 +85,34 @@ def window_from_flat(flat: torch.Tensor, win_cells: torch.Tensor,
         lead + (nb, wu * m, flat.shape[-1] // m))
 
 
-def split_rows(arr: torch.Tensor, nb1: int, dim: int = 0):
-    """Block-major rows -> (bucket-1 rows, bucket-2 rows), split on the
-    block axis ``dim`` (views)."""
-    return arr.narrow(dim, 0, nb1), arr.narrow(dim, nb1, arr.shape[dim] - nb1)
+def split_rows(arr: torch.Tensor, nb1: int, dim: int = 0, shards: int = 1):
+    """Block-major rows laid out shard-major, [b1 | b2] within each shard
+    (``ops/cells.py``) -> (bucket-1 rows, bucket-2 rows), each shard-major,
+    split on the block axis ``dim``. For one shard these are views; for
+    more, contiguous copies."""
+    if shards == 1:
+        return (arr.narrow(dim, 0, nb1),
+                arr.narrow(dim, nb1, arr.shape[dim] - nb1))
+    dim %= arr.dim()
+    nb = arr.shape[dim]
+    a = arr.unflatten(dim, (shards, nb // shards))
+    nb1_loc = nb1 // shards
+    return (a.narrow(dim + 1, 0, nb1_loc).flatten(dim, dim + 1),
+            a.narrow(dim + 1, nb1_loc, nb // shards - nb1_loc).flatten(
+                dim, dim + 1))
 
 
-def merge_rows(r1: torch.Tensor, r2: torch.Tensor,
-               dim: int = 0) -> torch.Tensor:
+def merge_rows(r1: torch.Tensor, r2: torch.Tensor, dim: int = 0,
+               shards: int = 1) -> torch.Tensor:
     """Inverse of split_rows."""
     if r2.shape[dim] == 0:
         return r1
-    return torch.cat([r1, r2], dim=dim)
+    if shards == 1:
+        return torch.cat([r1, r2], dim=dim)
+    dim %= r1.dim()
+    out = torch.cat([r1.unflatten(dim, (shards, -1)),
+                     r2.unflatten(dim, (shards, -1))], dim=dim + 1)
+    return out.flatten(dim, dim + 1)
 
 
 def _spiky_mag(d2: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -695,7 +715,7 @@ blur_bucket.launches = 0
 
 def fused_perception(eng: CellEngine, S: torch.Tensor, *,
                      use_alpha: bool = True, d_major: bool = False,
-                     use_kernels: bool = True):
+                     use_kernels: bool = True, window=None):
     """Fused SPH gradient + life-mask smoothing.
 
     S [..., C, M, F] (at most one leading batch axis) -> (gA [..., C, M, F,
@@ -703,18 +723,23 @@ def fused_perception(eng: CellEngine, S: torch.Tensor, *,
     [..., C, M, D*F] layout (axis-major blocks), which is the NCA
     feature-concat order. ``sm`` is the smoothed alive indicator before the
     threshold. ``use_kernels=False`` runs the plain versions on any device
-    (the reference the kernels are checked against).
+    (the reference the kernels are checked against). ``window`` is the
+    state the windows read through ``win_cells`` when it is not S itself: a
+    rank's shard passes the gathered state there and its own cells as S
+    (``parallel/cell_shard.py``).
     """
     *lead, c, m, f = S.shape
     ddim = eng.xs.shape[-1]
     p = eng.blk_xs.shape[2]
     nb1 = eng.blk_xs.shape[0]
+    k = eng.n_shards
     scal = scal_vec(eng)
     S = S.contiguous()
-    ab1, ab2 = split_rows(S.reshape(*lead, -1, p, f), nb1, dim=-3)
+    ab1, ab2 = split_rows(S.reshape(*lead, -1, p, f), nb1, dim=-3, shards=k)
+    S = S if window is None else window.contiguous()
     if eng.blk_md is not None:
         fwd = fwd_tab_bucket if use_kernels else fwd_tab_bucket_plain
-        gs1, gs2 = split_rows(eng.gsum.reshape(-1, p, ddim), nb1)
+        gs1, gs2 = split_rows(eng.gsum.reshape(-1, p, ddim), nb1, shards=k)
         ga1, sm1 = fwd(scal, ab1, gs1, eng.blk_vw, S, eng.blk_win_cells,
                        eng.blk_md, eng.blk_w6, use_alpha=use_alpha)
         ga2, sm2 = fwd(scal, ab2, gs2, eng.blk2_vw, S, eng.blk2_win_cells,
@@ -725,22 +750,24 @@ def fused_perception(eng: CellEngine, S: torch.Tensor, *,
                        eng.blk_win_cells, use_alpha=use_alpha)
         ga2, sm2 = fwd(scal, eng.blk2_xs, ab2, eng.blk2_xw, eng.blk2_vw, S,
                        eng.blk2_win_cells, use_alpha=use_alpha)
-    ga = merge_rows(ga1, ga2, dim=-3)
-    sm = merge_rows(sm1, sm2, dim=-2).reshape(*lead, c, m)
+    ga = merge_rows(ga1, ga2, dim=-3, shards=k)
+    sm = merge_rows(sm1, sm2, dim=-2, shards=k).reshape(*lead, c, m)
     if d_major:
         return ga.reshape(*lead, c, m, ddim * f), sm
     return ga.reshape(*lead, c, m, ddim, f).transpose(-2, -1), sm
 
 
 def gradient_adjoint_dmajor(eng: CellEngine, gflat: torch.Tensor, *,
-                            use_kernels: bool = True) -> torch.Tensor:
+                            use_kernels: bool = True,
+                            window=None) -> torch.Tensor:
     """dL/dS of the SPH gradient, the cotangent d-major: gflat [..., C, M,
     D*F] -> [..., C, M, F] (at most one leading batch axis), with
     ``eng.gsum`` as the self term (over the md table when the engine has
     one).
 
     The window positions carry the forward's wrap shifts (the bucket arrays
-    hold them); the cotangents themselves are frame-independent.
+    hold them); the cotangents themselves are frame-independent. ``window``
+    as in ``fused_perception``: the cotangent the windows read.
     """
     *lead, c, m, fd = gflat.shape
     ddim = eng.xs.shape[-1]
@@ -749,9 +776,12 @@ def gradient_adjoint_dmajor(eng: CellEngine, gflat: torch.Tensor, *,
     scal = scal_vec(eng)
     gflat = gflat.contiguous()
     nb1 = eng.blk_xs.shape[0]
-    gb1, gb2 = split_rows(gflat.reshape(*lead, -1, p, fd), nb1, dim=-3)
-    vs1, vs2 = split_rows(eng.vs.reshape(-1, p), nb1)
-    gs1, gs2 = split_rows(eng.gsum.reshape(-1, p, ddim), nb1)
+    k = eng.n_shards
+    gb1, gb2 = split_rows(gflat.reshape(*lead, -1, p, fd), nb1, dim=-3,
+                          shards=k)
+    vs1, vs2 = split_rows(eng.vs.reshape(-1, p), nb1, shards=k)
+    gs1, gs2 = split_rows(eng.gsum.reshape(-1, p, ddim), nb1, shards=k)
+    gflat = gflat if window is None else window.contiguous()
     if eng.blk_md is not None:
         bwd = bwd_tab_bucket if use_kernels else bwd_tab_bucket_plain
         da1 = bwd(scal, vs1, gs1, gb1, gflat, eng.blk_win_cells, eng.blk_md)
@@ -763,7 +793,7 @@ def gradient_adjoint_dmajor(eng: CellEngine, gflat: torch.Tensor, *,
                   eng.blk_win_cells)
         da2 = bwd(scal, eng.blk2_xs, vs2, gs2, gb2, eng.blk2_xw, gflat,
                   eng.blk2_win_cells)
-    return merge_rows(da1, da2, dim=-3).reshape(*lead, c, m, f)
+    return merge_rows(da1, da2, dim=-3, shards=k).reshape(*lead, c, m, f)
 
 
 class _PerceiveDmajor(torch.autograd.Function):
@@ -810,10 +840,20 @@ def perceive_cells(eng: CellEngine, S: torch.Tensor, use_alpha: bool = True,
     return ga.reshape(*lead, c, m, ddim, -1).transpose(-2, -1), sm
 
 
+def _block_cells(eng: CellEngine, m: int) -> int:
+    """The cells the engine's blocks cover (all C, or a rank's shard)."""
+    return (eng.blk_xs.shape[0] + eng.blk2_xs.shape[0]) * eng.blk_xs.shape[2] \
+        // m
+
+
 def mask_blur(eng: CellEngine, S: torch.Tensor, *, use_alpha: bool = True,
               use_kernels: bool = True) -> torch.Tensor:
-    """Life-mask smoothing only: S [..., C, M, F] -> sm [..., C, M]."""
-    *lead, c, m, _ = S.shape
+    """Life-mask smoothing only: S [..., C, M, F] -> sm [..., C, M] (the
+    rows of the engine's blocks: a rank's shard reads the gathered state
+    and gives its own cells)."""
+    *lead, _, m, _ = S.shape
+    c = _block_cells(eng, m)
+    k = eng.n_shards
     scal = scal_vec(eng)
     S = S.contiguous()
     if eng.blk_w6 is not None:
@@ -828,7 +868,7 @@ def mask_blur(eng: CellEngine, S: torch.Tensor, *, use_alpha: bool = True,
                    eng.blk_win_cells, use_alpha=use_alpha)
         sm2 = blur(scal, eng.blk2_xs, eng.blk2_xw, eng.blk2_vw, S,
                    eng.blk2_win_cells, use_alpha=use_alpha)
-    return merge_rows(sm1, sm2, dim=-2).reshape(*lead, c, m)
+    return merge_rows(sm1, sm2, dim=-2, shards=k).reshape(*lead, c, m)
 
 
 def blur_cells(eng: CellEngine, X: torch.Tensor, *,
@@ -842,9 +882,11 @@ def blur_cells(eng: CellEngine, X: torch.Tensor, *,
             "blur_cells needs pair tables; rebuild the engine with "
             "build_cell_engine(..., pair_tables='float32'/'bfloat16')")
     blur = blur_bucket if use_kernels else blur_bucket_plain
-    *lead, c, m, f = X.shape
+    *lead, _, m, f = X.shape
+    c = _block_cells(eng, m)
     scal = scal_vec(eng)
     X = X.contiguous()
     o1 = blur(scal, eng.blk_vw, X, eng.blk_win_cells, eng.blk_w6)
     o2 = blur(scal, eng.blk2_vw, X, eng.blk2_win_cells, eng.blk2_w6)
-    return merge_rows(o1, o2, dim=-3).reshape(*lead, c, m, f)
+    return merge_rows(o1, o2, dim=-3, shards=eng.n_shards).reshape(
+        *lead, c, m, f)

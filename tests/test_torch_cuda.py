@@ -1154,3 +1154,100 @@ def test_graph_step_on_card_matches_cpu(cuda):
     want = out["cpu"]
     assert float((out["cuda"].cpu() - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+# ---- the sharded paths on one card ------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", [None, "float32"])
+def test_shard_major_cell_engine_matches_unsharded(cuda, tables):
+    """An engine built with n_shards=2 run on one device (the bucket rows
+    shard-major, split and merged by ``shards``) through its kernels (2.1 /
+    2.2 / 2.3, or 2.4 / 2.5 / 2.6) against the n_shards=1 engine: 3 steps
+    at fire_rate 1 to 1e-4, and the gradient of their loss to 1e-4 of
+    max."""
+    x = np.random.default_rng(1).uniform(-1, 1, (600, 3)).astype(np.float32)
+    cfg = SPHNCAConfig(channels=16, hidden=64, fire_rate=1.0,
+                       normalize_perception=4.0)
+    g = torch.Generator().manual_seed(3)
+    base = MLPParams(torch.randn(48, 64, generator=g) * 0.1, torch.zeros(64),
+                     torch.randn(64, 33, generator=g) * 0.1, torch.zeros(33))
+    A = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 1, (600, 16)).astype(np.float32)).to(cuda)
+    outs, grads = [], []
+    for k in (1, 2):
+        eng = build_cell_engine(x, 0.25, period=[2.0] * 3, n_shards=k,
+                                pair_tables=tables, device=cuda)
+        p = MLPParams(*(t.to(cuda).requires_grad_(True) for t in base))
+        fin = eng.gather_back(rollout_cells(
+            p, cfg, eng, eng.scatter(A), torch.Generator(device=cuda), 3,
+            0.25, fire_rate=1.0))
+        (fin ** 2).sum().backward()
+        outs.append(fin.detach())
+        grads.append([t.grad for t in p])
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+    for a, b in zip(grads[0], grads[1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _two_rank_band_rollout(eng, SB, params, cfg, b, h, steps):
+    """One rank of test_two_ranks_share_a_card_over_gloo."""
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+    from sph_nca_tpu_torch.parallel import band_shard as BS
+    from sph_nca_tpu_torch.parallel import comm
+    from sph_nca_tpu_torch.parallel import mesh as MS
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = MS.make_mesh(data=1, particle=2, backend="gloo")
+    shards, st = BS.shard_band_engine(eng, 2)
+    loc = BS.place_shards(shards, mesh, dev)
+    comm.reset_stats()
+    launches = MK.mlp_forward.launches
+    with torch.no_grad():
+        out = BS.rollout_band_sharded(
+            MLPParams(*(t.to(dev) for t in params)), cfg, loc, st, mesh,
+            MS.particle_slice(SB, mesh).to(dev), b, 0, steps, h,
+            fire_rate=1.0)
+    return {"final": MS.particle_gather(out, mesh).cpu(),
+            "device": str(out.device), "stats": comm.read_stats(),
+            "mlp_launches": MK.mlp_forward.launches - launches}
+
+
+@pytest.mark.cuda
+def test_two_ranks_share_a_card_over_gloo(cuda):
+    """Two ranks on one card (gloo, the exchanges staged through pinned
+    host buffers) run the halo-sharded band rollout, 4 steps at fire_rate
+    1, each rank launching kernel 2.8 once a step; the result equals the
+    unsharded rollout on the card to 1e-4 of max."""
+    from sph_nca_tpu_torch.models.cell_step import rollout_cells_batched
+    from sph_nca_tpu_torch.ops import _build
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+    from sph_nca_tpu_torch.ops.batched import batched_scatter
+    from sph_nca_tpu_torch.parallel.comm import run_ranks
+
+    _build.build()
+    x = np.random.default_rng(5).uniform(-1, 1, (900, 3)).astype(np.float32)
+    eng = build_band_engine(x, 0.25, block_rows=16, far_group=8,
+                            block_multiple=2, device="cpu")
+    b, steps = 3, 4
+    g = torch.Generator().manual_seed(1)
+    params = MLPParams(torch.randn(48, 256, generator=g) * 0.1,
+                       torch.zeros(256), torch.randn(256, 33, generator=g)
+                       * 0.1, torch.zeros(33))
+    cfg = SPHNCAConfig(fire_rate=1.0, normalize_perception=4.0)
+    A = torch.from_numpy(np.random.default_rng(8).uniform(
+        -0.5, 1.0, (b, 900, 16)).astype(np.float32))
+    SB = batched_scatter(eng, A)
+    res = run_ranks(_two_rank_band_rollout, 2, eng, SB, params, cfg, b, 0.25,
+                    steps, device="cuda", backend="gloo")
+    geng = eng.to(cuda)
+    with torch.no_grad():
+        want = rollout_cells_batched(
+            MLPParams(*(t.to(cuda) for t in params)), cfg, geng, SB.to(cuda),
+            b, torch.Generator(device=cuda), steps, 0.25, fire_rate=1.0)
+    for r in res:
+        assert r["device"].startswith("cuda")
+        assert r["mlp_launches"] == steps
+        assert r["stats"]["staged_bytes"] > 0
+        _band_close(r["final"], want.cpu(), 1e-4)

@@ -21,9 +21,11 @@ GECKO = ROOT / "sph_nca_tpu" / "demo" / "web" / "weights" / "gecko.json"
 
 
 def _port_files():
-    # the card-side tests run where there is no JAX, too
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tests" / "test_torch_cuda.py"]
+    # the card-side tests run where there is no JAX, too, and the sharded
+    # tests' ranks import their helper module without it
+    files = sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+        ROOT / "tests" / "torch_parallel_ranks.py"]
     assert len(files) > 10
     return files
 
@@ -233,3 +235,28 @@ def test_graph_entry_points_raise_without_card(no_card, tmp_path):
     assert os.listdir(tmp_path) == []
     g = build_graph(torch.rand(64, 2), 0.3, 7, max_per_cell=16, k=16)
     assert g.idx.device.type == "cpu"
+
+
+def test_no_jax_check_covers_the_parallel_package():
+    parallel = {p.relative_to(PORT).as_posix() for p in _port_files()
+                if p.is_relative_to(PORT / "parallel")}
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
+            "parallel/band_shard.py", "parallel/cell_shard.py",
+            "parallel/shard.py", "parallel/dryrun.py"} <= parallel
+
+
+def _raises(node) -> bool:
+    return any(isinstance(n, ast.Raise) for n in ast.walk(node))
+
+
+def test_comm_has_no_fallback_handler():
+    """Every ``except`` in parallel/comm.py re-raises: a failed collective,
+    rank or build never goes on over another backend or device."""
+    tree = ast.parse((PORT / "parallel" / "comm.py").read_text())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert handlers, "run_ranks reports its ranks' failures"
+    for h in handlers:
+        assert _raises(h), f"comm.py:{h.lineno} swallows an exception"
+    # and nothing there picks a backend or device after a failure
+    text = (PORT / "parallel" / "comm.py").read_text()
+    assert "fallback" not in text.lower()
