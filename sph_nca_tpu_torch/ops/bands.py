@@ -12,8 +12,14 @@ v_j included, is baked into static tables once per geometry:
     c = D. Entries of non-neighbour pairs are exactly 0;
   * the FAR tables cover the rest, per block a compacted list of groups of
     g curve-consecutive particles that hold a neighbour, gathered at group
-    granularity; blocks are bucketed by list width (``_bucket_cuts``) and
-    the buckets' outputs are put back in block order by ``far_perm``.
+    granularity (one gather for every bucket, over ``far_index``); blocks
+    are bucketed by list width (``_bucket_cuts``) and the buckets' outputs
+    are put back in block order by ``far_perm``.
+
+The far gather, the ``far_perm`` combine and ``gather_back`` have backward
+passes that sum in a fixed order (``ops/gather.py``: a reverse map of the
+group lists, the inverse of the permutation, a copy into distinct slots), so
+two runs of one seed give the same gradients bit for bit on the card.
 
 Every pair pass is then one batched product contracting over the window
 axis, ``torch.bmm`` of a table's transposed column slice (a strided view,
@@ -62,6 +68,7 @@ import torch
 from .. import native, resolve_device
 from . import kernels as K
 from .cells import PAD_POS, _hilbert_code, _morton_code
+from .gather import gather_injective, gather_rows, permute_rows
 
 ALIVE_THRESHOLD = 0.1  # reference nca.py:19,78
 
@@ -92,6 +99,9 @@ class BandEngine:
     far_tabs: Tuple[torch.Tensor, ...]  # [nbt, Wt*g, (D+1)P] like Tband
     # block order = concat(bucket outputs + zero rows)[far_perm]
     far_perm: torch.Tensor  # [nb] int64
+    # every bucket's group list flattened, in bucket order: the one far
+    # gather of a pass (its reverse map is built on the first backward)
+    far_index: torch.Tensor  # [sum nbt * Wt] int64
     # constants, float32-exact Python floats
     h: float
     sig_w: float  # smoothing normalization sigma_W
@@ -169,10 +179,11 @@ class BandEngine:
         return flat.reshape(lead + (nb, p, f))
 
     def gather_back(self, S: torch.Tensor) -> torch.Tensor:
-        """[..., nb, P, F] rank layout -> [..., N, F] particle order."""
+        """[..., nb, P, F] rank layout -> [..., N, F] particle order (its
+        backward copies into the distinct ranks, no accumulation)."""
         nb, p = self.num_cells, self.slots_per_cell
         flat = S.reshape(tuple(S.shape[:-3]) + (nb * p, S.shape[-1]))
-        return flat[..., self.slot_of_particle, :]
+        return gather_injective(flat, self.slot_of_particle, -2)
 
     # -- operator API (parity and checks) -----------------------------------
 
@@ -217,14 +228,11 @@ def _pair_dot(T: torch.Tensor, W: torch.Tensor,
 
 def _add_far(eng, out: torch.Tensor, outs) -> torch.Tensor:
     """The band output [nb, C, L] plus the far buckets' outputs [nbt, C, L]
-    in block order: the buckets' rows and zero rows for the blocks without
-    far groups, concatenated and permuted by ``far_perm`` (the JAX
-    package's combine: a few launches, not one a bucket)."""
-    n_far = sum(o.shape[0] for o in outs)
-    parts = list(outs)
-    parts.append(out.new_zeros((max(out.shape[0] - n_far, 1),)
-                               + out.shape[1:]))
-    return out + torch.cat(parts)[eng.far_perm]
+    in block order: the buckets' rows, concatenated, permuted by
+    ``far_perm`` (entries past them read zeros: the blocks without far
+    groups), the JAX package's combine (a few launches, not one a bucket).
+    The backward gathers through the inverse permutation."""
+    return out + permute_rows(torch.cat(outs), eng.far_perm)
 
 
 def _pass(eng, X: torch.Tensor, cols: slice,
@@ -232,16 +240,19 @@ def _pass(eng, X: torch.Tensor, cols: slice,
     """One pair pass over the table columns ``cols``: [nb, P, L] -> [nb,
     len(cols), L], band and far parts. The windows' rows come from the
     engine: ``window_rows`` for the band, ``far_rows`` for the far groups,
-    one gather a bucket (a rank's shard of the engine brings other shards'
-    rows in there)."""
+    one gather over every bucket's list (a rank's shard of the engine
+    brings other shards' rows in there)."""
     X = X.to(eng.Tband.dtype)
     out = _pair_dot(eng.Tband[:, :, cols], eng.window_rows(X), out_dtype)
     if eng.far_tabs:
-        src, L = eng.far_rows(X), X.shape[-1]
-        out = _add_far(eng, out, [
-            _pair_dot(tab[:, :, cols], src[grp].reshape(grp.shape[0], -1, L),
-                      out_dtype)
-            for grp, tab in zip(eng.far_groups, eng.far_tabs)])
+        L = X.shape[-1]
+        rows = gather_rows(eng.far_rows(X), eng.far_index)
+        outs, off = [], 0
+        for grp, tab in zip(eng.far_groups, eng.far_tabs):
+            win = rows[off:off + grp.numel()].reshape(grp.shape[0], -1, L)
+            outs.append(_pair_dot(tab[:, :, cols], win, out_dtype))
+            off += grp.numel()
+        out = _add_far(eng, out, outs)
     return out
 
 
@@ -690,6 +701,8 @@ def build_band_engine(
         far_groups=tuple(dev(gl, torch.int64) for gl in far_groups_l),
         far_tabs=tuple(table(t) for t in far_n),
         far_perm=dev(far_perm, torch.int64),
+        far_index=dev(np.concatenate([gl.reshape(-1) for gl in far_groups_l]
+                                     + [np.zeros(0, np.int32)]), torch.int64),
         h=float(np.float32(h)),
         sig_w=float(np.float32(sig_w)),
         sig_g=float(np.float32(sig_g)),

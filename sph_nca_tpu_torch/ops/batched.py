@@ -47,6 +47,7 @@ import torch
 from . import bands as BD
 from .bands import BandEngine
 from .cells import CellEngine
+from .gather import gather_injective
 from .pair_kernel import blur_cells, mask_blur, perceive_cells_dmajor
 
 
@@ -83,10 +84,12 @@ def batched_scatter(eng, A: torch.Tensor) -> torch.Tensor:
 
 def batched_gather_back(eng, SB: torch.Tensor,
                         b: int) -> torch.Tensor:
-    """SB [C, M, B*F] -> [B, N, F] particle order."""
+    """SB [C, M, B*F] -> [B, N, F] particle order (its backward copies into
+    the distinct slots, no accumulation)."""
     c, m = eng.num_cells, eng.slots_per_cell
     f = SB.shape[-1] // b
-    return SB.reshape(c * m, b, f)[eng.slot_of_particle].transpose(0, 1)
+    return gather_injective(SB.reshape(c * m, b, f), eng.slot_of_particle,
+                            0).transpose(0, 1)
 
 
 def to_samples(SB: torch.Tensor, b: int) -> torch.Tensor:

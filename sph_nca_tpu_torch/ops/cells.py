@@ -41,6 +41,7 @@ import torch
 
 from .. import resolve_device
 from . import kernels as K
+from .gather import gather_injective
 from .hashgrid import _stencil_offsets
 
 # Padded slot position: far enough that h^2 - d^2 is hugely negative and
@@ -123,10 +124,11 @@ class CellEngine:
         return flat.reshape(lead + (c, m, f))
 
     def gather_back(self, S: torch.Tensor) -> torch.Tensor:
-        """[..., C, M, F] cell layout -> [..., N, F] particle order."""
+        """[..., C, M, F] cell layout -> [..., N, F] particle order (its
+        backward copies into the distinct slots, no accumulation)."""
         c, m = self.num_cells, self.slots_per_cell
         flat = S.reshape(tuple(S.shape[:-3]) + (c * m, S.shape[-1]))
-        return flat[..., self.slot_of_particle, :]
+        return gather_injective(flat, self.slot_of_particle, -2)
 
     # -- window gathers ----------------------------------------------------
 

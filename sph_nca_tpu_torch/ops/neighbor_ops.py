@@ -18,12 +18,13 @@ each row's neighbourhood is one small product (``torch.bmm``) with its
 edge weights. The products are float32 on float32 inputs: keep TF32 off on
 the card, as the entry points do.
 
-Every neighbour gather goes through ``gather_rows``, whose backward
-scatters the rows' gradients back with ``index_add_`` (atomic adds on the
-card). PyTorch's own backward of ``X[idx]`` (a sort-based ``index_put_``)
-took 304 ms a call at the train CLI's shapes on an H100 against 2.4 ms for
-``index_add_`` (``chip_smoke.py`` [graph-train], PERF.md). Atomic sums come
-in no fixed order, so gradients are not bit-reproducible on the card.
+Every neighbour gather goes through ``ops.gather.gather_rows``, whose
+backward sums each source row's gradient rows in a fixed order over a reverse
+map of the list, built once per graph on its first backward (``ops/
+gather.py``). PyTorch's own backward of ``X[idx]`` (a sort-based
+``index_put_``) took 304 ms a call at the train CLI's shapes on an H100, and
+``index_add_`` (2.4 ms) adds atomically, so two runs of one seed parted in the
+last bits (``chip_smoke.py`` [graph-train], PERF.md).
 """
 
 from __future__ import annotations
@@ -33,32 +34,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels as K
+from .gather import gather_rows
 from .hashgrid import NeighborList, SPHGraph, minimum_image
-
-
-class _GatherRows(torch.autograd.Function):
-    """X[idx] for X [N, ...] and idx [N', K]; the backward sums each
-    gathered row's gradient into its source row with ``index_add_``."""
-
-    @staticmethod
-    def forward(ctx, X, idx):
-        ctx.save_for_backward(idx)
-        ctx.shape = X.shape
-        return X[idx]
-
-    @staticmethod
-    def backward(ctx, G):
-        (idx,) = ctx.saved_tensors
-        out = G.new_zeros(ctx.shape)
-        out.index_add_(0, idx.reshape(-1),
-                       G.reshape((-1,) + tuple(ctx.shape[1:])))
-        return out, None
-
-
-def gather_rows(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The neighbour gather X[idx]: X [N, ...], indices [N', K] ->
-    [N', K, ...], its backward by ``index_add_``."""
-    return _GatherRows.apply(X, idx)
 
 
 def _pair_geometry(x: torch.Tensor, nl: NeighborList, period):

@@ -66,6 +66,7 @@ from ..models.surface import (
 )
 from ..ops import bands as BD
 from ..ops import batched as BT
+from ..ops.gather import gather_rows
 from . import comm
 from .mesh import coords, particle_group
 
@@ -86,6 +87,7 @@ class BandShards(NamedTuple):
     far_groups: Tuple[torch.Tensor, ...]  # [k, nbt, Wt], local+halo space
     far_tabs: Tuple[torch.Tensor, ...]  # [k, nbt, Wt*g, CC]
     far_perm: torch.Tensor  # [k, S] into concat(bucket outs + 1 zero row)
+    far_index: torch.Tensor  # [k, sum nbt*Wt]: far_groups flattened
     # targeted mode: per curve distance delta, the local group ids each
     # shard sends to shard (s + delta) % k
     send_idx: Tuple[torch.Tensor, ...] = ()  # per delta: [k, Edelta]
@@ -291,6 +293,9 @@ def shard_band_engine(eng: BD.BandEngine, k: int, *,
         far_groups=tuple(torch.from_numpy(x) for x in fg_l),
         far_tabs=tuple(ft_l),
         far_perm=torch.from_numpy(perm),
+        far_index=torch.from_numpy(np.concatenate(
+            [gk.reshape(k, -1) for gk in fg_l] + [np.zeros((k, 0), np.int64)],
+            axis=1)),
         send_idx=tuple(torch.from_numpy(a) for a in send_idx),
     )
     static = BandShardStatic(k=k, g=g, d=d, P=Pr, sig_w=float(eng.sig_w),
@@ -355,13 +360,14 @@ def _halo_rows(Xg: torch.Tensor, loc: BandShards, st: BandShardStatic,
                group) -> torch.Tensor:
     """Far-group halo exchange, Xg [gps, g*L] -> [H, g*L]: one ppermute per
     populated curve distance (targeted), else one gather of every shard's
-    export rows."""
+    export rows. The row gathers' backward sums in a fixed order
+    (``ops.gather.gather_rows``)."""
     if st.deltas:
-        parts = [comm.ppermute(Xg[sidx], delta, group)
+        parts = [comm.ppermute(gather_rows(Xg, sidx), delta, group)
                  for delta, sidx in zip(st.deltas, loc.send_idx)]
-        return torch.cat(parts)[loc.halo_src]
-    allb = comm.all_gather(Xg[loc.export_idx], group)  # [k*E, gL]
-    return allb[loc.halo_src]
+        return gather_rows(torch.cat(parts), loc.halo_src)
+    allb = comm.all_gather(gather_rows(Xg, loc.export_idx), group)
+    return gather_rows(allb, loc.halo_src)  # allb [k*E, gL]
 
 
 @dataclasses.dataclass
@@ -402,6 +408,10 @@ class BandShardEngine:
     @property
     def far_perm(self) -> torch.Tensor:
         return self.loc.far_perm
+
+    @property
+    def far_index(self) -> torch.Tensor:
+        return self.loc.far_index
 
     @property
     def sig_w(self) -> float:

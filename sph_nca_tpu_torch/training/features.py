@@ -24,12 +24,19 @@ from a ``torch.Generator`` where the JAX package draws from its key).
 The convolutions are ``F.conv2d`` (HWIO filters as OIHW, padding k // 2,
 the JAX package's ``SAME``), the pools ``F.avg_pool2d`` / ``F.max_pool2d``
 of 2. The entry points keep TF32 off, so on the card they run in fp32 on
-cuDNN, as the JAX package's run at ``Precision.HIGHEST``.
+cuDNN, as the JAX package's run at ``Precision.HIGHEST``. The filters are
+constants (no extractor is trained), and a convolution's backward is itself
+a forward convolution (the filters flipped, in and out swapped), since
+cuDNN's backward-data algorithms may add atomically. The bilinear resize is
+``jax.image.resize``'s: two products with fixed interpolation matrices, so
+its backward is two products too (PyTorch's ``interpolate`` backward adds
+atomically on the card). Both give the same gradient on every run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -48,10 +55,29 @@ _VGG_POOL_BEFORE = (False, False, True, False, True)
 LUMA = (0.299, 0.587, 0.114)
 
 
+class _ConvSame(torch.autograd.Function):
+    """Cross-correlation with constant filters; the backward in z is the
+    cross-correlation of the gradient with the filters flipped and in / out
+    swapped (a forward convolution)."""
+
+    @staticmethod
+    def forward(ctx, z, w):
+        ctx.save_for_backward(w)
+        return F.conv2d(z, w, padding=w.shape[-1] // 2)
+
+    @staticmethod
+    def backward(ctx, G):
+        (w,) = ctx.saved_tensors
+        wt = w.flip(-1, -2).transpose(0, 1)
+        return F.conv2d(G, wt, padding=w.shape[-1] // 2), None
+
+
 def _conv_same(z: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Cross-correlation with zero 'same' padding: z [B, Cin, H, W], w
-    [O, Cin, k, k] (odd k) -> [B, O, H, W]."""
-    return F.conv2d(z, w, padding=w.shape[-1] // 2)
+    [O, Cin, k, k] (odd k, constant) -> [B, O, H, W]."""
+    if w.requires_grad:
+        raise ValueError("_conv_same takes constant filters")
+    return _ConvSame.apply(z, w)
 
 
 def _hwio_to_oihw(w) -> torch.Tensor:
@@ -215,18 +241,49 @@ def get_texture_features(kind: str = "gabor", weights_path: str | None = None,
     raise ValueError(f"unknown texture feature kind {kind!r}")
 
 
+def _resize_weights_np(n_in: int, n_out: int) -> np.ndarray:
+    """The [n_in, n_out] float32 interpolation matrix of
+    ``jax.image.resize(..., 'bilinear')`` along one axis (its
+    ``compute_weight_mat``, in float32 as it computes): half-pixel centres,
+    the triangle kernel widened by the scale factor when it shrinks, columns
+    normalized, samples outside the input zeroed."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(n_in: int, n_out: int, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``_resize_weights_np`` on a device, built once per (sizes, device,
+    dtype)."""
+    return torch.from_numpy(_resize_weights_np(n_in, n_out)).to(
+        device=device, dtype=dtype)
+
+
 def resize_bilinear(z: torch.Tensor, size) -> torch.Tensor:
     """Bilinear resize of [B, C, H, W] to ``size`` (h, w), half-pixel
     centres, antialiased when shrinking: ``jax.image.resize(...,
     'bilinear')``, which widens its triangle kernel by the scale factor when
-    it shrinks (PyTorch's ``antialias=True``) and is plain bilinear
-    interpolation when it enlarges."""
+    it shrinks and is plain bilinear interpolation when it enlarges. One
+    product with a fixed matrix for each axis that changes size, so the
+    backward is products too."""
     size = tuple(int(s) for s in size)
-    if size == tuple(z.shape[-2:]):
-        return z
-    shrink = size[0] < z.shape[-2] or size[1] < z.shape[-1]
-    return F.interpolate(z, size=size, mode="bilinear", align_corners=False,
-                         antialias=shrink)
+    H, W = z.shape[-2:]
+    if size[0] != H:
+        z = torch.matmul(_resize_weights(H, size[0], z.device, z.dtype).T, z)
+    if size[1] != W:
+        z = torch.matmul(z, _resize_weights(W, size[1], z.device, z.dtype))
+    return z
 
 
 def resize_image(img: torch.Tensor, size) -> torch.Tensor:

@@ -371,3 +371,75 @@ def test_perception_grad_matches_jax(periodic):
     ga, _ = TBT.perceive_samples(te, S)
     (TBT.dmajor_to_lanes(ga, 3) * torch.from_numpy(W)).sum().backward()
     _close(TBT.to_lanes(S.grad), want, RTOL)
+
+
+# ---- the fixed-order backward of the static gathers ---------------------------
+
+GATHER_RTOL = 1e-6
+
+
+def _plain_md_pass(eng, X):
+    """band_md_pass as it was written before its gathers got a fixed-order
+    backward: PyTorch's own X[idx] indexing, whose backward accumulates."""
+    cols = slice(0, eng.dim * eng.slots_per_cell)
+    out = TB._pair_dot(eng.Tband[:, :, cols], eng.window_rows(X))
+    src, L = eng.far_rows(X), X.shape[-1]
+    outs = [TB._pair_dot(tab[:, :, cols],
+                         src[grp].reshape(grp.shape[0], -1, L))
+            for grp, tab in zip(eng.far_groups, eng.far_tabs)]
+    n_far = sum(o.shape[0] for o in outs)
+    outs.append(out.new_zeros((max(out.shape[0] - n_far, 1),)
+                              + out.shape[1:]))
+    return out + torch.cat(outs)[eng.far_perm]
+
+
+@pytest.mark.parametrize("periodic", [False, True], ids=["open", "periodic"])
+def test_static_gathers_backward_fixed_order(periodic):
+    """The band pass's far gather (a reverse map of the group lists, pad
+    groups all reading group 0), the far_perm combine (the inverse
+    permutation) and gather_back (a copy into distinct slots): their
+    backward against autograd's of the plain indexing, and a float64
+    gradcheck of each on the engine's own indices."""
+    from sph_nca_tpu_torch.ops import gather as GA
+
+    _, te = _scene(periodic, "float32")
+    assert len(te.far_tabs) > 1
+    X = torch.from_numpy(_inputs(te, (B * F,), 21, "float32"))
+    G = torch.from_numpy(_inputs(te, (B * F,), 22, "float32"))
+    grads = []
+    for fn in (TB.band_md_pass, _plain_md_pass):
+        Xg = X.clone().requires_grad_(True)
+        out = fn(te, Xg)
+        grads.append(torch.autograd.grad(out, Xg, torch.cat([G] * 3, 1))[0])
+    _close(grads[0], grads[1].numpy(), GATHER_RTOL)
+    # the same backward, two runs, bit for bit
+    again = X.clone().requires_grad_(True)
+    assert torch.autograd.grad(TB.band_md_pass(te, again), again,
+                               torch.cat([G] * 3, 1))[0].equal(grads[0])
+
+    rng = np.random.default_rng(23)
+    n_src = te.num_cells * te.slots_per_cell // te.far_group_size
+    src = torch.tensor(rng.normal(size=(n_src, 3)), dtype=torch.float64,
+                       requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda s: GA.gather_rows(s, te.far_index), (src,))
+    n_rows = sum(g.shape[0] for g in te.far_groups)
+    Y = torch.tensor(rng.normal(size=(n_rows, 2)), dtype=torch.float64,
+                     requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda y: GA.permute_rows(y, te.far_perm), (Y,))
+    S = torch.tensor(rng.normal(size=(2, te.num_cells, te.slots_per_cell,
+                                      2)), dtype=torch.float64,
+                     requires_grad=True)
+    assert torch.autograd.gradcheck(te.gather_back, (S,))
+    # gather_back's backward equals indexing's, exactly
+    Sf = S.detach().float().requires_grad_(True)
+    Gp = torch.from_numpy(rng.normal(size=(2, N, 2)).astype(np.float32))
+    flat = Sf.reshape(2, -1, 2)
+    want = torch.autograd.grad(flat[:, te.slot_of_particle], Sf, Gp)[0]
+    assert torch.equal(torch.autograd.grad(te.gather_back(Sf), Sf, Gp)[0],
+                       want)
+    SB = TBT.batched_scatter(te, torch.from_numpy(rng.normal(
+        size=(2, N, 3))).double()).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda sb: TBT.batched_gather_back(te, sb, 2), (SB,))

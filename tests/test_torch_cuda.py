@@ -944,8 +944,8 @@ def test_band_passes_match_plain(cuda, dtype, periodic):
 @pytest.mark.cuda
 def test_band_perception_grad_matches_plain(cuda):
     """The perception's gradient on the card (autograd over bmm, the rolls,
-    the concat and the far gather, whose backward is an atomic index add in
-    a run-dependent order) against the CPU's: 1e-5 of max."""
+    the concat and the far gather, whose backward sums over the group lists'
+    reverse map in a fixed order) against the CPU's: 1e-5 of max."""
     from sph_nca_tpu_torch.ops import bands as BD
 
     eng, cpu = _band_pair(cuda, "float32", True)
@@ -961,6 +961,39 @@ def test_band_perception_grad_matches_plain(cuda):
         (ga * W.to(dev)).sum().backward()
         grads.append(s.grad)
     _band_close(grads[0], grads[1], 1e-5)
+
+
+@pytest.mark.cuda
+def test_band_bptt_backward_is_bit_reproducible(cuda):
+    """Two backward passes of a 3-step band BPTT rollout (float32 tables,
+    fire_rate 1, kernel 2.8's forward, the far gathers' and gather_back's
+    fixed-order backward) give the same parameter gradients bit for bit."""
+    from sph_nca_tpu_torch.models.cell_step import rollout_cells_batched
+    from sph_nca_tpu_torch.ops import batched as BT
+
+    eng, _ = _band_pair(cuda, "float32", True)
+    cfg = SPHNCAConfig(channels=16, hidden=64, fire_rate=1.0,
+                       normalize_perception=4.0)
+    rng = np.random.default_rng(11)
+    params = [torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.1)
+              .to(cuda) for s in ((48, 64), (64,), (64, 33), (33,))]
+    A0 = torch.from_numpy(rng.uniform(-0.5, 1.0, (2, 900, 16)).astype(
+        np.float32)).to(cuda)
+
+    def grads():
+        p = [t.clone().requires_grad_(True) for t in params]
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        final = rollout_cells_batched(MLPParams(*p), cfg, eng,
+                                      BT.batched_scatter(eng, A0), 2, gen, 3,
+                                      0.25)
+        loss = (BT.batched_gather_back(eng, final, 2) ** 2).mean()
+        return torch.autograd.grad(loss, p)
+
+    first, second = grads(), grads()
+    assert any(float(g.abs().max()) > 0 for g in first)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

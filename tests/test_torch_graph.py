@@ -349,3 +349,54 @@ def test_build_follows_the_tensor_device():
     with pytest.raises(ValueError, match="candidates"):
         T.build_neighbor_list(torch.from_numpy(x), h, dims, max_per_cell=1,
                               k=16)
+
+
+@pytest.mark.parametrize("piece", [None, 97], ids=["one-piece", "pieces"])
+def test_gather_rows_backward_fixed_order(piece, monkeypatch):
+    """gather_rows on a graph's own lists, whose pad lanes all read row 0
+    (its reverse map takes more than one level): the backward against
+    autograd's backward of X[idx] (1e-6 of max: the same sums in another
+    order), bit-equal over two runs, and float64 gradchecks of the graph
+    ops and of the general ops through it. ``piece`` cuts the first level's
+    gathers into pieces of that many elements."""
+    from sph_nca_tpu_torch.ops import gather as GA
+
+    if piece is not None:
+        monkeypatch.setattr(GA, "_PIECE_ELEMS", piece)
+
+    x, h, dims, period = _scene(2, False, n=300, h=0.3)
+    xt = torch.from_numpy(x)
+    mpc, k = T.suggest_capacity(x, h, dims)
+    g = T.build_graph(xt, h, dims, max_per_cell=mpc, k=2 * k)
+    assert int((~g.valid).sum()) > 2 * k  # row 0 is read by many pads
+    rng = np.random.default_rng(5)
+    X = torch.from_numpy(rng.normal(size=(300, 6)))
+    G = torch.from_numpy(rng.normal(size=(300, 2 * k, 6)))
+    # float32, the cotangent zero on pad lanes (as the graph ops give it:
+    # their weights are 0 there), and float64 with every lane random
+    for dt, G_, tol in ((torch.float32, G * g.valid[..., None], 1e-6),
+                        (torch.float64, G, 1e-12)):
+        Xa = X.to(dt).requires_grad_(True)
+        want = torch.autograd.grad(Xa[g.idx], Xa, G_.to(dt))[0]
+        got = torch.autograd.grad(TN.gather_rows(Xa, g.idx), Xa,
+                                  G_.to(dt))[0]
+        assert _gap(got, want) <= tol
+        assert torch.equal(torch.autograd.grad(
+            TN.gather_rows(Xa, g.idx), Xa, G_.to(dt))[0], got)
+    assert len(GA.reverse_map(g.idx, 300).tables) >= 2
+
+    # the gradchecks on the first 60 points, in fast mode (random
+    # projections of the Jacobians)
+    xs, n = xt[:60].double(), 60
+    mpc, k = T.suggest_capacity(xs.numpy(), h, dims)
+    g64 = T.build_graph(xs, h, dims, max_per_cell=mpc, k=2 * k)
+    A = torch.tensor(rng.normal(size=(2, n, 3)), requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a: (TN.graph_gradient(g64, a), TN.graph_blur(g64, a)), (A,),
+        fast_mode=True)
+    nl = T.NeighborList(g64.idx, g64.valid, None)
+    xd = xs.clone().requires_grad_(True)
+    v = g64.v.detach()
+    assert torch.autograd.gradcheck(
+        lambda xx, a: TN.gradient(xx, v, a, h, nl), (xd, A[0]),
+        fast_mode=True)

@@ -260,3 +260,39 @@ def test_comm_has_no_fallback_handler():
     # and nothing there picks a backend or device after a failure
     text = (PORT / "parallel" / "comm.py").read_text()
     assert "fallback" not in text.lower()
+
+
+def test_demo_server_raises_without_card(no_card, tmp_path):
+    """The demo server steps the card by default: without one it raises,
+    in its CLI (headless --record too) and in DemoState, and never steps
+    the numpy engine in the card's place."""
+    from sph_nca_tpu_torch.demo import server
+
+    strip = tmp_path / "strip.png"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.main(["--weights_json", str(GECKO), "--record", str(strip),
+                     "--size", "16"])
+    assert not strip.exists()
+
+    class Args:
+        weights_json, size, jitter = str(GECKO), 16, 0.0
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.DemoState(Args())
+    text = (PORT / "demo" / "server.py").read_text()
+    assert "NumpyEngine" not in text
+
+
+def test_demo_static_page_is_the_ports_own():
+    """The page the port's server sends lies in the port's package (and is
+    packaged with it), not in the JAX package's."""
+    from sph_nca_tpu_torch.demo import server
+
+    static = Path(server.STATIC_DIR).resolve()
+    assert static == (PORT / "demo" / "static").resolve()
+    page = static / "index.html"
+    assert "<canvas" in page.read_text()
+    assert "demo/static/*.html" in (ROOT / "pyproject.toml").read_text()
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if p.is_relative_to(PORT)}
+    assert {"demo/__init__.py", "demo/engine.py", "demo/server.py"} <= names

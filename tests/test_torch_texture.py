@@ -334,3 +334,49 @@ def test_iteration0_loss_follows_initial_params(tmp_path):
     own = _first_loss(tmp_path / "own", "iter")
     assert abs(carried - want) <= 0.1 * want, (carried, want)
     assert abs(own - want) > 0.5 * want, (own, want)
+
+
+@pytest.mark.parametrize("src,dst", [((64, 64), (32, 32)), ((100, 60),
+                                                             (64, 64)),
+                                     ((16, 40), (40, 24)), ((32, 32),
+                                                            (64, 64))])
+def test_resize_value_and_gradient_match_jax(src, dst):
+    """``resize_bilinear``, two products with jax.image.resize's
+    interpolation matrices, shrinking, enlarging and both at once: values
+    and the gradient of a weighted sum against ``jax.vjp`` (1e-6 of max);
+    the backward is products too, so two runs give it bit for bit."""
+    rng = np.random.default_rng(sum(src) + sum(dst))
+    img = rng.random((2,) + src + (3,)).astype(np.float32)
+    W = rng.normal(size=(2,) + dst + (3,)).astype(np.float32)
+    want, vjp = jax.vjp(
+        lambda z: jax.image.resize(z, (2,) + dst + (3,), "bilinear"),
+        jnp.asarray(img))
+    (want_g,) = vjp(jnp.asarray(W))
+    z = torch.from_numpy(img).permute(0, 3, 1, 2).requires_grad_(True)
+    got = TF.resize_bilinear(z, dst).permute(0, 2, 3, 1)
+    (g,) = torch.autograd.grad(got, z, torch.from_numpy(W))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=RESIZE_ATOL, rtol=0)
+    assert _rel(g.permute(0, 2, 3, 1), want_g) <= RESIZE_ATOL
+    z2 = z.detach().clone().requires_grad_(True)
+    (g2,) = torch.autograd.grad(TF.resize_bilinear(z2, dst).permute(
+        0, 2, 3, 1), z2, torch.from_numpy(W))
+    assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("k,cin,cout", [(9, 1, 6), (3, 4, 5)])
+def test_conv_backward_is_a_forward_convolution(k, cin, cout):
+    """The feature convolutions' backward (a forward convolution with the
+    filters flipped, in and out swapped) against autograd through
+    ``F.conv2d``, and a float64 gradcheck; constant filters only."""
+    rng = np.random.default_rng(k)
+    z = torch.tensor(rng.normal(size=(2, cin, 11, 9)), requires_grad=True)
+    w = torch.tensor(rng.normal(size=(cout, cin, k, k)))
+    G = torch.tensor(rng.normal(size=(2, cout, 11, 9)))
+    want = torch.autograd.grad(torch.nn.functional.conv2d(
+        z, w, padding=k // 2), z, G)[0]
+    got = torch.autograd.grad(TF._conv_same(z, w), z, G)[0]
+    assert _rel(got, want) <= 1e-12
+    assert torch.autograd.gradcheck(lambda a: TF._conv_same(a, w), (z,))
+    with pytest.raises(ValueError, match="constant filters"):
+        TF._conv_same(z, w.clone().requires_grad_(True))
