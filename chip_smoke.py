@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card, the CUDA
-toolkit and g++. Twenty-nine main paths, each driven through its entry
+toolkit and g++. Thirty main paths, each driven through its entry
 point with every launch counter set to 0 just before it and read just
 after:
 
@@ -100,7 +100,14 @@ after:
              256 with the shipped gecko (the band engine over the demo's
              2-D points, float32 tables, B = 1): 32 ``/frame`` requests,
              a brush, ``/config`` to a hex lattice and to the stripes
-             model, ``/reset``; and its headless ``--record`` mode.
+             model, ``/reset``; and its headless ``--record`` mode;
+  api        the port as a library: only ``from sph_nca_tpu_torch import
+             io, models, ops, utils``, the golden recipe of the verify
+             skill (the face model's checkpoint, 64x64, ``ops.build_graph``,
+             ``utils.plane_seed``, ``models.rollout_states``, 128 steps at
+             fire_rate 1) and ``utils.profiling.StepTimer`` / ``trace``
+             around single ``models.surface.rollout_mesh_batched`` steps
+             on ``ops.build_band_engine``'s engine at the bench shape.
 The cell-engine paths above pass ``--engine cells`` to the CLIs. The graph
 paths are plain PyTorch (as the JAX package's are XLA): they launch no
 kernel of the port, and the script checks that every counter stays 0.
@@ -343,6 +350,16 @@ Phases, each printing one line with its wall time:
                  mass rising over the frames, the damage brush clearing its
                  disc; the --record run's PNG strip (read with struct); 2.8
                  at the 256 rows beside its bound and the library chain
+  api            the golden recipe on the card against its plain CPU run
+                 (1e-4 of max over the 128 steps; the gap after 16, 32, 64
+                 and 128 steps printed), the alive shares within 0.03 and
+                 growing, no launch (the graph engine); StepTimer around 12
+                 single steps at the bench shape (102,400 points, B = 8,
+                 bfloat16 band tables and MLP, 2 skipped): ms a step and
+                 particle-steps/s, no bar; trace around 4 more: its Chrome
+                 trace parses and holds a CUDA kernel event (whether
+                 sph_mlp_kernel is among them is printed); 2.8 launched
+                 exactly once a step, nothing else
 The image-mode test CLI phases (rollout, band-inference, texture-cli's
 image runs, graph-inference) check their PNG frames as [rollout] does.
 Then one JSON line describing the eight kernels (all but 2.7 also with
@@ -353,7 +370,8 @@ bench shape; 2.8 also with its launches and errors on the band paths; all
 but 2.2 with their launches and errors on the texture paths, under
 ``texture``; 2.4, 2.5, 2.6 and 2.8 with their launches and errors on the
 CLIP paths, under ``clip``; 2.8 with its launches, errors and times on the
-demo paths, under ``demo``), and
+demo paths, under ``demo``, and with its launches and the StepTimer numbers
+of [api], under ``api``), and
 as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. Without a card it exits non-zero and prints no
 result.
@@ -5918,6 +5936,155 @@ def demo_serve_phase(dev, smi) -> dict:
                                            "bound_by", "library_ms")}}}
 
 
+# [api]: the port as a library user reaches it, through the subpackages'
+# public names only. The golden recipe on the card is held against its
+# plain CPU run over all API_STEPS steps: on the H100 the gap grew smoothly
+# from 6.4e-07 of max after 16 steps to 2.9e-05 after 128, with no life mask
+# flipping at the 0.1 threshold, so the whole rollout is not chaotic at ulp
+# level. The gap at API_GAP_STEPS and the alive shares are printed.
+API_SIDE, API_STEPS = 64, 128
+API_GAP_STEPS = (CHECK_STEPS, 32, 64, API_STEPS)
+API_HOLD_STEPS = API_STEPS
+API_WARMUP, API_TIMED, API_TRACE = 2, 10, 4
+
+
+def api_recipe(device, steps: int):
+    """The verify skill's golden recipe through the public names: the face
+    model's checkpoint (assets/gecko_full_8000), an API_SIDE x API_SIDE
+    grid, ``ops.build_graph``, ``utils.plane_seed``,
+    ``models.rollout_states`` at fire_rate 1. Returns (states [steps + 1,
+    N, C] on the CPU, K)."""
+    from sph_nca_tpu_torch import io, models, ops, utils
+
+    ck = io.load_checkpoint(FACE_CHECKPOINT, device=device)
+    h, cfg = ck["h"], ck["model_cfg"]
+    x = utils.grange((API_SIDE, API_SIDE), [-1.0, -1.0],
+                     [2.0, 2.0]).reshape(-1, 2)
+    dims = ops.default_dims(h)
+    mpc, k = ops.suggest_capacity(x, h, dims)
+    x = x.to(device)
+    g = ops.build_graph(x, h, dims, max_per_cell=mpc, k=k)
+    A0 = utils.plane_seed(x, cfg.channels, gmin=(-1.0, -1.0),
+                          gsize=(2.0, 2.0), radius=h)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        states = models.rollout_states(ck["params"], cfg, g, A0, gen, steps,
+                                       h, fire_rate=1.0)
+    return states.cpu(), g.k
+
+
+def api_phase(dev, smi) -> dict:
+    """[api]: (1) the golden recipe on the card against its plain CPU run;
+    (2) ``utils.profiling.StepTimer`` around single steps of
+    ``models.surface.rollout_mesh_batched`` on ``ops.build_band_engine``'s
+    engine at the bench shape (bfloat16 tables and MLP: kernel 2.8 once a
+    step), mean ms and particle-steps/s, no bar; (3) ``utils.profiling.
+    trace`` around API_TRACE more steps: the Chrome trace exists, parses and
+    holds a CUDA kernel event. Returns 2.8's launches and the numbers."""
+    from sph_nca_tpu_torch import models, ops, utils
+
+    t0 = time.time()
+    reset_launches()
+    t1 = time.time()
+    card, k = api_recipe(dev, API_STEPS)
+    card_s = time.time() - t1
+    graph_launches_zero("the golden recipe")
+    t1 = time.time()
+    cpu, _ = api_recipe("cpu", API_STEPS)
+    cpu_s = time.time() - t1
+    if card.shape != (API_STEPS + 1, API_SIDE * API_SIDE, 16) or not bool(
+            torch.isfinite(card).all()):
+        fail(f"the golden recipe: states {tuple(card.shape)}, finite "
+             f"{bool(torch.isfinite(card).all())}")
+    gaps = {s: float((card[s] - cpu[s]).abs().max() / cpu[s].abs().max())
+            for s in API_GAP_STEPS}
+    alive = {label: (float((st[0][:, 3] > 0.1).float().mean()),
+                     float((st[-1][:, 3] > 0.1).float().mean()))
+             for label, st in (("card", card), ("cpu", cpu))}
+    print(f"  golden recipe, {API_SIDE}x{API_SIDE}, K={k}: card vs CPU, "
+          f"rel to max, after "
+          + ", ".join(f"{s} steps {g:.3e}" for s, g in gaps.items())
+          + f"; alive {alive['card'][0]:.4f} -> {alive['card'][1]:.4f} "
+          f"(CPU {alive['cpu'][1]:.4f}); {card_s:.2f} s on the card, "
+          f"{cpu_s:.2f} s on the CPU", flush=True)
+    if not gaps[API_HOLD_STEPS] <= ROLLOUT_ATOL:
+        fail(f"the golden recipe on the card parts from its CPU run by "
+             f"{gaps[API_HOLD_STEPS]:.3e} of max after {API_HOLD_STEPS} "
+             f"steps (limit {ROLLOUT_ATOL})")
+    if not (alive["card"][0] < alive["card"][1]
+            and abs(alive["card"][1] - alive["cpu"][1]) <= ALIVE_ATOL):
+        fail(f"the golden recipe's alive shares {alive}")
+
+    h = bench_h()
+    x = fibonacci_sphere(BENCH_N, BENCH_RADIUS)
+    t1 = time.time()
+    eng = ops.build_band_engine(x, h, table_dtype="bfloat16", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.time() - t1
+    cfg = models.SPHNCAConfig(normalize_perception=1.0 / h)
+    params = models.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                device=dev)
+    nrm = torch.from_numpy(sphere_normals(x)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    A = torch.rand(BENCH_B, BENCH_N, cfg.channels, generator=g, device=dev)
+    T = models.orthogonalize(nrm, models.normalize(torch.randn(
+        BENCH_B, BENCH_N, 3, generator=g, device=dev)))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step(A, T):
+        return models.surface.rollout_mesh_batched(
+            params, cfg, eng, A, nrm, T, gen, 1, h, mlp_dtype="bfloat16")
+
+    timer = utils.profiling.StepTimer(num_particles=BENCH_B * BENCH_N,
+                                      warmup=API_WARMUP)
+    reset_launches()
+    with torch.no_grad(), tempfile.TemporaryDirectory() as logdir:
+        for _ in range(API_WARMUP + API_TIMED):
+            with timer:
+                A, T = step(A, T)
+        with utils.profiling.trace(logdir) as d:
+            for _ in range(API_TRACE):
+                A, T = step(A, T)
+        traces = glob.glob(os.path.join(d, "trace-*.json"))
+        if len(traces) != 1:
+            fail(f"trace wrote {traces} into its directory")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    launches = read_launches()
+    n_steps = API_WARMUP + API_TIMED + API_TRACE
+    if launches != {**NO_LAUNCHES, "sph_mlp_kernel": n_steps}:
+        fail(f"[api] steps launched {launches}, expected {n_steps} of "
+             "sph_mlp_kernel only")
+    if not (bool(torch.isfinite(A).all()) and bool(torch.isfinite(T).all())):
+        fail("[api] steps: non-finite states or tangents")
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    if not kern:
+        fail(f"the trace holds no CUDA kernel event ({len(events)} events)")
+    mlp_traced = sum("sph_mlp_kernel" in e.get("name", "") for e in kern)
+    s = timer.summary()
+    phase("api", t0, f"through `from sph_nca_tpu_torch import io, models, "
+          f"ops, utils`: the golden recipe on the card within "
+          f"{gaps[API_HOLD_STEPS]:.3e} of max of its CPU run after "
+          f"{API_HOLD_STEPS} steps (limit {ROLLOUT_ATOL}), {API_STEPS}-step "
+          f"alive shares within {ALIVE_ATOL}; StepTimer at the bench shape "
+          f"({BENCH_N} points, B={BENCH_B}, band engine built in "
+          f"{build_s:.2f} s, bfloat16 tables and MLP, one "
+          f"rollout_mesh_batched step an interval, synchronized, "
+          f"{s['steps']} intervals, {API_WARMUP} skipped): "
+          f"{s['mean_ms']:.4f} ms a step, "
+          f"{s['particle_steps_per_sec']:.4e} particle-steps/s; trace of "
+          f"{API_TRACE} steps: {len(events)} events, {len(kern)} CUDA "
+          f"kernel events, sph_mlp_kernel among them: {mlp_traced} "
+          f"(launched {API_TRACE}); launches {launches} | {smi}")
+    return {"launches": launches["sph_mlp_kernel"], "launches_path": "api",
+            "shapes": f"bench sphere N={BENCH_N} bfloat16 tables B={BENCH_B}",
+            "step_ms": s["mean_ms"],
+            "particle_steps_per_sec": s["particle_steps_per_sec"],
+            "trace_kernel_events": len(kern),
+            "trace_mlp_events": mlp_traced,
+            "recipe_gap": {str(k): v for k, v in gaps.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6579,6 +6746,9 @@ def main() -> int:
     demo_parity_launches, demo_errs = demo_parity_phase(dev, smi)
     demo = demo_serve_phase(dev, smi)
 
+    # ---- the public API: the golden recipe, StepTimer, trace ---------------
+    api = api_phase(dev, smi)
+
     kernels = rows + rows_tab + [mlp_row]
     # the texture paths' launches, by path
     for row in kernels:
@@ -6609,6 +6779,7 @@ def main() -> int:
                 "max_abs_err": cli_errs[name]}
             row["bench"] = bench[name]
         if name == "sph_mlp_kernel":
+            row["api"] = api
             # the demo server steps the band engine: 2.8 is its kernel
             row["demo"] = {
                 "launches": {"demo-parity": demo_parity_launches,

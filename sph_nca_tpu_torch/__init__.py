@@ -24,8 +24,12 @@ version only for tensors on the CPU; for a CUDA tensor it launches the kernel
 or raises. Entry points default to ``device="cuda"`` and raise when no card is
 present; the tests pass ``device="cpu"``.
 
-This module imports no submodule: importing the package needs no card, no
-compiler and no JAX.
+Each subpackage re-exports the JAX counterpart's public names (its
+``__all__``, in its order), bound to the port's functions of the same
+meaning; the few that name JAX or XLA machinery are left out, and each
+subpackage's docstring says which and why. The package imports ``ops``, as
+the JAX package does; importing it needs no card, no compiler and no JAX,
+since the CUDA and host libraries are built at their first use.
 """
 
 from __future__ import annotations
@@ -48,3 +52,6 @@ def resolve_device(device="cuda") -> torch.device:
             "plain PyTorch path"
         )
     return dev
+
+
+from . import ops  # noqa: E402,F401  (needs resolve_device above)

@@ -4,15 +4,18 @@ Counterpart of the bindings of ``sph_nca_tpu/native/__init__.py`` that
 ``ops/bands.build_band_engine`` calls: ``true_pairs``, ``band_cols``,
 ``fill_band_bf16``, ``accum_table``, ``fill_cast_bf16``, ``cast_bf16_gsum``,
 ``far_groups`` and ``far_meta``, with the big-buffer allocator ``_alloc``;
-and ``capacity``, which sizes the fixed-K neighbour lists of
-``ops/hashgrid.py``.
+``capacity``, which sizes the fixed-K neighbour lists of
+``ops/hashgrid.py``; and the rest of the JAX module's public bindings,
+``available``, ``fps`` (farthest-point sampling) and ``cell_hash``.
 ``sphgrid.cpp`` is a byte-for-byte copy of the JAX package's source.
 
 The library is built at first use with ``g++ -O3 -march=native -shared
 -fPIC`` into ``sph_nca_tpu_torch/_build/``, under a name carrying the hash of
 the source and the flags (as ``ops/_build.py`` names the CUDA library), and
 loaded with ctypes. There is no numpy fallback: when the library cannot be
-built, every entry point raises with the compiler's message. One route keeps
+built, every entry point raises with the compiler's message (the JAX
+module's return ``None`` instead); ``available()`` only reports whether the
+library builds and loads. One route keeps
 the band tables bit-identical to the JAX package's, whose bfloat16 tables
 come from the same fused native fill.
 
@@ -109,6 +112,14 @@ def load_library() -> ctypes.CDLL:
         _P, _I64, _INT, ctypes.c_float, _P, _P,  # x, n, d, h, dims, period
         _P, _P,  # max_occupancy, max_neighbors
     ]
+    lib.sphgrid_cell_hash.restype = None
+    lib.sphgrid_cell_hash.argtypes = [
+        _P, _I64, _INT, ctypes.c_float, _P, _P,  # x, n, d, h, dims, out
+    ]
+    lib.sphgrid_fps.restype = None
+    lib.sphgrid_fps.argtypes = [
+        _P, _I64, _INT, _I64, _I64, _P,  # x, n, d, m, start, out
+    ]
     lib.sphgrid_true_pairs.restype = _I64
     lib.sphgrid_true_pairs.argtypes = [
         _P, _I64, _INT, _D, _P,  # x, n, d, h, period (nullable)
@@ -155,6 +166,17 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here. The entry points do not
+    consult it: each builds and loads on its own and raises with the
+    reason when that fails."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _ptr(a):
     return None if a is None else a.ctypes.data
 
@@ -182,6 +204,34 @@ def capacity(x: np.ndarray, h: float, dims, period=None):
     if rc != 0:
         raise ValueError(f"sphgrid_capacity: unsupported dimension {d}")
     return int(occ[0]), int(nbrs[0])
+
+
+def cell_hash(x: np.ndarray, h: float, dims) -> np.ndarray:
+    """Mixed-radix hash int32 [N] of each point's periodic cell
+    floor(x / h) mod dims (axis 0 fastest): ``cell_index`` of
+    ``ops/hashgrid.py`` folded with its strides."""
+    lib = load_library()
+    x = _c(x, np.float32)
+    n, d = x.shape
+    dims_arr = _c(np.broadcast_to(np.asarray(dims, np.int32), (d,)),
+                  np.int32)
+    out = np.empty(n, np.int32)
+    lib.sphgrid_cell_hash(_ptr(x), n, d, h, _ptr(dims_arr), _ptr(out))
+    return out
+
+
+def fps(x: np.ndarray, m: int, start: int = 0) -> np.ndarray:
+    """Greedy farthest-point sampling: int32 [m] indices into x [N, D].
+    The first is ``start``; each next maximizes the float32 squared distance
+    to the nearest one taken (ties to the lowest index)."""
+    x = _c(x, np.float32)
+    n, d = x.shape
+    if m < 1 or not 0 <= start < n:
+        raise ValueError(f"fps: m={m}, start={start} for {n} points")
+    lib = load_library()
+    out = np.empty(m, np.int32)
+    lib.sphgrid_fps(_ptr(x), n, d, m, start, _ptr(out))
+    return out
 
 
 def true_pairs(x: np.ndarray, h: float, period=None):

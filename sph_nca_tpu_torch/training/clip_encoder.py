@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from .features import resize_bilinear
 
 IMAGE_RES = 224
@@ -124,17 +125,19 @@ class CLIPImageEncoder:
         return feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
 
 
-def load_clip_encoder(path: str, device="cpu") -> CLIPImageEncoder:
+def load_clip_encoder(path: str, device="cuda") -> CLIPImageEncoder:
     """The image tower from an ``.npz`` (``convert_open_clip``'s, or one
     file holding both towers)."""
+    device = resolve_device(device)
     with np.load(path) as data:
         return CLIPImageEncoder(_tensors({k: data[k] for k in data.files},
                                          device))
 
 
-def random_clip_encoder(seed: int = 0, device="cpu") -> CLIPImageEncoder:
+def random_clip_encoder(seed: int = 0, device="cuda") -> CLIPImageEncoder:
     """The JAX package's fixed-seed random tower, drawn from the same numpy
     stream in the same order (NOT semantically CLIP)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def r(*shape, scale=0.02):
@@ -208,7 +211,8 @@ def _block_arrays(g, rb: str, p: str) -> Dict[str, np.ndarray]:
 
 
 def get_clip_encoder(weights_path: Optional[str] = None, seed: int = 0,
-                     device="cpu") -> CLIPImageEncoder:
+                     device="cuda") -> CLIPImageEncoder:
+    device = resolve_device(device)
     if weights_path:
         return load_clip_encoder(weights_path, device=device)
     return random_clip_encoder(seed, device=device)

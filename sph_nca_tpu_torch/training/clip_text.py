@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .clip_encoder import IMAGE_KEYS, _block, _block_arrays, _layernorm, \
     _tensors
 
@@ -245,10 +246,11 @@ class CLIPTextEncoder:
         return feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
 
 
-def load_text_encoder(path: str, device="cpu") -> CLIPTextEncoder:
+def load_text_encoder(path: str, device="cuda") -> CLIPTextEncoder:
     """The text tower from ``convert_open_clip_text``'s ``.npz`` (or one
     file holding both towers: its ``t_blk`` keys are the text blocks, the
     bare ``blk`` keys and the image keys are skipped)."""
+    device = resolve_device(device)
     w = {}
     with np.load(path) as data:
         for k in data.files:
@@ -259,9 +261,10 @@ def load_text_encoder(path: str, device="cpu") -> CLIPTextEncoder:
     return CLIPTextEncoder(_tensors(w, device))
 
 
-def random_text_encoder(seed: int = 1, device="cpu") -> CLIPTextEncoder:
+def random_text_encoder(seed: int = 1, device="cuda") -> CLIPTextEncoder:
     """The JAX package's fixed-seed random text tower, drawn from the same
     numpy stream in the same order (NOT semantically CLIP)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def r(*shape, scale=0.02):
@@ -314,8 +317,9 @@ def convert_open_clip_text(state_dict, out_path: str) -> None:
 
 def get_text_features(text: str, *, weights_path: Optional[str] = None,
                       bpe_path: Optional[str] = None, seed: int = 1,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """A prompt -> its unit features [EMBED], without a gradient."""
+    device = resolve_device(device)
     tok = SimpleTokenizer(bpe_path) if bpe_path else None
     tokens = tokenize(text, tok)[0]
     enc = (load_text_encoder(weights_path, device=device) if weights_path

@@ -43,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
+
 # ImageNet normalization
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -112,8 +114,9 @@ class VGGFeatures:
         return feats
 
 
-def load_vgg19_features(path: str, device="cpu") -> VGGFeatures:
+def load_vgg19_features(path: str, device="cuda") -> VGGFeatures:
     """The 5-conv extractor from an ``.npz`` of HWIO filters."""
+    device = resolve_device(device)
     data = np.load(path)
     ws, bs = [], []
     for i in range(1, 6):
@@ -139,10 +142,11 @@ def convert_torchvision_vgg19(state_dict, out_path: str) -> None:
     np.savez(out_path, **arrays)
 
 
-def random_vgg19_features(seed: int = 0, device="cpu") -> VGGFeatures:
+def random_vgg19_features(seed: int = 0, device="cuda") -> VGGFeatures:
     """VGG19-shaped extractor with He-normal random filters
     N(0, 2 / (9 cin)) and zero biases, drawn from a CPU generator seeded
     with ``seed`` (the JAX package's law; not its stream)."""
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     ws, bs = [], []
     cin = 3
@@ -218,8 +222,9 @@ class GaborTextureFeatures:
 
 def gabor_texture_features(n_orient: int = 6, n_scales: int = 3,
                            ksize: int = 9, wavelength: float = 4.0,
-                           device="cpu") -> GaborTextureFeatures:
+                           device="cuda") -> GaborTextureFeatures:
     """The default Gabor extractor (deterministic: no weights, no draws)."""
+    device = resolve_device(device)
     ev, od = _gabor_bank_np(ksize, wavelength, n_orient)
     return GaborTextureFeatures(even=_hwio_to_oihw(ev).contiguous().to(device),
                                 odd=_hwio_to_oihw(od).contiguous().to(device),
@@ -227,9 +232,10 @@ def gabor_texture_features(n_orient: int = 6, n_scales: int = 3,
 
 
 def get_texture_features(kind: str = "gabor", weights_path: str | None = None,
-                         seed: int = 0, device="cpu"):
+                         seed: int = 0, device="cuda"):
     """The OT loss's extractor: 'gabor', 'vgg' (needs ``weights_path``) or
     'vgg_random'."""
+    device = resolve_device(device)
     if kind == "gabor":
         return gabor_texture_features(device=device)
     if kind == "vgg":

@@ -41,7 +41,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..io.checkpoint import load_optax_state, optax_state_tree
+# the module, not its names: io.checkpoint imports training.optim, so
+# importing the io package first reaches this line before checkpoint is whole
+from ..io import checkpoint as ckpt
 from ..models.cell_step import rollout_cells, rollout_cells_batched
 from ..models.nca import MLPParams, SPHNCAConfig, init_params
 from ..models.rollout import rollout_batch
@@ -268,15 +270,16 @@ class Trainer:
     def opt_state_tree(self) -> dict:
         """The optimizer's state in the layout of the JAX trainer's optax
         state (see ``io.checkpoint.optax_state_tree``)."""
-        return optax_state_tree(self.optimizer, self.params,
-                                self.cfg.normalize_grads, self.opt_name)
+        return ckpt.optax_state_tree(self.optimizer, self.params,
+                                     self.cfg.normalize_grads,
+                                     self.opt_name)
 
     def load_opt_state(self, tree: dict) -> None:
         """Restore the optimizer's state and the schedule's position from an
         optax state tree (a checkpoint's ``opt_state``) of the same
         optimizer."""
-        count = load_optax_state(self.optimizer, self.params, tree,
-                                 self.opt_name)
+        count = ckpt.load_optax_state(self.optimizer, self.params, tree,
+                                      self.opt_name)
         set_schedule_position(self.scheduler, count)
 
     def _rollout(self, A0: torch.Tensor, n: int, collect):

@@ -13,7 +13,12 @@ import torch
 def grange(gshape: Sequence[int], gmin, gsize, grid_offset: float = 0.5,
            device="cpu") -> torch.Tensor:
     """Regular grid of particle positions, shape [*gshape, D], float32:
-    pos = gmin + gsize * (index + grid_offset) / gshape."""
+    pos = gmin + gsize * (index + grid_offset) / gshape.
+
+    On the CPU unless ``device`` says otherwise: the grid feeds the engines'
+    builds, which run on the host (the cell and band builds take host
+    positions and put their tables on the card), so this is not a device
+    entry point."""
     gmin = torch.as_tensor(gmin, dtype=torch.float32, device=device)
     gsize = torch.as_tensor(gsize, dtype=torch.float32, device=device)
     axes = [torch.arange(s, dtype=torch.float32, device=device)

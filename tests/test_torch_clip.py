@@ -58,12 +58,12 @@ def merges(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def image_towers():
-    return JE.random_clip_encoder(0), TE.random_clip_encoder(0)
+    return JE.random_clip_encoder(0), TE.random_clip_encoder(0, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def text_towers():
-    return JT.random_text_encoder(1), TT.random_text_encoder(1)
+    return JT.random_text_encoder(1), TT.random_text_encoder(1, device="cpu")
 
 
 @pytest.mark.parametrize("tower", ["image", "text"])
@@ -134,7 +134,7 @@ def test_text_features_match_jax(text_towers, merges, bpe):
                                want[0], atol=FEAT_ATOL, rtol=0)
     # get_text_features: the same prompt through the same path
     if not bpe:
-        got1 = TT.get_text_features(texts[0]).numpy()
+        got1 = TT.get_text_features(texts[0], device="cpu").numpy()
         np.testing.assert_allclose(got1, want[0], atol=FEAT_ATOL, rtol=0)
 
 
@@ -199,7 +199,8 @@ def test_convert_open_clip_matches_jax(tmp_path):
     _same_npz(mine, theirs)
     img = np.random.default_rng(4).random((40, 40, 3)).astype(np.float32)
     want = np.asarray(JE.load_clip_encoder(mine)(jnp.asarray(img)))
-    got = TE.get_clip_encoder(theirs)(torch.from_numpy(img)).numpy()
+    got = TE.get_clip_encoder(theirs, device="cpu")(
+        torch.from_numpy(img)).numpy()
     np.testing.assert_allclose(got, want, atol=FEAT_ATOL, rtol=0)
 
 
@@ -213,15 +214,16 @@ def test_convert_open_clip_text_matches_jax(tmp_path, image_towers):
     _same_npz(mine, theirs)
     tokens = TT.tokenize("a red and yellow spiral")[0]
     want = np.asarray(JT.load_text_encoder(mine)(tokens))
-    got = TT.load_text_encoder(theirs)(tokens).numpy()
+    got = TT.load_text_encoder(theirs, device="cpu")(tokens).numpy()
     np.testing.assert_allclose(got, want, atol=FEAT_ATOL, rtol=0)
     both = str(tmp_path / "both.npz")
     with np.load(mine) as text:
         np.savez(both, **{k: text[k] for k in text.files},
                  **{k: v.numpy() for k, v in image_towers[1].w.items()})
     got = TT.get_text_features("a red and yellow spiral",
-                               weights_path=both).numpy()
+                               weights_path=both, device="cpu").numpy()
     np.testing.assert_allclose(got, want, atol=FEAT_ATOL, rtol=0)
     img = torch.rand((1, 32, 32, 3), generator=torch.Generator().manual_seed(
         0))
-    assert torch.equal(TE.get_clip_encoder(both)(img), image_towers[1](img))
+    assert torch.equal(TE.get_clip_encoder(both, device="cpu")(img),
+                       image_towers[1](img))

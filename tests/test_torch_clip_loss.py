@@ -60,7 +60,7 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def image_towers():
-    return JE.random_clip_encoder(0), TE.random_clip_encoder(0)
+    return JE.random_clip_encoder(0), TE.random_clip_encoder(0, device="cpu")
 
 
 def _loss_inputs(b=2, side=48, seed=7):

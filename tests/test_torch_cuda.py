@@ -1284,3 +1284,40 @@ def test_two_ranks_share_a_card_over_gloo(cuda):
         assert r["mlp_launches"] == steps
         assert r["stats"]["staged_bytes"] > 0
         _band_close(r["final"], want.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_step_timer_and_device_sync_wait_for_the_card(cuda):
+    """A spin on the card returns to the host at once: StepTimer's interval
+    and device_sync still wait for it to finish."""
+    import time
+
+    from sph_nca_tpu_torch.utils import profiling as TP
+
+    cycles = 100_000_000  # tens of ms at the H100's clocks
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles // 10)  # warm-up
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    spin_ms = start.elapsed_time(end)
+    t = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    launch_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    assert launch_ms < 0.5 * spin_ms, (launch_ms, spin_ms)
+
+    timer = TP.StepTimer(num_particles=10, warmup=0)
+    for _ in range(2):
+        with timer:
+            torch.cuda._sleep(cycles)
+    assert timer.summary()["mean_ms"] >= 0.9 * spin_ms
+
+    x = torch.ones(16, device=cuda)
+    torch.cuda._sleep(cycles)
+    done = torch.cuda.Event()
+    done.record()
+    TP.device_sync({"x": [x]})
+    assert done.query()

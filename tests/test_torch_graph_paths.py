@@ -17,6 +17,7 @@ alpha lane 0.005 away from the alive threshold 0.1.
 
 import dataclasses
 import functools
+import importlib
 import os
 
 import numpy as np
@@ -46,7 +47,6 @@ from sph_nca_tpu_torch.io.convert import (
 )
 from sph_nca_tpu_torch.io.weights_json import load_weights_json
 from sph_nca_tpu_torch.models import nca as TM
-from sph_nca_tpu_torch.models import rollout as TR
 from sph_nca_tpu_torch.models import surface as TSF
 from sph_nca_tpu_torch.models.cell_step import (
     nca_step_cells,
@@ -65,6 +65,11 @@ from sph_nca_tpu_torch.training.trainer import (
     make_mse_bundle,
 )
 from sph_nca_tpu_torch.utils.meshes import fibonacci_sphere, sphere_normals
+
+# the module: the package re-exports the JAX package's public names, so
+# ``sph_nca_tpu_torch.models.rollout`` is the function, as
+# ``sph_nca_tpu.models.rollout`` is
+TR = importlib.import_module("sph_nca_tpu_torch.models.rollout")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GECKO = os.path.join(ROOT, "sph_nca_tpu", "demo", "web", "weights",

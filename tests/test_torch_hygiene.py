@@ -71,11 +71,49 @@ def test_kernels_built_without_torch_headers():
         assert "torch/extension.h" not in text, path
 
 
-def test_port_package_imports_without_card():
+SUBPACKAGES = ("ops", "models", "training", "utils", "io", "parallel",
+               "native", "demo", "cli")
+
+# A fresh interpreter with no card imports one subpackage while every way of
+# starting a compiler or loading a library raises.
+_IMPORT_CHILD = """
+import ctypes, importlib, subprocess, sys
+import torch
+torch.cuda.is_available = lambda: False
+def refuse(*a, **k):
+    raise AssertionError(f"started at import: {a[:1]!r}")
+subprocess.Popen = subprocess.run = ctypes.CDLL = refuse
+mod = importlib.import_module("sph_nca_tpu_torch." + sys.argv[1])
+assert not {"jax", "sph_nca_tpu"} & set(sys.modules), sys.argv[1]
+print("imported", mod.__name__, len(getattr(mod, "__all__", ())))
+"""
+
+
+def test_port_package_imports_without_card(no_card):
+    import subprocess
+    import sys
+
     import sph_nca_tpu_torch.cli.test  # noqa: F401
     import sph_nca_tpu_torch.models.cell_step  # noqa: F401
     import sph_nca_tpu_torch.ops._build  # noqa: F401
     import sph_nca_tpu_torch.ops.pair_kernel  # noqa: F401
+
+    # every subpackage, each in a fresh process: import order must not
+    # matter (io and training import each other's modules), and no kernel
+    # or host-library build starts at import
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", _IMPORT_CHILD, name], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in SUBPACKAGES}
+    for name, proc in procs.items():
+        out, _ = proc.communicate(timeout=120)
+        assert proc.returncode == 0, out
+        assert f"imported sph_nca_tpu_torch.{name}" in out
+    import sph_nca_tpu_torch
+
+    # the root imports ops, as the JAX package's root does
+    assert sph_nca_tpu_torch.ops.__name__ == "sph_nca_tpu_torch.ops"
 
 
 def test_batched_path_modules_import_without_card():
@@ -218,6 +256,27 @@ def test_texture_entry_points_raise_without_card(no_card, tmp_path):
     assert os.listdir(tmp_path) == []
     assert load_checkpoint(ck, device="cpu")["params"].w1.device.type == \
         "cpu"
+    # the texture and CLIP losses' factories likewise, called without device
+    from sph_nca_tpu_torch.training import clip_encoder, clip_text, features
+
+    missing = str(tmp_path / "no-such-weights.npz")
+    factories = [
+        lambda: features.load_vgg19_features(missing),
+        lambda: features.random_vgg19_features(0),
+        lambda: features.gabor_texture_features(),
+        lambda: features.get_texture_features(),
+        lambda: clip_encoder.load_clip_encoder(missing),
+        lambda: clip_encoder.random_clip_encoder(0),
+        lambda: clip_encoder.get_clip_encoder(),
+        lambda: clip_text.load_text_encoder(missing),
+        lambda: clip_text.random_text_encoder(1),
+        lambda: clip_text.get_text_features("a gecko"),
+    ]
+    for make in factories:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert features.gabor_texture_features(device="cpu").even.device.type \
+        == "cpu"
 
 
 def test_graph_entry_points_raise_without_card(no_card, tmp_path):
@@ -296,3 +355,30 @@ def test_demo_static_page_is_the_ports_own():
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if p.is_relative_to(PORT)}
     assert {"demo/__init__.py", "demo/engine.py", "demo/server.py"} <= names
+
+
+def test_native_entry_points_raise_when_the_library_cannot_load(
+        monkeypatch, tmp_path):
+    """With a source g++ cannot compile, fps and cell_hash raise with the
+    compiler's message (the JAX package's return None), and available()
+    reports False without hiding that error from them."""
+    import numpy as np
+
+    from sph_nca_tpu_torch import native
+
+    bad = tmp_path / "sphgrid.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    native.load_library.cache_clear()
+    try:
+        x = np.zeros((4, 2), np.float32)
+        assert native.available() is False
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            native.fps(x, 2)
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            native.cell_hash(x, 0.5, 4)
+        assert not list((tmp_path / "_build").glob("*.so"))
+    finally:
+        native.load_library.cache_clear()
+

@@ -72,13 +72,13 @@ def vgg_pair(tmp_path_factory):
     np.savez(path, **{f"conv{i + 1}_{k}": np.asarray(a)
                       for i in range(5)
                       for k, a in (("w", jv.weights[i]), ("b", jv.biases[i]))})
-    return jv, TF.load_vgg19_features(str(path)), str(path)
+    return jv, TF.load_vgg19_features(str(path), device="cpu"), str(path)
 
 
 @pytest.fixture(scope="module")
 def extractors(vgg_pair):
     return {"gabor": (JF.gabor_texture_features(),
-                      TF.gabor_texture_features()),
+                      TF.gabor_texture_features(device="cpu")),
             "vgg": vgg_pair[:2]}
 
 
@@ -88,7 +88,7 @@ def test_gabor_bank_is_the_jax_bank():
                              JF._gabor_bank_np(*args)):
             assert got.dtype == want.dtype == np.float32
             np.testing.assert_array_equal(got, want)
-    ex = TF.gabor_texture_features()
+    ex = TF.gabor_texture_features(device="cpu")
     np.testing.assert_array_equal(
         ex.even.permute(2, 3, 1, 0).numpy(),
         np.asarray(JF.gabor_texture_features().even))
@@ -111,7 +111,8 @@ def test_random_vgg_law_and_registry(tmp_path):
     """The port's random filters: VGG19's shapes, He-normal scale, zero
     biases, the same for the same seed; 'vgg' needs weights, as in the JAX
     package."""
-    a, b = TF.random_vgg19_features(0), TF.random_vgg19_features(0)
+    a = TF.random_vgg19_features(0, device="cpu")
+    b = TF.random_vgg19_features(0, device="cpu")
     cin = 3
     for wa, wb, ba, cout in zip(a.weights, b.weights, a.biases,
                                 TF._VGG_CHANNELS):
@@ -120,19 +121,20 @@ def test_random_vgg_law_and_registry(tmp_path):
         np.testing.assert_allclose(float(wa.std()), np.sqrt(2 / (9 * cin)),
                                    rtol=0.1)
         cin = cout
-    assert not torch.equal(TF.random_vgg19_features(1).weights[0],
-                           a.weights[0])
+    assert not torch.equal(
+        TF.random_vgg19_features(1, device="cpu").weights[0], a.weights[0])
     with pytest.raises(ValueError, match="requires weights_path"):
-        TF.get_texture_features("vgg")
+        TF.get_texture_features("vgg", device="cpu")
     with pytest.raises(ValueError, match="unknown texture feature"):
-        TF.get_texture_features("clip")
-    assert isinstance(TF.get_texture_features("vgg_random"), TF.VGGFeatures)
+        TF.get_texture_features("clip", device="cpu")
+    assert isinstance(TF.get_texture_features("vgg_random", device="cpu"),
+                      TF.VGGFeatures)
     bad = {f"conv{i}_{k}": np.zeros((3, 3, 3, 8) if k == "w" else (8,),
                                     np.float32)
            for i in range(1, 6) for k in "wb"}
     np.savez(tmp_path / "bad.npz", **bad)
     with pytest.raises(ValueError, match="filters, expected"):
-        TF.load_vgg19_features(str(tmp_path / "bad.npz"))
+        TF.load_vgg19_features(str(tmp_path / "bad.npz"), device="cpu")
 
 
 def test_torchvision_conversion_matches_jax(tmp_path):
@@ -265,7 +267,7 @@ def test_ot_training_iteration_matches_jax():
                  build_band_engine(x, h, period=period,
                                    table_dtype="float32", device="cpu"),
                  x2, make_ot_bundle(torch.from_numpy(target),
-                                    TF.gabor_texture_features(),
+                                    TF.gabor_texture_features(device="cpu"),
                                     TL.OTLossConfig(**ocfg)), h, params=tp)
     want = jt.run_iteration(0, JaxPool(x2.numpy(), seed_A, 4,
                                        rng=np.random.default_rng(0)))
