@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import batched as BT
 from ..ops.cells import CellEngine
 from ..ops.mlp_kernel import mlp_fused
+from ..utils.profiling import span
 from .nca import ALIVE_THRESHOLD, MLPParams, SPHNCAConfig, apply_mlp
 
 # Recompute each step in the backward instead of keeping its activations
@@ -289,18 +290,21 @@ def _step_samples(cfg: SPHNCAConfig, eng, weights,
     [B, C, M, >= 2F] whose first 2F lanes feed the MLP (the surface
     rollout's tangent projection returns just those two blocks)."""
     ydt = weights[0].dtype
-    ga, pre_sm = BT.perceive_samples(
-        eng, S, cfg.use_alpha,
-        out_dtype=None if ydt == torch.float32 else ydt,
-        use_kernels=use_kernels)
-    if perception_transform is not None:
-        ga = perception_transform(ga)
-    prev_mask = pre_sm > ALIVE_THRESHOLD
-    nS = _update_samples(cfg, weights, S, ga, u, fire_rate, use_kernels)
-    new_sm = BT.mask_blur_samples(eng, nS.detach(), cfg.use_alpha,
-                                  use_kernels=use_kernels)
-    living = (prev_mask & (new_sm > ALIVE_THRESHOLD)).to(nS.dtype)
-    return nS * living[..., None]
+    with span("step.perceive"):
+        ga, pre_sm = BT.perceive_samples(
+            eng, S, cfg.use_alpha,
+            out_dtype=None if ydt == torch.float32 else ydt,
+            use_kernels=use_kernels)
+        if perception_transform is not None:
+            ga = perception_transform(ga)
+        prev_mask = pre_sm > ALIVE_THRESHOLD
+    with span("step.update"):
+        nS = _update_samples(cfg, weights, S, ga, u, fire_rate, use_kernels)
+    with span("step.mask"):
+        new_sm = BT.mask_blur_samples(eng, nS.detach(), cfg.use_alpha,
+                                      use_kernels=use_kernels)
+        living = (prev_mask & (new_sm > ALIVE_THRESHOLD)).to(nS.dtype)
+        return nS * living[..., None]
 
 
 def nca_step_cells_batched(
@@ -384,29 +388,33 @@ def rollout_cells_batched(
     remat = REMAT and torch.is_grad_enabled() and (
         SB0.requires_grad or any(p.requires_grad for p in params))
 
-    S = BT.to_samples(SB0, b)
-    weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
-    ends_dev = torch.tensor(ends, device=S.device)  # one copy a rollout
+    with span("rollout"):
+        S = BT.to_samples(SB0, b)
+        weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
+        ends_dev = torch.tensor(ends, device=S.device)  # one copy a rollout
 
-    def step(S, u):
-        return _step_samples(cfg, eng, weights, S, u, fire_rate, use_kernels)
+        def step(S, u):
+            return _step_samples(cfg, eng, weights, S, u, fire_rate,
+                                 use_kernels)
 
-    buf = [S] * len(collect)
-    for t in range(max_steps):
-        u = BT.fire_draws(eng, S, generator)
-        if remat:
-            nS = checkpoint(step, S, u, use_reentrant=False,
-                            preserve_rng_state=False)
-        else:
-            nS = step(S, u)
-        if any(t >= n for n in ends):
-            nS = torch.where((ends_dev > t)[:, None, None, None], nS, S)
-        S = nS
-        for i, k in enumerate(collect):
-            if k == t + 1:
-                buf[i] = S
-    final = BT.to_lanes(S)
-    if collect_steps is None:
-        return final
-    return final, (BT.to_lanes(torch.stack(buf)) if buf
-                   else SB0.new_empty((0,) + SB0.shape))
+        buf = [S] * len(collect)
+        for t in range(max_steps):
+            with span("rollout.step"):
+                u = BT.fire_draws(eng, S, generator)
+                if remat:
+                    nS = checkpoint(step, S, u, use_reentrant=False,
+                                    preserve_rng_state=False)
+                else:
+                    nS = step(S, u)
+                if any(t >= n for n in ends):
+                    nS = torch.where((ends_dev > t)[:, None, None, None],
+                                     nS, S)
+                S = nS
+            for i, k in enumerate(collect):
+                if k == t + 1:
+                    buf[i] = S
+        final = BT.to_lanes(S)
+        if collect_steps is None:
+            return final
+        return final, (BT.to_lanes(torch.stack(buf)) if buf
+                       else SB0.new_empty((0,) + SB0.shape))

@@ -64,6 +64,7 @@ from ..ops.cells import CellEngine
 from ..ops.hashgrid import SPHGraph
 from ..ops.neighbor_ops import graph_blur
 from ..ops.pair_kernel import blur_cells
+from ..utils.profiling import span
 from .cell_step import (
     _mlp_weights,
     _step_samples,
@@ -379,38 +380,41 @@ def _rollout_mesh_samples(params: MLPParams, cfg: SPHNCAConfig,
                          "diffusion blurs over its poly6 table)")
     if fire_rate is None:
         fire_rate = cfg.fire_rate
-    dual = None if eng_d is eng else (eng_d, *_slot_maps(eng, eng_d))
-    S = eng.scatter(A0)  # [B, C, M, F]
-    nd = normal_components(eng.scatter(n))
-    td = normal_components(eng.scatter(t0))
-    weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
     remat = remat and torch.is_grad_enabled() and (
         A0.requires_grad or any(p.requires_grad for p in params))
+    with span("rollout"):
+        dual = None if eng_d is eng else (eng_d, *_slot_maps(eng, eng_d))
+        S = eng.scatter(A0)  # [B, C, M, F]
+        nd = normal_components(eng.scatter(n))
+        td = normal_components(eng.scatter(t0))
+        weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
 
-    def step(S, u, *td):
-        return _step_samples(
-            cfg, eng, weights, S, u, fire_rate, use_kernels,
-            lambda ga: _project_td(ga, nd, td, include_normal=False))
+        def step(S, u, *td):
+            return _step_samples(
+                cfg, eng, weights, S, u, fire_rate, use_kernels,
+                lambda ga: _project_td(ga, nd, td, include_normal=False))
 
-    states = [A0] if collect_all else None
-    for _ in range(n_steps):
-        u = torch.rand(S.shape[:-1], generator=generator, device=S.device)
-        if remat:
-            S = checkpoint(step, S, u, *td, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            S = step(S, u, *td)
-        # the reference's step ends with T_t = diffuse(A_t, T_{t-1}),
-        # detached (nca.py:352-357)
-        with torch.no_grad():
-            td = _diffuse_td(eng, nd, td, S.detach(),
-                             lerp_multiplier=lerp_multiplier,
-                             w_multiplier=w_multiplier,
-                             use_kernels=use_kernels, dual=dual)
-        if collect_all:
-            states.append(eng.gather_back(S))
-    out = _finish_mesh_batched(eng, S, td)
-    return out + (torch.stack(states),) if collect_all else out
+        states = [A0] if collect_all else None
+        for _ in range(n_steps):
+            with span("rollout.step"):
+                u = torch.rand(S.shape[:-1], generator=generator,
+                               device=S.device)
+                if remat:
+                    S = checkpoint(step, S, u, *td, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    S = step(S, u, *td)
+                # the reference's step ends with T_t = diffuse(A_t,
+                # T_{t-1}), detached (nca.py:352-357)
+                with torch.no_grad(), span("rollout.diffuse"):
+                    td = _diffuse_td(eng, nd, td, S.detach(),
+                                     lerp_multiplier=lerp_multiplier,
+                                     w_multiplier=w_multiplier,
+                                     use_kernels=use_kernels, dual=dual)
+            if collect_all:
+                states.append(eng.gather_back(S))
+        out = _finish_mesh_batched(eng, S, td)
+        return out + (torch.stack(states),) if collect_all else out
 
 
 def rollout_mesh_batched(

@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ..utils.profiling import count
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -78,10 +80,12 @@ def _run(cmds, verbose: bool) -> None:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these sources exists.
-    Returns the library path; raises with nvcc's output on failure."""
+    Returns the library path; raises with nvcc's output on failure. A build
+    that runs nvcc adds 1 to the counter ``kernels.compiled``."""
     out = library_path()
     if out.exists():
         return out
+    count("kernels.compiled")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:

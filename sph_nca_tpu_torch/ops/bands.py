@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from .. import native, resolve_device
+from ..utils.profiling import count, is_recording, span
 from . import kernels as K
 from .cells import PAD_POS, _hilbert_code, _morton_code
 from .gather import gather_injective, gather_rows, permute_rows
@@ -241,19 +242,34 @@ def _pass(eng, X: torch.Tensor, cols: slice,
     len(cols), L], band and far parts. The windows' rows come from the
     engine: ``window_rows`` for the band, ``far_rows`` for the far groups,
     one gather over every bucket's list (a rank's shard of the engine
-    brings other shards' rows in there)."""
-    X = X.to(eng.Tband.dtype)
-    out = _pair_dot(eng.Tband[:, :, cols], eng.window_rows(X), out_dtype)
-    if eng.far_tabs:
-        L = X.shape[-1]
-        rows = gather_rows(eng.far_rows(X), eng.far_index)
-        outs, off = [], 0
-        for grp, tab in zip(eng.far_groups, eng.far_tabs):
-            win = rows[off:off + grp.numel()].reshape(grp.shape[0], -1, L)
-            outs.append(_pair_dot(tab[:, :, cols], win, out_dtype))
-            off += grp.numel()
-        out = _add_far(eng, out, outs)
-    return out
+    brings other shards' rows in there). Recorded as the span ``band.pass``
+    and, in ``band.table_bytes``, the bytes of the table columns it reads
+    (``pass_table_bytes``)."""
+    with span("band.pass"):
+        if is_recording():
+            count("band.table_bytes", pass_table_bytes(eng, cols))
+        X = X.to(eng.Tband.dtype)
+        out = _pair_dot(eng.Tband[:, :, cols], eng.window_rows(X), out_dtype)
+        if eng.far_tabs:
+            L = X.shape[-1]
+            rows = gather_rows(eng.far_rows(X), eng.far_index)
+            outs, off = [], 0
+            for grp, tab in zip(eng.far_groups, eng.far_tabs):
+                win = rows[off:off + grp.numel()].reshape(grp.shape[0], -1,
+                                                          L)
+                outs.append(_pair_dot(tab[:, :, cols], win, out_dtype))
+                off += grp.numel()
+            out = _add_far(eng, out, outs)
+        return out
+
+
+def pass_table_bytes(eng, cols: slice) -> int:
+    """Bytes of the table columns ``cols`` that one pair pass reads: the
+    band table's and every far table's (one dtype, one column count), each
+    read once; shape arithmetic, no tensor is touched."""
+    width = len(range(*cols.indices(eng.Tband.shape[2])))
+    rows = sum(t.shape[0] * t.shape[1] for t in (eng.Tband, *eng.far_tabs))
+    return rows * width * eng.Tband.element_size()
 
 
 def band_md_pass(eng: BandEngine, X: torch.Tensor) -> torch.Tensor:
@@ -508,7 +524,10 @@ def build_band_engine(
     (float32 pair geometry from the native scan) and cast once to
     ``table_dtype`` ("float32" | "bfloat16"); with bfloat16 the gsum self
     term comes from the quantized tables. Every registered smoothing kernel
-    bakes in; the gradient kernel is spiky.
+    bakes in; the gradient kernel is spiky. Recorded as the span
+    ``engine.build`` with ``engine.scan`` (the native pair scan),
+    ``engine.tables`` (volumes, fills, far structure, quantization) and
+    ``engine.transfer`` (the tensors to the device).
     """
     device = resolve_device(device)
     K.get_smoothing_kernel(smoothing)
@@ -529,6 +548,28 @@ def build_band_engine(
     if P % g:
         raise ValueError(f"far_group {g} must divide block_rows {P}")
 
+    with span("engine.build"):
+        xr, rank_of_particle, per = _curve_order(x, h, period,
+                                                 rank_cell_scale, curve)
+        nb = -(-n // P)
+        bm = max(1, int(block_multiple))
+        nb = -(-nb // bm) * bm
+        with span("engine.scan"):
+            # the scan also accumulates the per-particle poly6 sums and
+            # counts
+            scan = native.true_pairs(xr, float(h), per)
+        with span("engine.tables"):
+            host = _band_tables(xr, scan, h, nb, P, g, far_buckets,
+                                smoothing, gradient_kernel, table_dtype)
+        with span("engine.transfer"):
+            return _band_engine_on(device, host, rank_of_particle, h, nb, P)
+
+
+def _curve_order(x: np.ndarray, h: float, period, rank_cell_scale: float,
+                 curve: str):
+    """The band engine's particle order: (positions in curve rank order
+    [N, D] float64, each particle's rank [N], the period [D] or None)."""
+    n, d = x.shape
     per = None
     rscale = float(rank_cell_scale)
     if period is not None:
@@ -553,14 +594,19 @@ def build_band_engine(
     rank_of_particle = np.empty(n, np.int64)
     rank_of_particle[order] = np.arange(n)
     xr = x[order]
+    return xr, rank_of_particle, per
 
-    nb = -(-n // P)
-    bm = max(1, int(block_multiple))
-    nb = -(-nb // bm) * bm
+
+def _band_tables(xr: np.ndarray, scan, h: float, nb: int, P: int, g: int,
+                 far_buckets: int, smoothing: str, gradient_kernel: str,
+                 table_dtype: str) -> dict:
+    """The band engine's host arrays from the rank-ordered positions and the
+    native pair scan's output: volumes, the band and far tables (filled,
+    bucketed, quantized to ``table_dtype``), the gradient self term, by the
+    engine's field names."""
+    n, d = xr.shape
     R = nb * P
-
-    # the scan also accumulates the per-particle poly6 sums and counts
-    pi, pj, dx, d2, w6sum, ncnt = native.true_pairs(xr, float(h), per)
+    pi, pj, dx, d2, w6sum, ncnt = scan
 
     # volumes: v_i = 1 / (sigma_W sum_j W(d2))
     sig_w = float(K.get_smoothing_kernel(smoothing).norm(h, d))
@@ -681,7 +727,17 @@ def build_band_engine(
     vs = np.zeros((R,), np.float32)
     vs[:n] = v[:n]
     ncnt = np.pad(ncnt, (0, R - n))
+    return dict(xs=xs, vs=vs, Tband=Tband_n, gsum=gsum, ncnt=ncnt,
+                far_blocks=far_blocks, far_groups=far_groups_l,
+                far_tabs=far_n, far_perm=far_perm, sig_w=sig_w, sig_g=sig_g,
+                bf16=bf16)
 
+
+def _band_engine_on(device, host: dict, rank_of_particle: np.ndarray,
+                    h: float, nb: int, P: int) -> BandEngine:
+    """``_band_tables``' arrays moved to ``device`` as a ``BandEngine``."""
+    d = host["xs"].shape[-1]
+    bf16 = host["bf16"]
 
     def table(a):
         return (_bf16(a) if bf16 else torch.from_numpy(a)).to(device)
@@ -690,20 +746,21 @@ def build_band_engine(
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
                                                              dtype=dtype)
 
+    groups = host["far_groups"]
     return BandEngine(
         slot_of_particle=dev(rank_of_particle, torch.int64),
-        xs=dev(xs.reshape(nb, P, d)),
-        vs=dev(vs.reshape(nb, P)),
-        Tband=table(Tband_n),
-        gsum=dev(gsum.astype(np.float32)),
-        nbr_count=dev(ncnt.reshape(nb, P), torch.int32),
-        far_blocks=tuple(dev(b, torch.int64) for b in far_blocks),
-        far_groups=tuple(dev(gl, torch.int64) for gl in far_groups_l),
-        far_tabs=tuple(table(t) for t in far_n),
-        far_perm=dev(far_perm, torch.int64),
-        far_index=dev(np.concatenate([gl.reshape(-1) for gl in far_groups_l]
+        xs=dev(host["xs"].reshape(nb, P, d)),
+        vs=dev(host["vs"].reshape(nb, P)),
+        Tband=table(host["Tband"]),
+        gsum=dev(host["gsum"].astype(np.float32)),
+        nbr_count=dev(host["ncnt"].reshape(nb, P), torch.int32),
+        far_blocks=tuple(dev(b, torch.int64) for b in host["far_blocks"]),
+        far_groups=tuple(dev(gl, torch.int64) for gl in groups),
+        far_tabs=tuple(table(t) for t in host["far_tabs"]),
+        far_perm=dev(host["far_perm"], torch.int64),
+        far_index=dev(np.concatenate([gl.reshape(-1) for gl in groups]
                                      + [np.zeros(0, np.int32)]), torch.int64),
         h=float(np.float32(h)),
-        sig_w=float(np.float32(sig_w)),
-        sig_g=float(np.float32(sig_g)),
+        sig_w=float(np.float32(host["sig_w"])),
+        sig_g=float(np.float32(host["sig_g"])),
     )

@@ -49,6 +49,7 @@ from ..models.nca import MLPParams, SPHNCAConfig, init_params
 from ..models.rollout import rollout_batch
 from ..ops.batched import batched_gather_back, batched_scatter, has_tables
 from ..ops.hashgrid import SPHGraph
+from ..utils.profiling import span
 from .losses import (
     CLIPLossConfig,
     OTLossConfig,
@@ -304,38 +305,53 @@ class Trainer:
 
     def run_iteration(self, i: int, pool) -> float:
         """One training iteration on a ``Pool`` or a ``DevicePool``; returns
-        the loss."""
-        cfg = self.cfg
-        idx, A0 = pool.sample(cfg.batch_size, degrade_prob=cfg.degrade_prob,
-                              erase_radius=cfg.erase_radius)
-        seed_A = pool.initial_feature()
-        n = progressive_steps(i, cfg.steps_range, cfg.steps_increment,
-                              self.np_rng)
-        collect = self.np_rng.integers(0, n + 1, size=cfg.aux_states)
-        self.last_steps = n
+        the loss. Recorded as the span ``train.iteration`` with, in order,
+        ``train.sample``, ``train.rank``, ``train.rollout``, ``train.loss``,
+        ``train.backward``, ``train.optimizer``, ``train.pool_update`` and
+        ``train.sync`` (the loss read back, the host's wait for the
+        card)."""
+        with span("train.iteration"):
+            cfg = self.cfg
+            with span("train.sample"):
+                idx, A0 = pool.sample(cfg.batch_size,
+                                      degrade_prob=cfg.degrade_prob,
+                                      erase_radius=cfg.erase_radius)
+                seed_A = pool.initial_feature()
+                n = progressive_steps(i, cfg.steps_range, cfg.steps_increment,
+                                      self.np_rng)
+                collect = self.np_rng.integers(0, n + 1, size=cfg.aux_states)
+                self.last_steps = n
+                A0 = torch.as_tensor(A0, device=self.device)
 
-        A0 = torch.as_tensor(A0, device=self.device)
-        gen = self.loss_generator
-        with torch.no_grad():
-            # replace-worst: rank by per-sample loss, descending and stable,
-            # and swap the worst for a fresh seed
-            order = torch.argsort(-self.loss.per_sample(self.x, A0, gen),
-                                  stable=True)
-        A0 = A0[order]
-        A0[0] = seed_A if torch.is_tensor(seed_A) else torch.tensor(seed_A)
+            gen = self.loss_generator
+            with span("train.rank"):
+                with torch.no_grad():
+                    # replace-worst: rank by per-sample loss, descending and
+                    # stable, and swap the worst for a fresh seed
+                    order = torch.argsort(
+                        -self.loss.per_sample(self.x, A0, gen), stable=True)
+                A0 = A0[order]
+                A0[0] = (seed_A if torch.is_tensor(seed_A)
+                         else torch.tensor(seed_A))
 
-        final, collected = self._rollout(A0, n, collect)
-        total = self.loss.batch_total(self.x, final, gen)
-        for s in range(cfg.aux_states):
-            total = total + cfg.aux_weight * self.loss.batch_total(
-                self.x, collected[s], gen)
+            with span("train.rollout"):
+                final, collected = self._rollout(A0, n, collect)
+            with span("train.loss"):
+                total = self.loss.batch_total(self.x, final, gen)
+                for s in range(cfg.aux_states):
+                    total = total + cfg.aux_weight * self.loss.batch_total(
+                        self.x, collected[s], gen)
 
-        self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if cfg.normalize_grads:
-            normalize_grads_(self.params)
-        self.optimizer.step()
-        self.scheduler.step()
-        pool.update(torch.as_tensor(idx, device=self.device)[order],
-                    final.detach())
-        return total.item()
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            with span("train.optimizer"):
+                if cfg.normalize_grads:
+                    normalize_grads_(self.params)
+                self.optimizer.step()
+                self.scheduler.step()
+            with span("train.pool_update"):
+                pool.update(torch.as_tensor(idx, device=self.device)[order],
+                            final.detach())
+            with span("train.sync"):
+                return total.item()

@@ -8,7 +8,9 @@ Counterpart of ``sph_nca_tpu.utils`` (the same public names, in its order):
   batching.py   pack / unpack and padding of ragged point clouds
   meshes.py     OBJ / PLY reading, surface sampling
   image.py      targets (PNG / ``.npy``), PNG writing, emoji
-  profiling.py  ``StepTimer``, ``device_sync``, ``trace``, ``MetricsLogger``
+  profiling.py  ``StepTimer``, ``device_sync``, ``trace``, ``MetricsLogger``;
+                the port's spans and counters (``span``, ``count``,
+                ``recording``), outside ``__all__``
 
 The JAX package's ``cache.py`` and its profiling module's
 ``select_platform`` / ``enable_compilation_cache`` set XLA's runtime state
