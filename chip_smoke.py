@@ -222,6 +222,12 @@ Phases, each printing one line with its wall time:
                  (1e-5 of max), volume_consistency
   band-mlp       kernel 2.8 against mlp_ref at the lead shapes the band
                  paths give it (band-train, band-inference, band-bench)
+  band-fused     2.8's fused variant (the surface rollouts' update without
+                 a gradient) at the band bench shape against the
+                 composition it replaces: the orig state bit-equal, the
+                 gated state within 2 ulps, the input rows bit-equal
+                 (readout weights); its time beside its byte bound, its
+                 plain version and the composition
   band-train     finite, falling losses; kernel 2.8's launches (no pair-
                  table kernel); ms per iteration, peak memory, device time
                  per BPTT step of one full-depth iteration, no copy or cast
@@ -230,7 +236,8 @@ Phases, each printing one line with its wall time:
   band-inference launches, the gecko growing; 16 steps at fire_rate 1.0 on
                  float32 band tables against the cell engine (1e-4 of max),
                  the bfloat16 band rollout's gap printed
-  band-bench     particle-steps per second (best of 3) beside the cell
+  band-bench     the fused variant's launches (one a step, no 2.8);
+                 particle-steps per second (best of 3) beside the cell
                  engine's, busy share, peak memory; one torch.bmm a table
                  slice and pass, no copy or cast of a table (a profile with
                  shapes); each band pass's time beside its byte bound, and
@@ -366,12 +373,14 @@ Then one JSON line describing the eight kernels (all but 2.7 also with
 their launches a rank on the sharded paths and those paths' gaps from
 their unsharded twins, under ``parallel``; 2.4, 2.6, 2.7 and 2.8 also
 with their launches on the batched surface paths and their numbers at the
-bench shape; 2.8 also with its launches and errors on the band paths; all
+bench shape; 2.8 also with its launches and errors on the band paths, and
+its fused variant's launches (band-bench, [api], [band-fused]), errors
+and times under ``fused``; all
 but 2.2 with their launches and errors on the texture paths, under
 ``texture``; 2.4, 2.5, 2.6 and 2.8 with their launches and errors on the
 CLIP paths, under ``clip``; 2.8 with its launches, errors and times on the
-demo paths, under ``demo``, and with its launches and the StepTimer numbers
-of [api], under ``api``), and
+demo paths, under ``demo``, and with the StepTimer numbers of [api],
+under ``api``), and
 as the last line ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before that line. Without a card it exits non-zero and prints no
 result.
@@ -392,6 +401,7 @@ import dataclasses
 import glob
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -456,7 +466,10 @@ WRAPPERS = {"sph_fwd_kernel": PK.fwd_bucket, "sph_mask_kernel": PK.mask_bucket,
             "sph_mask_tab_kernel": PK.mask_tab_bucket,
             "sph_blur_tab_kernel": PK.blur_bucket,
             "sph_mlp_kernel": MK.mlp_forward}
-NO_LAUNCHES = dict.fromkeys(WRAPPERS, 0)
+# the launch counter of 2.8's fused variant (MK.fused_update: the surface
+# rollouts' update without a gradient), counted apart from 2.8's
+FUSED = "sph_mlp_kernel<K> fused"
+NO_LAUNCHES = dict.fromkeys([*WRAPPERS, FUSED], 0)
 # the surface path: the stripes texture model on the JAX test CLI's default
 # surface size (--surface_numpoints 25600, --surface_numseed 10, a mesh
 # normalized to radius 1 at --surface_scale 1.0), seed radius h
@@ -507,6 +520,11 @@ MLP_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # of float32 moves ~0.06% of them past it); a kernel that skipped rounding H
 # to bfloat16 would move ~97% of them
 MLP_FLIP_SHARE = 0.005
+# 2.8's fused variant against the composition it replaces: the same input
+# rows and products, so the orig rule's state is bit-equal; the gated
+# rule's sigmoid and tanh come from two builds of the math library, within
+# FUSED_ULPS float32 ulps of the state
+FUSED_ULPS = 2.0
 # the batched gecko's alive share against the unbatched CLI's: other fire
 # draws and bfloat16 arithmetic, the same grown shape
 ALIVE_ATOL = 0.03
@@ -809,12 +827,22 @@ def bound(nbytes, ops, peak=FP32_FLOPS):
 
 
 def reset_launches() -> None:
-    for fn in WRAPPERS.values():
+    for fn in (*WRAPPERS.values(), MK.fused_update):
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Launches by kernel name, the fused variant of 2.8 under FUSED."""
+    return {**{name: fn.launches for name, fn in WRAPPERS.items()},
+            FUSED: MK.fused_update.launches}
+
+
+def launched_as(name: str, key: str) -> bool:
+    """Whether the profiler record ``key`` is a launch counted under
+    ``name``: the fused variant's records read sph_mlp_kernel<K>, 2.8's
+    sph_mlp_kernel<T, K>."""
+    fused = re.search(r"sph_mlp_kernel<\d", key) is not None
+    return fused if name == FUSED else name in key and not fused
 
 
 def expected_train_launches(steps, n_buckets: int, tables: bool) -> dict:
@@ -1596,7 +1624,7 @@ def busy_share(fn, steps: int, attempts: int = 4):
                               getattr(ev, "self_cuda_time_total", 0))
             n_records += ev.count
             for name in launched:
-                if name in ev.key:
+                if launched_as(name, ev.key):
                     held[name] += ev.count
         if held == launched:
             break
@@ -2682,6 +2710,162 @@ def band_mlp_phase(dev, smi, engines: dict) -> dict:
     return errs, times
 
 
+def readout_weights(block: int, dev):
+    """Orig-rule weights (K = 16, hid = 32) whose output is the MLP's input
+    block ``block`` (0: bf16(S), 1: the tangent projection, 2: the
+    bitangent's) exactly: relu(x) - relu(-x), every product by 1 or 0."""
+    w1k = torch.zeros(48, 32)
+    w2 = torch.zeros(32, 16)
+    for i in range(16):
+        w1k[16 * block + i, i], w1k[16 * block + i, 16 + i] = 1.0, -1.0
+        w2[i, i], w2[16 + i, i] = 1.0, -1.0
+    return (w1k.bfloat16().to(dev), torch.zeros(32, device=dev),
+            w2.bfloat16().to(dev), torch.zeros(16, device=dev))
+
+
+def ulps(got, want) -> torch.Tensor:
+    """|got - want| in units of want's last place (float32)."""
+    top = torch.nextafter(want.abs(), torch.full_like(want, float("inf")))
+    return (got - want).abs() / (top - want.abs())
+
+
+def work_fused(mom, S, gsum, nd, td, u, weights):
+    """Bytes and operations of one fused launch from its inputs: each read
+    once (the moments, the state, the self term, the frame, the draws, the
+    weights; the normals and the self term are shared by the samples), the
+    state written once (~243 B a row); the MLP's multiply-adds two
+    operations each."""
+    ins = [mom, S, gsum, *nd, *td, u, *weights]
+    nbytes = (sum(t.numel() * t.element_size() for t in ins)
+              + S.numel() * S.element_size())
+    hid, k = weights[0].shape[1], weights[2].shape[1]
+    return nbytes, u.numel() * 2 * (48 * hid + hid * k)
+
+
+def band_fused_phase(dev, rng, smi, eng) -> dict:
+    """[band-fused]: kernel 2.8's fused variant (``MK.fused_update``, the
+    surface rollouts' update without a gradient) at the band bench shape
+    [BENCH_B, nb, P] against the composition it replaces (``bands.
+    band_gradient``, ``MK.project_td``, ``cell_step._update_samples`` with
+    2.8), from the bench engine's moments of band states, the sphere's
+    normals and tangents as one diffusion leaves them: the orig rule's
+    state bit-equal, the gated state within FUSED_ULPS, rows that do not
+    fire unchanged; with readout weights, each block of the MLP's input rows
+    bit-equal. Then its time by CUDA events beside its bound from the run's
+    inputs, its plain version and the composition. Returns the kernels
+    line's entry."""
+    from sph_nca_tpu_torch.models.nca import SPHNCAConfig, init_params
+    from sph_nca_tpu_torch.models.surface import (
+        _diffuse_td,
+        normal_components,
+    )
+    from sph_nca_tpu_torch.ops import bands as BD
+
+    t0 = time.time()
+    h = bench_h()
+    x = fibonacci_sphere(BENCH_N, BENCH_RADIUS)
+    S = eng.scatter(band_states(rng, BENCH_B, BENCH_N, dev))
+    nrm = torch.from_numpy(sphere_normals(x)).to(dev)
+    nd = normal_components(eng.scatter(nrm))
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    T0 = orthogonalize(nrm, normalize(torch.randn(BENCH_B, BENCH_N, 3,
+                                                  generator=g, device=dev)))
+    with torch.no_grad():
+        td = _diffuse_td(eng, nd, normal_components(eng.scatter(T0)), S)
+        mom, _ = BD.perceive_band_moments(eng, S, True, torch.bfloat16)
+    if td[0].is_contiguous():
+        fail(f"band-fused: the diffusion left contiguous tangents, strides "
+             f"{td[0].stride()}")
+    u = torch.rand(S.shape[:-1], generator=g, device=dev)
+    rate = 0.5
+    models = {}
+    for rule in ("gated", "orig"):
+        cfg = SPHNCAConfig(update_rule=rule, normalize_perception=1.0 / h)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                             device=dev)
+        models[rule] = (cfg, cell_step._mlp_weights(params, cfg, 16, h,
+                                                    "bfloat16"))
+
+    def fused(cfg, weights, rate):
+        return MK.fused_update(mom, S, eng.gsum, eng.sig_g, nd, td, weights,
+                               u, rate, cfg.fire_rate / rate)
+
+    def composition(cfg, weights, rate):
+        ga = BD.band_gradient(mom, S, eng.gsum, eng.sig_g)
+        xin = MK.project_td(ga, nd, td, include_normal=False)
+        return cell_step._update_samples(cfg, weights, S, xin, u, rate,
+                                         True), xin
+
+    def plain(cfg, weights, rate):
+        return MK.fused_update_ref(mom, S, eng.gsum, eng.sig_g, nd, td,
+                                   weights, u, rate, cfg.fire_rate / rate)
+
+    reset_launches()
+    errs, lines = {}, []
+    with torch.no_grad():
+        for rule, (cfg, weights) in models.items():
+            got = fused(cfg, weights, rate)
+            want, _ = composition(cfg, weights, rate)
+            gap = ulps(got, want)
+            errs[rule] = {"max_abs_err": float((got - want).abs().max()),
+                          "max_ulps": float(gap.max()),
+                          "ulps_over_0": float((gap > 0).float().mean())}
+            still = u > rate
+            kept = torch.equal(got[still], S[still])
+            lines.append(f"{rule} (K={weights[2].shape[1]}): max abs "
+                         f"{errs[rule]['max_abs_err']:.3e}, "
+                         f"{errs[rule]['max_ulps']:.0f} ulps at most, "
+                         f"{errs[rule]['ulps_over_0']:.3e} of the elements "
+                         f"off; unfired rows kept {kept}")
+            ok = (torch.equal(got, want) if rule == "orig"
+                  else errs[rule]["max_ulps"] <= FUSED_ULPS)
+            if not (ok and kept):
+                fail(f"band-fused: the fused variant parts from the "
+                     f"composition, {rule}: {errs[rule]}, unfired rows kept "
+                     f"{kept}")
+        cfg1 = SPHNCAConfig(update_rule="orig", fire_rate=1.0)
+        for block in range(3):
+            weights = readout_weights(block, dev)
+            got = fused(cfg1, weights, 1.0)
+            want, xin = composition(cfg1, weights, 1.0)
+            rows = torch.cat([S.bfloat16(), xin.bfloat16()], -1)
+            blk = rows[..., 16 * block:16 * (block + 1)].float()
+            if not (torch.equal(want, S + blk) and torch.equal(got, want)):
+                fail(f"band-fused: input block {block} of the fused variant "
+                     f"is not the composition's, "
+                     f"{float((got - want).abs().max()):.3e} apart")
+    lines.append("the input rows' three blocks bit-equal (readout weights)")
+    launches = read_launches()
+    if launches != {**NO_LAUNCHES, FUSED: 5, "sph_mlp_kernel": 5}:
+        fail(f"band-fused launch counts {launches}")
+
+    cfg, weights = models["gated"]
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fused(cfg, weights, rate), 20, 3)
+        plain_ms = cuda_ms(lambda: plain(cfg, weights, rate), 20, 3)
+        lib_ms = cuda_ms(lambda: composition(cfg, weights, rate), 20, 3)
+    nbytes, ops = work_fused(mom, S, eng.gsum, nd, td, u, weights)
+    bound_ms, bound_by = bound(nbytes, ops, BF16_FLOPS)
+    lead = tuple(S.shape[:-1])
+    phase("band-fused", t0, f"sph_mlp_kernel's fused variant (MK."
+          f"fused_update) at the band bench shape {lead}, bfloat16 moments "
+          f"and MLP, hid 256, tangents at strides {td[0].stride()} (one "
+          f"diffusion), fire rate {rate}, against the composition with 2.8: "
+          + "; ".join(lines) + f" (limits: orig bit-equal, gated "
+          f"{FUSED_ULPS:.0f} ulps); {ms:.4f} ms by CUDA events (20 calls "
+          f"after 3), bound {bound_ms:.4f} ms by {bound_by} "
+          f"({100 * bound_ms / ms:.1f}% of it; {nbytes / 1e6:.2f} MB, "
+          f"{nbytes / u.numel():.1f} B a row, {ops / 1e9:.3f} G operations), "
+          f"plain version {plain_ms:.4f} ms, the composition (2.8 and the "
+          f"PyTorch ops around it) {lib_ms:.4f} ms | {smi}")
+    return {"shapes": f"band-bench {lead} bfloat16 moments and MLP",
+            "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library": "the composition: "
+            "band_gradient, project_td, 2.8, update_rule",
+            "launches": {"band-fused": launches[FUSED]}}
+
+
 def band_train_device(teng, x2):
     """Device us per BPTT step, traced wall us per BPTT step and the steps
     of one full-depth Trainer iteration on ``teng`` (after one warm-up);
@@ -2916,7 +3100,8 @@ def band_bench_phase(dev, rng, smi, eng, cell_pps: float) -> int:
     the device's busy share, peak memory, beside the cell engine's; the
     products a step and no per-step copy of a table (a profile with
     shapes); each band pass's time at this shape beside its byte bound and
-    the permuting copy into lanes. Returns 2.8's launches."""
+    the permuting copy into lanes. Returns the launches of 2.8's fused
+    variant, which takes every step's update here."""
     from torch.profiler import ProfilerActivity, profile
 
     from sph_nca_tpu_torch.models.nca import SPHNCAConfig, init_params
@@ -2962,7 +3147,7 @@ def band_bench_phase(dev, rng, smi, eng, cell_pps: float) -> int:
     bmm = sum(ev.count for ev in prof.key_averages()
               if ev.key == "aten::bmm") / 2
     copies = band_table_copies(prof, eng)
-    if launches != {**NO_LAUNCHES, "sph_mlp_kernel": BENCH_STEPS}:
+    if launches != {**NO_LAUNCHES, FUSED: BENCH_STEPS}:
         fail(f"band bench launch counts {launches}")
     if not (bool(torch.isfinite(fA).all()) and bool(torch.isfinite(fT).all())
             and float(fT.norm(dim=-1).max()) <= 1.0 + 1e-5):
@@ -3029,7 +3214,7 @@ def band_bench_phase(dev, rng, smi, eng, cell_pps: float) -> int:
           "(bfloat16 tables, B = 8), CUDA events around 20 calls after 3 "
           "(host gaps included: the passes are host-bound) and the "
           f"profiler's device time | {smi}")
-    return launches["sph_mlp_kernel"]
+    return launches[FUSED]
 
 
 def band_surface_cli_phase(dev, smi) -> dict:
@@ -5977,10 +6162,11 @@ def api_phase(dev, smi) -> dict:
     """[api]: (1) the golden recipe on the card against its plain CPU run;
     (2) ``utils.profiling.StepTimer`` around single steps of
     ``models.surface.rollout_mesh_batched`` on ``ops.build_band_engine``'s
-    engine at the bench shape (bfloat16 tables and MLP: kernel 2.8 once a
-    step), mean ms and particle-steps/s, no bar; (3) ``utils.profiling.
+    engine at the bench shape (bfloat16 tables and MLP: 2.8's fused variant
+    once a step), mean ms and particle-steps/s, no bar; (3) ``utils.profiling.
     trace`` around API_TRACE more steps: the Chrome trace exists, parses and
-    holds a CUDA kernel event. Returns 2.8's launches and the numbers."""
+    holds a CUDA kernel event. Returns the fused variant's launches and the
+    numbers."""
     from sph_nca_tpu_torch import models, ops, utils
 
     t0 = time.time()
@@ -6052,9 +6238,9 @@ def api_phase(dev, smi) -> dict:
             events = json.load(f)["traceEvents"]
     launches = read_launches()
     n_steps = API_WARMUP + API_TIMED + API_TRACE
-    if launches != {**NO_LAUNCHES, "sph_mlp_kernel": n_steps}:
+    if launches != {**NO_LAUNCHES, FUSED: n_steps}:
         fail(f"[api] steps launched {launches}, expected {n_steps} of "
-             "sph_mlp_kernel only")
+             "sph_mlp_kernel's fused variant only")
     if not (bool(torch.isfinite(A).all()) and bool(torch.isfinite(T).all())):
         fail("[api] steps: non-finite states or tangents")
     kern = [e for e in events if e.get("cat") == "kernel"]
@@ -6076,7 +6262,7 @@ def api_phase(dev, smi) -> dict:
           f"{API_TRACE} steps: {len(events)} events, {len(kern)} CUDA "
           f"kernel events, sph_mlp_kernel among them: {mlp_traced} "
           f"(launched {API_TRACE}); launches {launches} | {smi}")
-    return {"launches": launches["sph_mlp_kernel"], "launches_path": "api",
+    return {"launches": launches[FUSED],
             "shapes": f"bench sphere N={BENCH_N} bfloat16 tables B={BENCH_B}",
             "step_ms": s["mean_ms"],
             "particle_steps_per_sec": s["particle_steps_per_sec"],
@@ -6705,11 +6891,12 @@ def main() -> int:
     # ---- the band engine: both CLIs' default, the trainer, the bench ------
     bengines = band_build_phase(dev, smi)
     band_mlp_errs, band_mlp_times = band_mlp_phase(dev, smi, bengines)
+    fused = band_fused_phase(dev, rng, smi, bengines["bench"])
     band = {"band-train": band_train_phase(dev, smi, bengines["train"], x2),
-            "band-inference": band_inference_phase(dev, smi, model, x),
-            "band-bench": band_bench_phase(dev, rng, smi, bengines["bench"],
-                                           cell_pps),
-            "band-surface-cli": band_surface_cli_phase(dev, smi)}
+            "band-inference": band_inference_phase(dev, smi, model, x)}
+    fused["launches"]["band-bench"] = band_bench_phase(
+        dev, rng, smi, bengines["bench"], cell_pps)
+    band["band-surface-cli"] = band_surface_cli_phase(dev, smi)
     del bengines
 
     # ---- the texture slice: OT training, checkpoints, the test / eval CLIs
@@ -6779,6 +6966,11 @@ def main() -> int:
                 "max_abs_err": cli_errs[name]}
             row["bench"] = bench[name]
         if name == "sph_mlp_kernel":
+            # the fused variant: its own launches (the bench rollouts, the
+            # [api] steps, its check), its check and times
+            fused["launches"]["api"] = api.pop("launches")
+            fused["launches_path"] = ", ".join(fused["launches"])
+            row["fused"] = fused
             row["api"] = api
             # the demo server steps the band engine: 2.8 is its kernel
             row["demo"] = {

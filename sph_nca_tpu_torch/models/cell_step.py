@@ -50,9 +50,10 @@ from typing import Optional, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import bands as BD
 from ..ops import batched as BT
 from ..ops.cells import CellEngine
-from ..ops.mlp_kernel import mlp_fused
+from ..ops.mlp_kernel import fused_update, mlp_fused, update_rule
 from ..utils.profiling import span
 from .nca import ALIVE_THRESHOLD, MLPParams, SPHNCAConfig, apply_mlp
 
@@ -245,18 +246,13 @@ def _update_samples(cfg: SPHNCAConfig, weights, S: torch.Tensor,
     """The batched step's update for states S [..., F], their perception ga
     [..., >= 2F] (per-sample d-major: gA_x, gA_y, ...) and fire draws u
     [...]: the fused update MLP on ``_mlp_weights``, the gated or orig rule,
-    and the fire mask. Returns the pre-life-mask state [..., F]."""
+    and the fire mask (``update_rule``). Returns the pre-life-mask state
+    [..., F]."""
     f = S.shape[-1]
     ydt = weights[0].dtype
-    g_pre, d_pre, m_pre = mlp_fused(S.to(ydt), ga[..., :2 * f].to(ydt),
-                                    *weights, use_kernel=use_kernels)
-    if cfg.update_rule == "gated":
-        nS = (S * torch.sigmoid(g_pre)
-              + torch.tanh(d_pre) * torch.sigmoid(m_pre)[..., None])
-    else:
-        nS = S + g_pre * (cfg.fire_rate / fire_rate)
-    # select, not lerp (S + 1 * (nS - S) can differ from nS by an ulp)
-    return torch.where((u <= fire_rate)[..., None], nS, S)
+    outs = mlp_fused(S.to(ydt), ga[..., :2 * f].to(ydt), *weights,
+                     use_kernel=use_kernels)
+    return update_rule(S, *outs, u, fire_rate, cfg.fire_rate / fire_rate)
 
 
 def _update_core(params: MLPParams, cfg: SPHNCAConfig, SB2: torch.Tensor,
@@ -300,6 +296,34 @@ def _step_samples(cfg: SPHNCAConfig, eng, weights,
         prev_mask = pre_sm > ALIVE_THRESHOLD
     with span("step.update"):
         nS = _update_samples(cfg, weights, S, ga, u, fire_rate, use_kernels)
+    return _step_tail(cfg, eng, nS, prev_mask, use_kernels)
+
+
+def _fused_step_samples(cfg: SPHNCAConfig, eng, weights,
+                        S: torch.Tensor, u: torch.Tensor, fire_rate: float,
+                        use_kernels: bool, nd, td) -> torch.Tensor:
+    """``_step_samples`` with the surface rollouts' tangent projection on a
+    ``BandEngine``, by the fused route (``models/surface.py`` chooses it):
+    the products' raw moments (``bands.perceive_band_moments``) go to
+    ``ops.mlp_kernel.fused_update``, which finishes the gradient, projects
+    it onto the frame (the tangents td, three [B, C, M], and n x t, with the
+    normals nd, three [C, M]) and applies the MLP and the rule in one
+    launch."""
+    with span("step.perceive"):
+        mom, pre_sm = BD.perceive_band_moments(eng, S, cfg.use_alpha,
+                                               weights[0].dtype)
+        prev_mask = pre_sm > ALIVE_THRESHOLD
+    with span("step.update"):
+        nS = fused_update(mom, S, eng.gsum, eng.sig_g, nd, td, weights, u,
+                          fire_rate, cfg.fire_rate / fire_rate,
+                          use_kernel=use_kernels)
+    return _step_tail(cfg, eng, nS, prev_mask, use_kernels)
+
+
+def _step_tail(cfg: SPHNCAConfig, eng, nS: torch.Tensor,
+               prev_mask: torch.Tensor, use_kernels: bool) -> torch.Tensor:
+    """A batched step's tail: the post-update mask of the pre-life-mask
+    state nS (detached) and the life mask with the pre-step one."""
     with span("step.mask"):
         new_sm = BT.mask_blur_samples(eng, nS.detach(), cfg.use_alpha,
                                       use_kernels=use_kernels)

@@ -12,11 +12,12 @@ band-engine parts (``normalize``, ``orthogonalize``,
 rollouts ``rollout_mesh_batched`` (:473) and ``rollout_mesh_batched_dual``
 (:602), on either engine, with their pieces
 (``normal_components``, ``_diffuse_td`` / ``_diffuse_weights`` /
-``_diffuse_mt`` / ``_diffuse_combine``, ``_project_td`` and
-``_finish_mesh_batched``). The JAX package's lane-layout wrappers
-``diffuse_batched`` (:305) and ``project_tangent_space_lanes`` (:265) have
-no counterpart of their own: the port steps only in the sample layout, where
-``_diffuse_td`` and ``_project_td`` compute the same functions.
+``_diffuse_mt`` / ``_diffuse_combine``, ``_finish_mesh_batched``, and
+the tangent projection ``ops.mlp_kernel.project_td``). The JAX package's
+lane-layout wrappers ``diffuse_batched`` (:305) and
+``project_tangent_space_lanes`` (:265) have no counterpart of their own: the
+port steps only in the sample layout, where ``_diffuse_td`` and
+``project_td`` compute the same functions.
 On a cell engine every pair pass runs through the table kernels of
 ``ops/pair_kernel.py``, so the engine must be built with ``pair_tables``; on
 a band engine (``ops/bands.py``) through its library products, reached by
@@ -45,6 +46,15 @@ re-orthogonalization; the port rounds the perception on a band engine
 normals in float32, and projects in float32 (a documented deviation, as for
 the table kernels' right-hand sides).
 
+The fused route. When no gradient is needed, on a band engine with
+bfloat16 tables and a bfloat16 MLP of F = 16 channels (all visible in the
+inputs), a step's perception stops at the band products' raw moments and
+its update is one launch of the fused variant of kernel 2.8
+(``ops.mlp_kernel.fused_update``): the gradient's finish, the tangent
+projection, the MLP and the rule with the fire select, rounded where the
+composition rounds. Training (a gradient, float32), cell engines, float32
+MLPs and the sharded band engine run the composition.
+
 The fire-rate mask is drawn per slot (and sample) from a ``torch.Generator``:
 the law of the JAX package, another stream, so trajectories match the JAX
 package only at fire_rate == 1.
@@ -59,13 +69,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import batched as BT
-from ..ops.bands import blur_band
+from ..ops.bands import BandEngine, blur_band
 from ..ops.cells import CellEngine
 from ..ops.hashgrid import SPHGraph
+from ..ops.mlp_kernel import F_KERNEL, project_td
 from ..ops.neighbor_ops import graph_blur
 from ..ops.pair_kernel import blur_cells
 from ..utils.profiling import span
 from .cell_step import (
+    _fused_step_samples,
     _mlp_weights,
     _step_samples,
     nca_step_cells,
@@ -341,24 +353,6 @@ def _diffuse_td(eng, nd, td, S: torch.Tensor, *,
     return _diffuse_combine(mt2, w, td, nd, lerp_multiplier)
 
 
-def _project_td(ga: torch.Tensor, nd, td,
-                include_normal: bool = True) -> torch.Tensor:
-    """Tangent projection of per-sample d-major gradients ga [B, C, M, 3*F]
-    with per-sample tangents td (three [B, C, M]) and shared normals nd
-    (three [C, M]) -> [B, C, M, K*F], blocks [gA.t | gA.bitan (| gA.n)]
-    (reference nca.py:325-330; the JAX package's ``_project_td``, and its
-    ``project_tangent_space_lanes`` without the lane layout). ``include_normal=False`` drops the normal
-    block: the update reads only the first two (nca.py:23-31)."""
-    f = ga.shape[-1] // 3
-    g = [ga[..., i * f:(i + 1) * f] for i in range(3)]
-    bd = (nd[1] * td[2] - nd[2] * td[1],
-          nd[2] * td[0] - nd[0] * td[2],
-          nd[0] * td[1] - nd[1] * td[0])
-    bases = [td, bd] + ([nd] if include_normal else [])
-    return torch.cat([g[0] * e[0][..., None] + g[1] * e[1][..., None]
-                      + g[2] * e[2][..., None] for e in bases], dim=-1)
-
-
 def _finish_mesh_batched(eng, S: torch.Tensor, td):
     """The rollouts' tail: the state [B, C, M, F] and tangents (three
     [B, C, M]) back to particle order, ([B, N, F], [B, N, 3])."""
@@ -380,19 +374,27 @@ def _rollout_mesh_samples(params: MLPParams, cfg: SPHNCAConfig,
                          "diffusion blurs over its poly6 table)")
     if fire_rate is None:
         fire_rate = cfg.fire_rate
-    remat = remat and torch.is_grad_enabled() and (
+    needs_grad = torch.is_grad_enabled() and (
         A0.requires_grad or any(p.requires_grad for p in params))
+    remat = remat and needs_grad
     with span("rollout"):
         dual = None if eng_d is eng else (eng_d, *_slot_maps(eng, eng_d))
         S = eng.scatter(A0)  # [B, C, M, F]
         nd = normal_components(eng.scatter(n))
         td = normal_components(eng.scatter(t0))
         weights = _mlp_weights(params, cfg, S.shape[-1], h, mlp_dtype)
+        # what the fused route takes (ops.mlp_kernel.fused_update)
+        fused = (isinstance(eng, BandEngine) and not needs_grad
+                 and eng.Tband.dtype == weights[0].dtype == torch.bfloat16
+                 and S.shape[-1] == F_KERNEL)
 
         def step(S, u, *td):
+            if fused:
+                return _fused_step_samples(cfg, eng, weights, S, u,
+                                           fire_rate, use_kernels, nd, td)
             return _step_samples(
                 cfg, eng, weights, S, u, fire_rate, use_kernels,
-                lambda ga: _project_td(ga, nd, td, include_normal=False))
+                lambda ga: project_td(ga, nd, td, include_normal=False))
 
         states = [A0] if collect_all else None
         for _ in range(n_steps):
@@ -448,6 +450,8 @@ def rollout_mesh_batched(
     parameters (tangents detached); ``remat`` recomputes each step in the
     backward (torch.utils.checkpoint, as ``cell_step.REMAT``).
     ``use_kernels=False`` runs the kernels' plain versions on any device.
+    Without a gradient, on a band engine with bfloat16 tables and MLP, each
+    step's update is the fused route (the module docstring).
     """
     return _rollout_mesh_samples(
         params, cfg, eng, eng, A0, n, t0, generator, n_steps, h,

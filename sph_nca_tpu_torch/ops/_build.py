@@ -174,4 +174,14 @@ def load_library() -> ctypes.CDLL:
         _P, _P, _P, _P,  # gate, delta, mult, stream
     ]
     lib.sph_mlp_launch.restype = _I
+    lib.sph_mlp_fused_launch.argtypes = [
+        _P, _P, _P,  # mom, S, gsum
+        _P, _P, _P, _L, _L, _L,  # t0, t1, t2, their strides
+        _P, _P, _P, _P,  # n0, n1, n2, u
+        _P, _P, _P, _P,  # w1k, b1, w2, b2
+        _I, _I, _I, _I, _I, _I,  # B, nb, P, F, hid, K
+        _F, _F, _F,  # sigma_g (bf16), fire rate, the orig rule's factor
+        _P, _P,  # out, stream
+    ]
+    lib.sph_mlp_fused_launch.restype = _I
     return lib

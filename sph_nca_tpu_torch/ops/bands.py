@@ -301,9 +301,10 @@ def _dtype(out_dtype) -> torch.dtype:
         else out_dtype
 
 
-def _scalar(value: float, dtype: torch.dtype) -> float:
+def rounded_scalar(value: float, dtype: torch.dtype) -> float:
     """``value`` rounded to ``dtype`` (the JAX package casts its constants
-    to the output dtype before it multiplies)."""
+    to the output dtype before it multiplies; the fused update takes
+    sigma_g rounded so, ``ops/mlp_kernel.py``)."""
     return float(torch.tensor(value, dtype=torch.float32).to(dtype))
 
 
@@ -340,32 +341,54 @@ def _lane_samples(XB: torch.Tensor, b: int) -> torch.Tensor:
     return XB.view(nb, p, b, bf // b).permute(2, 0, 1, 3)
 
 
-def perceive_band_samples(eng: BandEngine, S: torch.Tensor,
+def perceive_band_moments(eng: BandEngine, S: torch.Tensor,
                           use_alpha: bool = True, out_dtype=None):
-    """Fused batched perception + pre-step life-mask blur of samples S [B,
-    nb, P, F]: (ga [B, nb, P, D*F] per-sample d-major in the output dtype,
-    pre_sm [B, nb, P] float32). Two products a pass (the md columns against
-    the state's lanes, the smoothing columns against the alive columns),
-    each reading its table once for all B samples. ``out_dtype="bfloat16"``
-    rounds the moments and emits ga in bfloat16. Differentiable in S through
-    ga.
+    """The two products of the batched perception of samples S [B, nb, P,
+    F]: (mom [nb, D*P, B*F], the raw spiky moments in the output dtype as
+    ``_pass`` leaves them, and pre_sm [B, nb, P] float32, the pre-step
+    life-mask blur). Two products a pass (the md columns against the
+    state's lanes, the smoothing columns against the alive columns), each
+    reading its table once for all B samples.
 
     The far windows of the alive columns are gathered from the alive
     columns themselves, (alpha > 0.1) & (v > 0) at each window row: the
     values the JAX package derives from the gathered state's alpha lanes and
     a far real-row mask (a narrower gather mattered on the TPU), in one
     gather a bucket."""
+    p = eng.slots_per_cell
+    mom = _pass(eng, _to_lanes(S, eng.Tband.dtype),
+                slice(0, eng.dim * p), _dtype(out_dtype))
+    sm = _pass(eng, _alive_samples(eng, S, use_alpha), slice(eng.dim * p,
+                                                             None))
+    return mom, (eng.sig_w * sm).permute(2, 0, 1)
+
+
+def band_gradient(mom: torch.Tensor, S: torch.Tensor, gsum: torch.Tensor,
+                  sig_g: float) -> torch.Tensor:
+    """The gradient from the raw moments mom [nb, D*P, B*F] of samples S
+    [B, nb, P, F] and the self term gsum [nb, P, D]: ga [B, nb, P, D*F]
+    per-sample d-major in mom's dtype, sigma_g mom - S gsum with every
+    operand and product rounded to that dtype, as the JAX package's."""
     b, nb, p, f = S.shape
-    d = eng.dim
-    odt = _dtype(out_dtype)
-    mom = _pass(eng, _to_lanes(S, eng.Tband.dtype), slice(0, d * p), odt)
-    sm = _pass(eng, _alive_samples(eng, S, use_alpha), slice(d * p, None))
-    Xo = S.to(odt) if out_dtype else S
-    gs = eng.gsum.to(odt)
+    d = gsum.shape[-1]
+    odt = mom.dtype
+    Xo = S.to(odt)
+    gs = gsum.to(odt)
     mom = mom.view(nb, d, p, b, f).permute(3, 0, 2, 1, 4)  # [B, nb, P, D, F]
-    ga = (_scalar(eng.sig_g, odt) * mom
+    ga = (rounded_scalar(sig_g, odt) * mom
           - Xo[:, :, :, None, :] * gs[None, :, :, :, None])
-    return ga.reshape(b, nb, p, d * f), (eng.sig_w * sm).permute(2, 0, 1)
+    return ga.reshape(b, nb, p, d * f)
+
+
+def perceive_band_samples(eng: BandEngine, S: torch.Tensor,
+                          use_alpha: bool = True, out_dtype=None):
+    """Fused batched perception + pre-step life-mask blur of samples S [B,
+    nb, P, F]: (ga [B, nb, P, D*F] per-sample d-major in the output dtype,
+    pre_sm [B, nb, P] float32), ``perceive_band_moments`` then
+    ``band_gradient``. ``out_dtype="bfloat16"`` rounds the moments and
+    emits ga in bfloat16. Differentiable in S through ga."""
+    mom, pre_sm = perceive_band_moments(eng, S, use_alpha, out_dtype)
+    return band_gradient(mom, S, eng.gsum, eng.sig_g), pre_sm
 
 
 def mask_blur_band_samples(eng: BandEngine, S: torch.Tensor,

@@ -61,12 +61,12 @@ from torch.utils.checkpoint import checkpoint
 from ..models import cell_step as CST
 from ..models.surface import (
     _diffuse_td,
-    _project_td,
     normal_components,
 )
 from ..ops import bands as BD
 from ..ops import batched as BT
 from ..ops.gather import gather_rows
+from ..ops.mlp_kernel import project_td
 from . import comm
 from .mesh import coords, particle_group
 
@@ -577,7 +577,7 @@ def rollout_mesh_band_sharded(params, cfg, loc: BandShards,
         u = _rank_u(seed, t, S.shape[:-1], S.device)
         S = CST._step_samples(
             cfg, seng, weights, S, u, fire_rate, use_kernels,
-            lambda ga: _project_td(ga, nd, td, include_normal=False))
+            lambda ga: project_td(ga, nd, td, include_normal=False))
         with torch.no_grad():
             td = _diffuse_td(seng, nd, td, S.detach(),
                              lerp_multiplier=lerp_multiplier,

@@ -1048,6 +1048,223 @@ def test_band_engine_has_no_cpu_fallback(cuda):
         BD._pair_dot(eng.Tband.to("meta"), X.to("meta"))
 
 
+# ---- kernel 2.8's fused variant (ops/mlp_kernel.py fused_update) -----------
+
+
+def _fused_args(device, b, nb, p, k, hid=256, seed=0):
+    """The fused update's inputs at [B, nb, P] rows: moments mom [nb, 3P,
+    B*16] bf16, states S in [-0.5, 1), a self term gsum, unit normals and
+    unit tangents off them (components), fire draws u, and bf16 weights of
+    K = k outputs."""
+    g = torch.Generator().manual_seed(seed)
+    mom = (torch.randn(nb, 3 * p, b * 16, generator=g) * 4).bfloat16()
+    S = torch.rand(b, nb, p, 16, generator=g) * 1.5 - 0.5
+    gsum = torch.randn(nb, p, 3, generator=g) * 2
+    n = torch.nn.functional.normalize(torch.randn(nb, p, 3, generator=g),
+                                      dim=-1)
+    t = torch.randn(b, nb, p, 3, generator=g)
+    t = torch.nn.functional.normalize(
+        t - n * torch.sum(n * t, dim=-1, keepdim=True), dim=-1)
+    u = torch.rand(b, nb, p, generator=g)
+    weights = [(torch.randn(48, hid, generator=g) * 0.2).bfloat16(),
+               torch.randn(hid, generator=g) * 0.1,
+               (torch.randn(hid, k, generator=g) * 0.1).bfloat16(),
+               torch.randn(k, generator=g) * 0.1]
+    on = (lambda ts: [x.to(device) for x in ts])
+    return dict(mom=mom.to(device), S=S.to(device), gsum=gsum.to(device),
+                nd=on(n[..., i].contiguous() for i in range(3)),
+                td=on(t[..., i].contiguous() for i in range(3)),
+                weights=on(weights), u=u.to(device))
+
+
+def _ulps(got, want):
+    """|got - want| in units of want's last place (float32)."""
+    ulp = torch.nextafter(want.abs(), torch.tensor(math.inf,
+                                                   device=want.device)) \
+        - want.abs()
+    return (got - want).abs() / ulp
+
+
+def _diffusion_strides(a, shape):
+    """The tangents as the diffusion leaves them: [nb, P, B] in memory."""
+    a["td"] = [t.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+               for t in a["td"]]
+    assert a["td"][0].stride() == (1, shape[0] * shape[2], shape[0])
+
+
+def _composition(a, rate, scale, sig_g=3.25):
+    """The composition the fused variant replaces, on the card: the
+    gradient's finish (``bands.band_gradient``), the tangent projection
+    (``mlp_kernel.project_td``), kernel 2.8 on the inputs cast to the
+    weights' dtype and the rule (``mlp_kernel.update_rule``). Returns the
+    state and the MLP's input rows [S | x]."""
+    from sph_nca_tpu_torch.ops import bands as BD
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    w = a["weights"]
+    dt = w[0].dtype
+    x = MK.project_td(BD.band_gradient(a["mom"], a["S"], a["gsum"], sig_g),
+                      a["nd"], a["td"], include_normal=False)
+    outs = MK.mlp_forward(a["S"].to(dt), x.to(dt), *w)
+    return (MK.update_rule(a["S"], *outs, a["u"], rate, scale),
+            torch.cat([a["S"].to(dt), x.to(dt)], dim=-1))
+
+
+def _fused(a, rate, scale, sig_g=3.25):
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    return MK.fused_update(a["mom"], a["S"], a["gsum"], sig_g, a["nd"],
+                           a["td"], a["weights"], a["u"], rate, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [33, 16])
+@pytest.mark.parametrize("shape", [(8, 1600, 64), (3, 5, 13)])
+def test_fused_update_kernel_matches_plain(cuda, shape, k):
+    """The fused variant against the composition it replaces on the card,
+    whose MLP is kernel 2.8: at the benchmark's surface shape (B = 8, 1600
+    blocks of 64 rows) and at a ragged one (195 rows, not a whole 32-row
+    tile), gated and orig; at the surface shape the tangents lie as the
+    diffusion leaves them. The orig rule's state is bit-equal (the same
+    input rows, the same products, the same float32 rule); the gated
+    state is within 2 float32 ulps (sigmoid and tanh from two builds of the
+    math library); a row that does not fire keeps its state exactly."""
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    a = _fused_args(cuda, *shape, k)
+    if shape[1] > 5:
+        _diffusion_strides(a, shape)
+    rate, scale = 0.5, (1.0 if k == 33 else 2.0)
+    n0 = MK.fused_update.launches, MK.mlp_forward.launches
+    got = _fused(a, rate, scale)
+    torch.cuda.synchronize()
+    assert (MK.fused_update.launches, MK.mlp_forward.launches) == (
+        n0[0] + 1, n0[1])
+    want, _ = _composition(a, rate, scale)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if k == 16:
+        assert torch.equal(got, want)
+    else:
+        assert float(_ulps(got, want).max()) <= 2.0
+    still = a["u"] > rate
+    assert torch.equal(got[still], a["S"][still])
+    assert torch.equal(_fused(a, rate, scale), got)
+
+
+def _readout(block, device):
+    """Weights of the orig rule (K = 16, hid = 32) whose output is the MLP's
+    input block ``block`` (0: bf16(S), 1: the tangent projection, 2: the
+    bitangent's) exactly: relu(x) - relu(-x), every product by 1 or 0."""
+    w1k = torch.zeros(48, 32)
+    w2 = torch.zeros(32, 16)
+    for i in range(16):
+        w1k[16 * block + i, i], w1k[16 * block + i, 16 + i] = 1.0, -1.0
+        w2[i, i], w2[16 + i, i] = 1.0, -1.0
+    return [w1k.bfloat16().to(device), torch.zeros(32, device=device),
+            w2.bfloat16().to(device), torch.zeros(16, device=device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(8, 1600, 64), (3, 5, 13)])
+def test_fused_update_rows_match_composition(cuda, shape, block):
+    """The MLP's input rows the fused variant forms are the composition's,
+    bit for bit: with readout weights its output is one block of the row,
+    so the orig rule's state, every row firing, is S + that block, and it
+    equals the composition's at every element."""
+    a = _fused_args(cuda, *shape, 16)
+    if shape[1] > 5:
+        _diffusion_strides(a, shape)
+    a["weights"] = _readout(block, cuda)
+    got = _fused(a, 1.0, 1.0)
+    want, rows = _composition(a, 1.0, 1.0)
+    blk = rows[..., 16 * block:16 * (block + 1)].float()
+    assert torch.equal(want, a["S"] + blk)
+    assert float(blk.abs().max()) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_update_rejects_what_the_kernel_does_not_take(cuda):
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+
+    a = _fused_args(cuda, 2, 3, 16, 33)
+    MK.fused_update(a["mom"], a["S"], a["gsum"], 3.25, a["nd"], a["td"],
+                    a["weights"], a["u"], 0.5)
+    w1k, b1, w2, b2 = a["weights"]
+    bad = [
+        dict(mom=a["mom"].float()),
+        dict(S=a["S"].bfloat16()),
+        dict(mom=a["mom"][:, :, :16], S=a["S"][:1], u=a["u"][:1],
+             td=[t[:1] for t in a["td"]]),  # ... with a non-contiguous mom
+        dict(td=[a["td"][0]] + [t.transpose(1, 2).contiguous().transpose(
+            1, 2) for t in a["td"][1:]]),  # tangents at two sets of strides
+        dict(weights=[w1k.float(), b1, w2.float(), b2]),  # float32 MLP
+        dict(weights=[w1k, b1, w2[:, :20].contiguous(), b2[:20]]),  # K 20
+        dict(S=_misaligned(a["S"])),
+        dict(u=a["u"].cpu()),  # off the card
+    ]
+    for change in bad:
+        kw = dict(a, **change)
+        with pytest.raises(ValueError):
+            MK.fused_update(kw["mom"], kw["S"], kw["gsum"], 3.25, kw["nd"],
+                            kw["td"], kw["weights"], kw["u"], 0.5)
+
+
+@pytest.mark.cuda
+def test_fused_surface_rollout_matches_composition(cuda):
+    """8 steps of a bf16 surface rollout on a band engine on the card
+    through the fused route (no gradient: one fused launch a step, no other
+    launch of 2.8) against the same steps through the composition (the
+    parameters under grad: 2.8 once a step), fire rate 0.5, from states
+    alive at about one particle in seven: the same life decisions at every
+    particle and step, and states within 1e-2 of the largest (a bf16 input
+    of the MLP that the math library's last bit flips moves a row by that
+    much)."""
+    from sph_nca_tpu_torch.models.surface import rollout_mesh_batched
+    from sph_nca_tpu_torch.ops import mlp_kernel as MK
+    from sph_nca_tpu_torch.ops.bands import build_band_engine
+    from sph_nca_tpu_torch.utils.meshes import (
+        fibonacci_sphere,
+        sphere_normals,
+    )
+
+    x = fibonacci_sphere(6000, 1.0)
+    eng = build_band_engine(x, 0.12, table_dtype="bfloat16", device=cuda)
+    nrm = torch.from_numpy(sphere_normals(x)).to(cuda)
+    g = torch.Generator().manual_seed(4)
+    b = 4
+    A0 = torch.rand(b, x.shape[0], 16, generator=g) * 1.5 - 0.5
+    A0[..., 3] = (torch.rand(b, x.shape[0], generator=g) < 0.15).float()
+    A0 = A0.to(cuda)
+    t0 = torch.randn(b, x.shape[0], 3, generator=g).to(cuda)
+    t0 = torch.nn.functional.normalize(
+        t0 - nrm * torch.sum(nrm * t0, dim=-1, keepdim=True), dim=-1)
+    cfg = SPHNCAConfig(fire_rate=0.5, normalize_perception=1.0 / 0.12)
+    params = MLPParams(
+        torch.randn(48, 256, generator=g) * 0.2, torch.randn(256, generator=g)
+        * 0.1, torch.randn(256, 33, generator=g) * 0.2,
+        torch.randn(33, generator=g) * 0.1)
+    out = {}
+    for fused in (True, False):
+        p = MLPParams(*(t.to(cuda).requires_grad_(not fused)
+                        for t in params))
+        counts = MK.fused_update.launches, MK.mlp_forward.launches
+        out[fused] = rollout_mesh_batched(
+            p, cfg, eng, A0, nrm, t0,
+            torch.Generator(device=cuda).manual_seed(5), 8, 0.12,
+            mlp_dtype="bfloat16", collect_all=True)
+        assert (MK.fused_update.launches - counts[0],
+                MK.mlp_forward.launches - counts[1]) == (
+            (8, 0) if fused else (0, 8))
+    states, plain = out[True][2], out[False][2].detach()
+    alive = (states != 0).any(-1)
+    assert torch.equal(alive, (plain != 0).any(-1))
+    assert 0 < float(alive[-1].float().mean()) < 1
+    assert float((states - plain).abs().max()) <= 1e-2 * float(
+        plain.abs().max())
+
+
 # ---- the OT loss (library calls: cuDNN convolutions, cuBLAS products) ----
 
 

@@ -188,7 +188,8 @@ def test_every_launcher_has_a_c_signature():
     for src in (PORT / "csrc").glob("*.cu"):
         launchers |= set(re.findall(r'extern "C" int (\w+)\(',
                                     src.read_text()))
-    assert "sph_mlp_launch" in launchers and len(launchers) == 8
+    assert {"sph_mlp_launch", "sph_mlp_fused_launch"} <= launchers
+    assert len(launchers) == 9
     build = (PORT / "ops" / "_build.py").read_text()
     for name in launchers:
         assert f"lib.{name}.argtypes" in build, name

@@ -46,6 +46,7 @@ from sph_nca_tpu_torch.models import surface as TS
 from sph_nca_tpu_torch.models.nca import SPHNCAConfig
 from sph_nca_tpu_torch.ops import batched as TB
 from sph_nca_tpu_torch.ops.cells import build_cell_engine
+from sph_nca_tpu_torch.ops.mlp_kernel import project_td
 from sph_nca_tpu_torch.utils.seeds import prediffuse_tangents
 
 # tests/test_torch_surface.py's scene: a sphere of 1200 points, h = 0.22
@@ -127,7 +128,7 @@ def test_diffuse_batched_matches_jax():
 
 
 def test_project_tangent_space_lanes_matches_jax():
-    """The sample-layout projection ``_project_td`` against the JAX
+    """The sample-layout projection ``project_td`` against the JAX
     package's ``project_tangent_space_lanes``, the layouts converted here;
     without the normal block it gives the first two blocks."""
     x, nrm, je, te = _sphere()
@@ -142,10 +143,10 @@ def test_project_tangent_space_lanes_matches_jax():
     ga = TB.lanes_to_dmajor(torch.from_numpy(gaB), B, 3)
     nd = TS.normal_components(nc)
     td = TS.normal_components(tc.expand(B, -1, -1, -1))
-    got = TS._project_td(ga, nd, td)
+    got = project_td(ga, nd, td)
     assert got.shape == ga.shape
     _close(got.numpy(), want.numpy(), 1e-5)
-    two = TS._project_td(ga, nd, td, include_normal=False)
+    two = project_td(ga, nd, td, include_normal=False)
     _close(two.numpy(), want[..., :2 * F].numpy(), 1e-5)
 
 
